@@ -3,6 +3,8 @@
 against their plain versions.
 
     python3 chip_smoke.py      # needs one CUDA card
+    python3 chip_smoke.py --slice-root DIR   # only the slice phase, with
+                                             # the package of checkout DIR
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -16,9 +18,20 @@ Phases, each of which raises on failure (non-zero exit):
    the same assignments on the card as on the CPU;
 3. kernels: each kernel against its plain PyTorch version on the card,
    on random blocks (ragged, all-masked, padded rows, skip-heavy, tol 0
-   and 1e-3) and on a score block captured from the slice run; then
-   each kernel's time, its plain version's time and its bound at the
-   main-path block.
+   and 1e-3; rows not a multiple of the cluster size, fewer rows than
+   CTAs in a cluster, one window, more windows than clusters run at
+   once, an early tolerance exit) and on a score block captured from
+   the slice run; then each kernel's time, its plain version's time and
+   its bound at the main-path block.
+
+``--slice-root`` runs the slice phase alone against another checkout
+(one process per checkout, since both packages share a name), so that
+two commits are compared on one card in turns.
+
+The slice line carries ``kernel_ms``, the summed device time of the
+path's kernel launches (CUDA events around each launch), beside
+``wall_s``. The kernel-timing line carries each kernel's cluster size
+and the three terms of its bound.
 
 The last lines are the launch counts, the kernel table as one JSON
 object, the card's name and power limit, and the result object. In the
@@ -44,6 +57,9 @@ ACCURACY_FLOOR = 0.9747
 # NVIDIA H100 SXM data sheet: HBM rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# CUDA C++ programming guide, arithmetic instruction throughput, compute
+# capability 9.0: 16 exponentials (special-function unit) per clock per SM
+EXP_PER_CLOCK_PER_SM = 16
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOPK = 5
@@ -58,6 +74,27 @@ def nvidia_smi() -> str:
             timeout=30).stdout.strip()
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi unavailable: {e}"
+
+
+def exp_rate() -> tuple:
+    """Exponentials per second of card 0 at its maximum SM clock
+    (``nvidia-smi clocks.max.sm``), and that clock in MHz."""
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    mhz = None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+        mhz = float(out.splitlines()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        khz = getattr(props, "clock_rate", None)
+        mhz = khz / 1e3 if khz else None
+    if not mhz:
+        raise RuntimeError("cannot read the card's SM clock for the exp bound")
+    return EXP_PER_CLOCK_PER_SM * props.multi_processor_count * mhz * 1e6, mhz
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -122,9 +159,10 @@ def to_cuda(block):
 # checks
 # ---------------------------------------------------------------------------
 
-def check_case(name, blk, tol, n_iters=40):
+def check_case(name, blk, tol, n_iters=40, early_exit=False):
     """Hold K2, round_topk and K1 against their plain versions on one
-    batch of blocks; returns the numbers of the comparison."""
+    batch of blocks; returns the numbers of the comparison. With
+    ``early_exit`` every block must stop before ``n_iters``."""
     import numpy as np
     import torch
 
@@ -137,8 +175,10 @@ def check_case(name, blk, tol, n_iters=40):
     kw = dict(epsilon=1.0, n_iters=n_iters, tol=tol)
 
     plan_p = sinkhorn_log(S, rm, cm, **kw)
-    plan_k = K.sinkhorn_cuda(S, rm, cm, **kw)
+    plan_k, k2_iters = K.sinkhorn_cuda(S, rm, cm, return_iters=True, **kw)
     torch.cuda.synchronize()
+    if early_exit and not bool((k2_iters < n_iters).all()):
+        raise AssertionError(f"{name}: no early exit, iterations {k2_iters.tolist()}")
     plan_err = float((plan_k - plan_p).abs().max()) if plan_p.numel() else 0.0
     if not torch.allclose(plan_k, plan_p, atol=1e-5, rtol=1e-4):
         raise AssertionError(f"{name}: K2 plan differs from plain (max abs {plan_err})")
@@ -150,8 +190,10 @@ def check_case(name, blk, tol, n_iters=40):
     if not (torch.equal(a_r, a_rp) and torch.equal(tk_r, tk_rp)):
         raise AssertionError(f"{name}: round_topk_cuda differs from the plain rounding")
 
-    a_k, tk_k = K.fused_assign_cuda(S, rm, cm, cap, W, min_topk_mass=MIN_MASS,
-                                    topk=TOPK, **kw)
+    a_k, tk_k, st_k = K.fused_assign_cuda(S, rm, cm, cap, W, min_topk_mass=MIN_MASS,
+                                          topk=TOPK, return_stats=True, **kw)
+    if not torch.equal(st_k[:, 0], k2_iters):
+        raise AssertionError(f"{name}: K1 and K2 ran different iterations")
     # K1 = K2's plan rounded by the same device code, bit for bit
     a_kk, tk_kk = K.round_topk_cuda(plan_k[:, :W].contiguous(), in_v, cv, cap, **rk)
     if not (torch.equal(a_k, a_kk) and torch.equal(tk_k, tk_kk)):
@@ -175,7 +217,11 @@ def check_case(name, blk, tol, n_iters=40):
             mk = plan_n[b, i, a_k_n[b, i]] if a_k_n[b, i] >= 0 else 0.0
             mp = plan_n[b, i, a_p_n[b, i]] if a_p_n[b, i] >= 0 else 0.0
             err = max(err, abs(float(mk) - float(mp)))
-    line = dict(case=name, shape=list(S.shape), tol=tol, plan_max_abs_err=plan_err,
+    B, R, C = S.shape
+    line = dict(case=name, shape=[B, R, C], tol=tol, n_iters=n_iters,
+                cluster=K.card_plan(B, R, C, S.device).cluster,
+                sinkhorn_iters=k2_iters.tolist() if B <= 8 else int(k2_iters.sum()),
+                plan_max_abs_err=plan_err,
                 k1_rows=rows, k1_assign_differ=st["differ"],
                 k1_row_ties=st["row_tie"], k1_contention=st["contention"],
                 k1_topk_differ=tk_differ, k1_agreement=agree)
@@ -201,10 +247,20 @@ def kernel_phase(real_block):
                                           cap_zero=True), 0.0),
         ("padded-rows", random_blocks(rng, 4, 64, 128, row_frac=0.4), 1e-3),
         ("skip-heavy", random_blocks(rng, 4, 64, 16, col_frac=1.0, cap_max=40), 1e-3),
+        # the cluster decomposition's edges
+        ("rows-not-multiple", random_blocks(rng, 4, 100, 300), 1e-3),
+        ("rows-below-cluster", random_blocks(rng, 3, 4, 20), 0.0),
+        ("one-window", random_blocks(rng, 1, 1024, 2048), 1e-3),
+        ("many-windows", random_blocks(rng, 40, 256, 512), 1e-3),
+        ("tiles-of-4", random_blocks(rng, 2, 1024, 4096), 1e-3),
+        ("tiles-of-1", random_blocks(rng, 1, 512, 8192), 1e-3),
     ]
     worst = dict(plan_err=0.0, k1_err=0.0)
-    for name, blk, tol in cases:
-        r = check_case(name, to_cuda(blk), tol)
+    runs = [(name, blk, tol, {}) for name, blk, tol in cases]
+    runs.append(("early-exit", random_blocks(rng, 3, 100, 200), 1e-2,
+                 dict(n_iters=200, early_exit=True)))
+    for name, blk, tol, extra in runs:
+        r = check_case(name, to_cuda(blk), tol, **extra)
         for k in worst:
             worst[k] = max(worst[k], r[k])
     r = check_case("slice-block", real_block, 1e-3)
@@ -227,28 +283,39 @@ def kernel_timing(blk, tol=1e-3, n_iters=40):
     _, _, stats = K.fused_assign_cuda(S, rm, cm, cap, W, topk=TOPK,
                                       min_topk_mass=MIN_MASS, return_stats=True, **kw)
     _, k2_iters = K.sinkhorn_cuda(S, rm, cm, return_iters=True, **kw)
+    plan = K.card_plan(B, R, C, S.device)
     iters = int(stats[:, 0].sum())
+    k2_it = int(k2_iters.sum())
     rounds = int(stats[:, 1].sum())
     cells = R * C
-    # operations these inputs need: per Sinkhorn iteration and element
-    # a multiply, two adds, an exp and a compare/accumulate in each of
-    # the row and column passes (10); forming the plan once (6); per
-    # rounding round one compare per element of the row and the column
-    # argmax (2 x rows x C); k compares per element for the top-k peel
+    # f32 operations these inputs need besides the exponentials: per
+    # Sinkhorn iteration and element a multiply, two adds, a max and an
+    # accumulate in each of the row and column passes (10); forming the
+    # plan once (6); per rounding round one compare per element of the
+    # row and the column argmax (2 x rows x C); k compares per element
+    # for the top-k peel
     sink_ops = 10.0 * iters * cells
     plan_ops = 6.0 * B * cells
     k1_ops = sink_ops + plan_ops + 2.0 * rounds * W * C + TOPK * B * W * C
-    k2_ops = 10.0 * int(k2_iters.sum()) * cells + plan_ops
+    k2_ops = 10.0 * k2_it * cells + plan_ops
+    # exponentials: one per element in each half-iteration, one per
+    # element to form the plan once (the rounding can read that plan)
+    k1_exps = 2.0 * iters * cells + B * cells
+    k2_exps = 2.0 * k2_it * cells + B * cells
     in_bytes = 4.0 * (B * cells + B * R + B * C)
     k1_bytes = in_bytes + 4.0 * B + 4.0 * B * W * (1 + TOPK)
     k2_bytes = in_bytes + 4.0 * B * cells
+    rate, mhz = exp_rate()
 
-    def bound(nbytes, ops):
-        tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
-        return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+    def bound(nbytes, ops, exps):
+        terms = dict(bytes=1e3 * nbytes / PEAK_BYTES_PER_S,
+                     f32=1e3 * ops / PEAK_F32_OPS_PER_S,
+                     exp=1e3 * exps / rate)
+        term = max(terms, key=terms.get)
+        return terms[term], ("bytes" if term == "bytes" else "operations"), term, terms
 
-    k1_bound, k1_by = bound(k1_bytes, k1_ops)
-    k2_bound, k2_by = bound(k2_bytes, k2_ops)
+    k1_bound, k1_by, k1_term, k1_terms = bound(k1_bytes, k1_ops, k1_exps)
+    k2_bound, k2_by, k2_term, k2_terms = bound(k2_bytes, k2_ops, k2_exps)
     reps = 5
     k1_ms = cuda_ms(lambda: K.fused_assign_cuda(S, rm, cm, cap, W, topk=TOPK,
                                                 min_topk_mass=MIN_MASS, **kw), reps)
@@ -256,8 +323,12 @@ def kernel_timing(blk, tol=1e-3, n_iters=40):
                                                    min_topk_mass=MIN_MASS, **kw), reps)
     k2_ms = cuda_ms(lambda: K.sinkhorn_cuda(S, rm, cm, **kw), reps)
     k2_plain = cuda_ms(lambda: sinkhorn_log(S, rm, cm, **kw), reps)
-    detail = dict(shape=[B, R, C], sinkhorn_iters=iters, rounding_rounds=rounds,
-                  k2_sinkhorn_iters=int(k2_iters.sum()))
+    detail = dict(shape=[B, R, C], cluster=plan.cluster, rows_per_cta=plan.rows_per_cta,
+                  smem_bytes=plan.smem_bytes, sinkhorn_iters=iters,
+                  rounding_rounds=rounds, k2_sinkhorn_iters=k2_it,
+                  exp_per_s=rate, sm_clock_mhz=mhz,
+                  fused_assign_bound_terms_ms=k1_terms, fused_assign_bound_term=k1_term,
+                  sinkhorn_bound_terms_ms=k2_terms, sinkhorn_bound_term=k2_term)
     print("kernel-timing " + json.dumps(detail), flush=True)
     return dict(
         fused_assign=dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by),
@@ -324,8 +395,23 @@ def slice_phase(card):
                                      col_valid=cv, cap=cap, n_rows=W)
         return real_assign_topk(*args, **kw)
 
+    def timed(fn, events):
+        """``fn`` with CUDA events recorded around each call."""
+        def call(*args, **kw):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = fn(*args, **kw)
+            t1.record()
+            events.append((t0, t1))
+            return out
+        return call
+
     for fused, key in ((True, "fused_assign"), (False, "sinkhorn")):
+        wrapper = "fused_assign_cuda" if fused else "sinkhorn_cuda"
+        real_wrapper, events = getattr(K, wrapper), []
         wt.assign_topk = recording if fused else real_assign_topk
+        setattr(K, wrapper, timed(real_wrapper, events))
         try:
             K.reset_launches()
             _, acc, wall, peak, stats = run_slice(prob, fused)
@@ -333,8 +419,12 @@ def slice_phase(card):
             other = K.LAUNCHES["sinkhorn" if fused else "fused_assign"]
         finally:
             wt.assign_topk = real_assign_topk
+            setattr(K, wrapper, real_wrapper)
+        kernel_ms = sum(t0.elapsed_time(t1) for t0, t1 in events)
         line = dict(config="synth-async-8k", fused_kernel=fused, accuracy=acc,
-                    wall_s=wall, peak_mem_bytes=peak, launches=launches[key],
+                    wall_s=wall, kernel=key, kernel_ms=kernel_ms,
+                    kernel_share=kernel_ms / 1e3 / wall,
+                    peak_mem_bytes=peak, launches=launches[key],
                     other_kernel_launches=other,
                     fused_em_applied=stats.get("fused_em_applied", 0.0), card=card)
         print("slice " + json.dumps(line), flush=True)
@@ -347,14 +437,17 @@ def slice_phase(card):
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--slice-root", help="run only the slice phase, importing "
+                    "traceweaver_tpu_torch from this checkout")
+    args = ap.parse_args()
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.abspath(args.slice_root) if args.slice_root else HERE)
     from traceweaver_tpu_torch.ops import cuda_sinkhorn as K
 
     card = nvidia_smi()
@@ -368,6 +461,10 @@ def main() -> int:
         if "registers" in ln or "spill" in ln:
             print("ptxas " + ln.strip(), flush=True)
 
+    if args.slice_root:
+        print(f"package: {os.path.dirname(os.path.dirname(K.__file__))}", flush=True)
+        slice_phase(card)
+        return 0
     launches, real_block = slice_phase(card)
     K.reset_launches()
     worst = kernel_phase(real_block)

@@ -176,8 +176,39 @@ def test_wrappers_refuse_cpu_tensors_and_oversized_blocks():
                           torch.ones(1, 5, dtype=torch.bool), cap, topk=2,
                           min_topk_mass=1e-3)
     K._check_block(1025, 2049)  # the main-path block fits
+    K._check_block(4097, 8193)   # 1-row tiles at the widest blocks
     with pytest.raises(ValueError, match="shared memory"):
         K._check_block(8193, 16385)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.launch_plan(8, 8193, 16385, large_clusters=16)
+
+
+@pytest.mark.parametrize("B, R, C, large", [
+    (8, 1025, 2049, 7),   # main path: 16-CTA clusters do not all fit
+    (7, 1025, 2049, 7),
+    (1, 1025, 2049, 7),
+    (40, 257, 513, 7),    # more clusters than the card runs at once
+    (3, 5, 21, 7),        # fewer rows than CTAs in a cluster
+    (4, 101, 301, 0),     # rows not a multiple of the cluster size
+    (2, 1025, 4097, 7),   # 4-row tiles
+    (1, 4097, 8193, 7),   # 1-row tiles
+])
+def test_launch_plan_owns_every_row_once_and_fits(B, R, C, large):
+    """The CPU half of the kernels' launch: the cluster size, the row
+    stripes and the shared-memory bytes."""
+    plan = K.launch_plan(B, R, C, large)
+    assert plan.cluster == (K.CLUSTER_LARGE if large >= B else K.CLUSTER_SMALL)
+    owned = [i for lo, hi in plan.stripes(R) for i in range(lo, hi)]
+    assert owned == list(range(R))
+    assert plan.smem_bytes == K.smem_bytes(R, C, plan.cluster, plan.tile_rows)
+    assert plan.smem_bytes <= K.MAX_SMEM_BYTES
+    bigger = [t for t in K.TILE_ROWS if t > plan.tile_rows]
+    assert all(K.smem_bytes(R, C, plan.cluster, t) > K.MAX_SMEM_BYTES for t in bigger)
+    # K1 and K2 see [R, C]; round_topk sees the same block without the
+    # dummy row: one cluster size for all three
+    assert K.launch_plan(B, R, C, large) == plan
+    if R > 1:
+        assert K.launch_plan(B, R - 1, C, large).cluster == plan.cluster
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +253,37 @@ def test_kernels_match_plain_on_card(card, tol, shape):
     for b in range(shape[0]):
         _assert_same(a_k[b].cpu().numpy(), tk_k[b].cpu().numpy(),
                      a_f[b].cpu().numpy(), tk_f[b].cpu().numpy(), plan[b], b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, tol, n_iters", [
+    ((4, 100, 300), 1e-3, 40),    # rows not a multiple of the cluster size
+    ((3, 4, 20), 0.0, 40),        # fewer rows than CTAs in a cluster
+    ((1, 1024, 2048), 1e-3, 40),  # one window
+    ((40, 256, 512), 1e-3, 40),   # more clusters than the card runs at once
+    ((3, 100, 200), 1e-2, 200),   # the tolerance ends every block early
+    ((1, 512, 8192), 1e-3, 40),   # 1-row tiles
+])
+def test_cluster_edges_on_card(card, shape, tol, n_iters):
+    """K2 allclose to the plain plan, K1 == K2's plan + round_topk bit for
+    bit, round_topk == the plain rounding, at the edges of the cluster
+    decomposition; K1 and K2 stop after the same iterations."""
+    S, rm, cm, in_v, cv, cap = _cuda_blocks(np.random.default_rng(sum(shape)), *shape)
+    W = shape[1]
+    kw = dict(epsilon=1.0, n_iters=n_iters, tol=tol)
+    rk = dict(topk=5, min_topk_mass=1e-3)
+    plan_k, iters = K.sinkhorn_cuda(S, rm, cm, return_iters=True, **kw)
+    torch.testing.assert_close(plan_k, K.sinkhorn_log(S, rm, cm, **kw),
+                               atol=1e-5, rtol=1e-4)
+    if n_iters == 200:
+        assert bool((iters < n_iters).all()), iters
+    a_k, tk_k, stats = K.fused_assign_cuda(S, rm, cm, cap, W, return_stats=True,
+                                           **kw, **rk)
+    assert torch.equal(stats[:, 0], iters)
+    a_r, tk_r = K.round_topk_cuda(plan_k[:, :W].contiguous(), in_v, cv, cap, **rk)
+    assert torch.equal(a_k, a_r) and torch.equal(tk_k, tk_r)
+    a_p, tk_p = K.round_topk_plain(plan_k[:, :W].contiguous(), in_v, cv, cap, **rk)
+    assert torch.equal(a_r, a_p) and torch.equal(tk_r, tk_p)
 
 
 @pytest.mark.gpu

@@ -12,39 +12,70 @@
 //
 // What bounds it on this card: the work is one [R, C] f32 score block per
 // window (R = W + 1 rows with the dummy row, C = M + 1 columns with the
-// skip column; 8.4 MB at 1025 x 2049). A lower bound reads it once; the
-// Sinkhorn loop does an exp and a few adds per element and half-iteration,
-// so at the main-path size the f32 operations, not the bytes, set the
-// bound. The block does not fit in shared memory (227 KB), so this design
-// keeps only the potentials (phi [R], psi [C]) and the rounding state
-// (assignments, taken columns, per-row argmax) in shared memory and
-// re-reads the score block from L2/HBM on every half-iteration and every
-// rounding round, recomputing plan entries exp(clip(S/eps + phi + psi))
-// on the fly instead of storing the plan.
+// skip column; 8.4 MB at 1025 x 2049). Each Sinkhorn half-iteration does
+// one exp per element (about 2.7e8 per iteration at B = 8). Exponentials
+// go through the special-function units (16 per clock per SM), so they,
+// not the bytes and not the other f32 operations, set the bound (about
+// 0.33 ms for 40 iterations at B = 8). The block does not fit in shared
+// memory, and B blocks (67 MB at B = 8) do not fit in the 50 MB L2, so it
+// streams from HBM once per iteration (about 20 us at B = 8).
 //
-// What the design does about it: one CTA of 1024 threads per window block
-// (grid = B windows), so all synchronisation is __syncthreads and the
-// data-dependent exits (Sinkhorn tolerance, "no commit this round") are
-// plain loop breaks. Row log-sum-exps use a warp per row (lanes stride
-// the columns, online max/sum in one pass); column log-sum-exps use a
-// thread per column looping over rows (coalesced). This uses B of the
-// 132 SMs and re-reads the block ~2 x iterations times, so it is far
-// from its bound; clusters with distributed shared memory, multi-CTA
-// column reductions and a persistent grid are the later work.
+// What the design does about it: one thread-block cluster of G CTAs of
+// 512 threads (G = 8 or 16, chosen by the wrapper from the card's cluster
+// occupancy) per window, so a window's work spreads over G SMs instead of
+// one. CTA r of the cluster owns the row stripe [r*RS, (r+1)*RS), RS =
+// ceil(R/G), and keeps its phi, its rows' rounding state and a full copy
+// of psi (in base 2) in shared memory:
+//   - Sinkhorn, one read of the stripe per iteration: the stripe streams
+//     through a two-slot ring of TR-row tiles in shared memory, each tile
+//     one bulk (TMA) copy completing on an mbarrier, the next in flight
+//     while this one is used, across iteration boundaries too. A tile's
+//     rows get their phi update from psi (16/TR warps per row, 8 loads
+//     folded at a time into an online log-sum-exp, two chains per lane),
+//     then the same tile adds its rows, with the new phi, to per-column
+//     partial (max, sum-exp) pairs (a thread per column, two at a time).
+//     The sums run in base 2 on the special-function unit (ex2.approx);
+//   - after a cluster barrier CTA r merges the G partials of its column
+//     slice [r*CS, (r+1)*CS), CS = ceil(C/G), read through distributed
+//     shared memory (a lane per peer, butterfly merge, so every lane
+//     holds the same bits), and writes psi of the slice into every
+//     peer's copy; a second barrier ends the iteration;
+//   - the tolerance exit reads the cluster-wide max |delta phi| after
+//     the barrier, so every CTA takes the same break;
+//   - rounding: the row argmax and the top-k peel stay stripe-local; the
+//     wanted columns and the skip contenders' masses are written into
+//     every peer's shared memory, each CTA forms partial column argmaxes
+//     over its stripe, and a row reads the G partials of its column
+//     (ties to the lower row index, as torch.argmax); taken columns, the
+//     skip budget and the "any commit" flag are cluster-consistent after
+//     each round's third barrier; a last barrier keeps every CTA alive
+//     until its peers have stopped reading its shared memory. Its loops
+//     fold 8 loads at a time, so each thread keeps 8 in flight.
+// What holds it back now: each tile's two phases (row update, then column
+// partials) take several times the cycles their exponentials need on the
+// SFU, and HBM is not the limit either; overlapping the two phases in
+// separate warp groups, more chains per lane and tree reductions did not
+// change the time per element, so the cause is still to be measured.
+// bf16 storage is the next step on the bytes.
 //
 // Plan entries are formed with __fmul_rn/__fadd_rn (never contracted into
-// an FMA), so the fused kernel's on-the-fly plan equals the plan the
-// plain Sinkhorn kernel writes, bit for bit.
+// an FMA) from phi and psi2 * ln2, and K1, K2 and round_topk run one
+// cluster size for one (B, R, C), so the fused kernel's on-the-fly plan
+// equals the plan the plain Sinkhorn kernel writes, bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
-#include <limits.h>
 
-#define TW_THREADS 1024
+namespace cg = cooperative_groups;
+
+#define TW_THREADS 512
 #define TW_WARPS (TW_THREADS / 32)
 #define TW_MAX_TOPK 16
 #define TW_FULL 0xffffffffu
+#define TW_BATCH 8
 
 static const float kNeg = -1.0e9f;
 
@@ -57,26 +88,48 @@ __device__ __forceinline__ float log_marginal(float m) {
   return m > 0.f ? logf(fmaxf(m, 1e-30f)) : kNeg;
 }
 
-__device__ __forceinline__ float logit(float s, float inv_eps, float pot) {
-  return __fadd_rn(__fmul_rn(s, inv_eps), pot);
-}
-
 __device__ __forceinline__ float plan_val(float s, float inv_eps, float phi,
                                           float psi) {
   float x = __fadd_rn(__fadd_rn(__fmul_rn(s, inv_eps), phi), psi);
   return expf(fminf(fmaxf(x, -80.f), 80.f));
 }
 
-// online log-sum-exp accumulator (m = running max, s = sum of exp(x - m))
+static const float kLog2e = 1.4426950408889634f;
+static const float kLn2 = 0.6931471805599453f;
+
+// 2^x on the special-function unit (about 2 ulp; flushes subnormals).
+// The Sinkhorn loop sums in base 2 with it; plan entries keep expf.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online log-sum-exp in base 2: m = running max, s = sum of 2^(x - m).
+// lse_batch folds a batch whose x[0] is finite (padding is -inf).
+__device__ __forceinline__ void lse_batch(float &m, float &s,
+                                          const float (&x)[TW_BATCH]) {
+  float bm = x[0];
+#pragma unroll
+  for (int q = 1; q < TW_BATCH; ++q) bm = fmaxf(bm, x[q]);
+  if (bm > m) {
+    s *= ex2(m - bm);
+    m = bm;
+  }
+#pragma unroll
+  for (int q = 0; q < TW_BATCH; ++q) s += ex2(x[q] - m);
+}
+
 __device__ __forceinline__ void lse_push(float &m, float &s, float x) {
   if (x > m) {
-    s = __fmaf_rn(s, expf(m - x), 1.f);
+    s = __fmaf_rn(s, ex2(m - x), 1.f);
     m = x;
   } else {
-    s += expf(x - m);
+    s += ex2(x - m);
   }
 }
 
+// Merge two (max, sum) pairs; commutative bit for bit.
 __device__ __forceinline__ void lse_merge(float &m, float &s, float m2,
                                           float s2) {
   if (s2 == 0.f) return;
@@ -86,15 +139,22 @@ __device__ __forceinline__ void lse_merge(float &m, float &s, float m2,
     return;
   }
   if (m2 > m) {
-    s = __fmaf_rn(s, expf(m - m2), s2);
+    s = __fmaf_rn(s, ex2(m - m2), s2);
     m = m2;
   } else {
-    s = __fmaf_rn(s2, expf(m2 - m), s);
+    s = __fmaf_rn(s2, ex2(m2 - m), s);
   }
 }
 
-__device__ __forceinline__ void warp_lse(float &m, float &s) {
-  for (int off = 16; off > 0; off >>= 1) {
+// natural log of a base-2 (max, sum) pair
+__device__ __forceinline__ float lse_ln(float m, float s) {
+  return (m + log2f(s)) * kLn2;
+}
+
+// butterfly merge over aligned groups of `width` lanes (every lane of a
+// group ends with the same bits, since lse_merge is commutative)
+__device__ __forceinline__ void group_lse(float &m, float &s, int width) {
+  for (int off = width >> 1; off > 0; off >>= 1) {
     float m2 = __shfl_xor_sync(TW_FULL, m, off);
     float s2 = __shfl_xor_sync(TW_FULL, s, off);
     lse_merge(m, s, m2, s2);
@@ -114,100 +174,344 @@ __device__ __forceinline__ void warp_argmax(float &v, int &idx) {
   }
 }
 
-// Dynamic shared memory of one CTA (the same layout for every kernel).
+// Where one CTA sits in its window's cluster.
+struct Geo {
+  int rank, G;  // CTA rank in the cluster, cluster size
+  int r0, r1;   // owned row stripe [r0, r1) (may be empty)
+  int c0, c1;   // column slice merged by this CTA
+};
+
+__device__ inline Geo geometry(cg::cluster_group cl, int R, int C) {
+  Geo g;
+  g.rank = (int)cl.block_rank();
+  g.G = (int)cl.num_blocks();
+  const int rs = (R + g.G - 1) / g.G, cs = (C + g.G - 1) / g.G;
+  g.r0 = min(g.rank * rs, R);
+  g.r1 = min(g.r0 + rs, R);
+  g.c0 = min(g.rank * cs, C);
+  g.c1 = min(g.c0 + cs, C);
+  return g;
+}
+
+// Dynamic shared memory of one CTA (the same layout for every kernel):
+// the two-slot tile ring of the Sinkhorn loop (2 x TR rows), then psi in
+// base 2 (psi * log2(e), full copy), the column partials, the log column
+// marginals of the CTA's merge slice, and the stripe's potentials,
+// marginals and rounding state. pm/ps hold the column partials
+// of the Sinkhorn loop and, as pv/pi, the partial column argmaxes of the
+// rounding.
 struct Smem {
-  float *phi, *psi, *log_r, *log_c, *skip_m;
-  int *assign, *row_arg, *col_best;
+  float *ring, *psi2, *pm, *ps, *log_c, *phi, *log_r, *skip_all;
+  int *assign, *row_arg;
   uint8_t *flags, *row_ok, *col_ok, *col_taken, *wanted;
 };
 
-// same layout as smem_bytes() in ops/cuda_sinkhorn.py, which checks the limit
-static inline size_t smem_bytes(int R, int C) {
-  return (size_t)4 * (5 * (size_t)R + 3 * (size_t)C) + 2 * (size_t)R +
-         3 * (size_t)C;
+// floats of one ring slot: TR rows rounded up to 16 bytes, plus 16 bytes of
+// slack for the tile's alignment shift
+__host__ __device__ inline size_t slot_floats(int TR, int C) {
+  return (((size_t)TR * C + 3) & ~(size_t)3) + 4;
 }
 
-__device__ inline Smem carve(void *base, int R, int C) {
+// same layout as smem_bytes() in ops/cuda_sinkhorn.py, which checks the limit
+static inline size_t smem_bytes(int R, int C, int G, int TR) {
+  const size_t rs = (size_t)((R + G - 1) / G), cs = (size_t)((C + G - 1) / G);
+  return 8 * slot_floats(TR, C) + 15 * (size_t)C + 4 * cs + 4 * (size_t)R + 18 * rs;
+}
+
+__device__ inline Smem carve(void *base, int R, int C, int G, int TR) {
+  const int rs = (R + G - 1) / G;
   Smem s;
-  float *f = (float *)base;
-  s.phi = f;
-  s.psi = s.phi + R;
-  s.log_r = s.psi + C;
-  s.log_c = s.log_r + R;
-  s.skip_m = s.log_c + C;
-  int *n = (int *)(s.skip_m + R);
+  s.ring = (float *)base;
+  s.psi2 = s.ring + 2 * slot_floats(TR, C);
+  s.pm = s.psi2 + C;
+  s.ps = s.pm + C;
+  s.log_c = s.ps + C;
+  s.phi = s.log_c + (C + G - 1) / G;
+  s.log_r = s.phi + rs;
+  s.skip_all = s.log_r + rs;
+  int *n = (int *)(s.skip_all + R);
   s.assign = n;
-  s.row_arg = s.assign + R;
-  s.col_best = s.row_arg + R;
-  uint8_t *b = (uint8_t *)(s.col_best + C);
+  s.row_arg = s.assign + rs;
+  uint8_t *b = (uint8_t *)(s.row_arg + rs);
   s.flags = b;
-  s.row_ok = s.flags + R;
-  s.col_ok = s.row_ok + R;
+  s.row_ok = s.flags + rs;
+  s.col_ok = s.row_ok + rs;
   s.col_taken = s.col_ok + C;
   s.wanted = s.col_taken + C;
   return s;
 }
 
-// Log-domain Sinkhorn on phi = f/eps, psi = g/eps for one [R, C] block.
-// Fixed n_iters when tol_phi == 0, else stops after the first iteration
-// whose largest live-row |delta phi| is <= tol_phi (that update is kept).
-// Returns the number of iterations run.
-__device__ int sinkhorn_block(const float *__restrict__ S, int R, int C,
-                              int n_iters, float inv_eps, float tol_phi,
-                              const Smem &sm, float *delta /* [2] */) {
+__device__ __forceinline__ unsigned smem_addr(const void *p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 4-byte asynchronous copy global -> shared (sm_80+)
+__device__ __forceinline__ void cp_async4(float *smem, const float *gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+// mbarrier and bulk (TMA) copy helpers (sm_90)
+__device__ __forceinline__ void mbar_init(uint64_t *bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t *bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A ring slot (slot_floats) holds a tile plus 4 floats of slack: tile t of
+// the stripe starts at float (src mod 4) of its slot, so that source and
+// destination share their alignment and the body moves as one bulk copy.
+__device__ __forceinline__ int tile_shift(const float *src) {
+  return (int)(((uintptr_t)src >> 2) & 3);
+}
+
+// Start copying tile t (rows [t*TR, t*TR + TR) of the stripe) into its
+// slot: one thread of the second-to-last warp hands the 16-byte-aligned
+// body to the bulk-copy engine (completion on the slot's mbarrier), and up
+// to 6 lanes of warp 1 copy the unaligned head and tail floats with
+// cp.async. The last warp, which takes the leftover columns, does neither.
+__device__ __forceinline__ void fetch_tile(float *slot, uint64_t *bar, const float *Sr,
+                                           int C, int nloc, int TR, int t) {
+  const int n = min(TR, nloc - t * TR) * C;
+  const float *src = Sr + (size_t)t * TR * C;
+  float *dst = slot + tile_shift(src);
+  const int head = min((4 - tile_shift(src)) & 3, n);
+  const int body = ((n - head) >> 2) << 2;
+  const int tail = n - head - body;
+  const int tid = threadIdx.x;
+  if (tid == TW_THREADS - 64) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                     smem_addr(bar)),
+                 "r"(4 * body)
+                 : "memory");
+    if (body > 0)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], "
+          "%2, [%3];\n" ::"r"(smem_addr(dst + head)),
+          "l"(src + head), "r"(4 * body), "r"(smem_addr(bar))
+          : "memory");
+  } else if (tid >= 32 && tid < 32 + head) {
+    cp_async4(dst + tid - 32, src + tid - 32);
+  } else if (tid >= 40 && tid < 40 + tail) {
+    const int e = n - tail + (tid - 40);
+    cp_async4(dst + e, src + e);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Log-domain Sinkhorn on phi = f/eps (this CTA's stripe), psi = g/eps
+// (full copy) for one [R, C] block spread over the cluster. Fixed n_iters
+// when tol_phi == 0, else stops after the first iteration whose largest
+// live-row |delta phi| over the whole block is <= tol_phi (that update is
+// kept). Returns the number of iterations run.
+//
+// The stripe streams through a two-slot ring of TR-row tiles in shared
+// memory (a bulk copy per tile, the next tile in flight while this one is
+// used), and each tile is read once per iteration: its rows' phi update
+// (16/TR warps per row; the last warp of a row to finish merges the row's
+// partials), then its contribution to the column partials with the new
+// phi (a thread per column). The ring never stops: the tile after the
+// last one is the next iteration's first. The sums run in base 2 on
+// x = S * log2(e)/eps + pot * log2(e); phi is kept in natural units, psi
+// in base 2 (psi2).
+__device__ int sinkhorn_cluster(cg::cluster_group cl,
+                                const float *__restrict__ S, int R, int C,
+                                const Geo &g, int TR, int n_iters, float inv_eps,
+                                float tol_phi, const Smem &sm) {
+  __shared__ float s_delta[2];
+  __shared__ float s_dmax;
+  __shared__ float s_rm[TW_WARPS], s_rs[TW_WARPS];
+  __shared__ int s_done[TW_BATCH];
+  __shared__ __align__(8) uint64_t s_bar[2];  // one per ring slot
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < R; i += TW_THREADS) sm.phi[i] = 0.f;
-  for (int j = tid; j < C; j += TW_THREADS) sm.psi[j] = 0.f;
+  const int nloc = g.r1 - g.r0, ntiles = (nloc + TR - 1) / TR;
+  const int wpr = TW_WARPS / TR;
+  const int seg = max(32 * TW_BATCH, C / wpr / (32 * TW_BATCH) * (32 * TW_BATCH));
+  const float a2 = inv_eps * kLog2e;
+  const float *Sr = S + (size_t)g.r0 * C;
+  for (int i = tid; i < nloc; i += TW_THREADS) sm.phi[i] = 0.f;
+  for (int j = tid; j < C; j += TW_THREADS) sm.psi2[j] = 0.f;
+  if (tid < TW_BATCH) s_done[tid] = 0;
   if (tid == 0) {
-    delta[0] = 0.f;
-    delta[1] = 0.f;
+    mbar_init(&s_bar[0]);
+    mbar_init(&s_bar[1]);
   }
   __syncthreads();
-  int it = 0;
+  if (tid == 0) {
+    s_delta[0] = 0.f;
+    s_delta[1] = 0.f;
+  }
+  const size_t slot = slot_floats(TR, C);
+  const bool streams = ntiles > 0 && n_iters > 0;
+  if (streams) fetch_tile(sm.ring, &s_bar[0], Sr, C, nloc, TR, 0);
+  __syncthreads();
+  int it = 0, k = 0;  // k counts tiles over all iterations (ring slot k & 1)
   while (it < n_iters) {
-    float *d = delta + (it & 1);
-    // row update: warp per row
-    float wdelta = 0.f;
-    for (int i = warp; i < R; i += TW_WARPS) {
-      const float *row = S + (size_t)i * C;
-      float m = -INFINITY, s = 0.f;
-      for (int j = lane; j < C; j += 32)
-        lse_push(m, s, logit(row[j], inv_eps, sm.psi[j]));
-      warp_lse(m, s);
-      if (lane == 0) {
-        float lr = sm.log_r[i];
-        float f_new = lr > 0.5f * kNeg ? lr - (m + logf(s)) : kNeg;
-        if (lr > 0.5f * kNeg) wdelta = fmaxf(wdelta, fabsf(f_new - sm.phi[i]));
-        sm.phi[i] = f_new;
+    // peers read s_delta[(it + 1) & 1] of the last iteration before the
+    // last barrier, so it can be cleared now
+    if (tid == 0) s_delta[(it + 1) & 1] = 0.f;
+    for (int j = tid; j < C; j += TW_THREADS) {
+      sm.pm[j] = -INFINITY;
+      sm.ps[j] = 0.f;
+    }
+    for (int t = 0; t < ntiles; ++t, ++k) {
+      const float *tile = sm.ring + (k & 1) * slot + tile_shift(Sr + (size_t)t * TR * C);
+      const int rows = min(TR, nloc - t * TR), l0 = t * TR;
+      mbar_wait(&s_bar[k & 1], (k >> 1) & 1);
+      cp_async_wait_all();
+      __syncthreads();  // tile k landed; every thread is done with slot k+1
+      fetch_tile(sm.ring + ((k + 1) & 1) * slot, &s_bar[(k + 1) & 1], Sr, C, nloc, TR,
+                 t + 1 < ntiles ? t + 1 : 0);
+      // row partials: warp -> (tile row q, column segment); full batches
+      // of 8 per lane, then the ragged end one element at a time
+      const int q = warp / wpr;
+      if (q < rows) {
+        const int sgi = warp % wpr, jlo = min(C, sgi * seg);
+        const int jhi = sgi == wpr - 1 ? C : min(C, jlo + seg);
+        const float *row = tile + (size_t)q * C;
+        // two independent accumulators for instruction-level parallelism
+        float m = -INFINITY, s = 0.f, m2 = -INFINITY, s2 = 0.f;
+        int j0 = jlo + lane;
+        for (; j0 + 32 * (2 * TW_BATCH - 1) < jhi; j0 += 64 * TW_BATCH) {
+          float x[TW_BATCH], y[TW_BATCH];
+#pragma unroll
+          for (int u = 0; u < TW_BATCH; ++u) {
+            const int ja = j0 + 32 * u, jb = ja + 32 * TW_BATCH;
+            x[u] = __fmaf_rn(row[ja], a2, sm.psi2[ja]);
+            y[u] = __fmaf_rn(row[jb], a2, sm.psi2[jb]);
+          }
+          lse_batch(m, s, x);
+          lse_batch(m2, s2, y);
+        }
+        if (j0 + 32 * (TW_BATCH - 1) < jhi) {
+          float x[TW_BATCH];
+#pragma unroll
+          for (int u = 0; u < TW_BATCH; ++u)
+            x[u] = __fmaf_rn(row[j0 + 32 * u], a2, sm.psi2[j0 + 32 * u]);
+          lse_batch(m, s, x);
+          j0 += 32 * TW_BATCH;
+        }
+        for (; j0 < jhi; j0 += 32) lse_push(m2, s2, __fmaf_rn(row[j0], a2, sm.psi2[j0]));
+        lse_merge(m, s, m2, s2);
+        group_lse(m, s, 32);
+        int last = 0;
+        if (lane == 0) {
+          s_rm[warp] = m;
+          s_rs[warp] = s;
+          __threadfence_block();
+          last = atomicAdd(&s_done[q], 1) == wpr - 1;
+        }
+        if (__shfl_sync(TW_FULL, last, 0)) {
+          // the row's last warp merges the row's wpr partials (a lane each)
+          __threadfence_block();
+          float rm = -INFINITY, rs = 0.f;
+          if (lane < wpr) {
+            rm = s_rm[q * wpr + lane];
+            rs = s_rs[q * wpr + lane];
+          }
+          group_lse(rm, rs, wpr);
+          if (lane == 0) {
+            s_done[q] = 0;
+            const int li = l0 + q;
+            const float lr = sm.log_r[li];
+            const float f_new = lr > 0.5f * kNeg ? lr - lse_ln(rm, rs) : kNeg;
+            const float d = fabsf(f_new - sm.phi[li]);
+            if (lr > 0.5f * kNeg && d > 0.f)
+              atomicMax((int *)&s_delta[it & 1], __float_as_int(d));
+            sm.phi[li] = f_new;
+          }
+        }
+      }
+      __syncthreads();
+      // column partials: this tile's rows with their new phi
+      float ph[TW_BATCH];
+#pragma unroll
+      for (int u = 0; u < TW_BATCH; ++u) ph[u] = u < rows ? sm.phi[l0 + u] * kLog2e : 0.f;
+      // two columns per pass (independent chains), both loads in range;
+      // later passes run the threads in reverse, so that the leftover
+      // columns (the skip column at C = 2^k + 1) fall to the last warp
+      for (int j0 = 0; j0 < C; j0 += 2 * TW_THREADS) {
+        const int j = j0 + (j0 == 0 ? tid : TW_THREADS - 1 - tid);
+        if (j >= C) continue;
+        const int jb = min(j + TW_THREADS, C - 1);
+        float x[TW_BATCH], y[TW_BATCH];
+#pragma unroll
+        for (int u = 0; u < TW_BATCH; ++u) {
+          const float *r = tile + (size_t)min(u, TR - 1) * C;
+          x[u] = u < rows ? __fmaf_rn(r[j], a2, ph[u]) : -INFINITY;
+          y[u] = u < rows ? __fmaf_rn(r[jb], a2, ph[u]) : -INFINITY;
+        }
+        float m = sm.pm[j], s = sm.ps[j], m2 = sm.pm[jb], s2 = sm.ps[jb];
+        lse_batch(m, s, x);
+        lse_batch(m2, s2, y);
+        sm.pm[j] = m;
+        sm.ps[j] = s;
+        if (j + TW_THREADS < C) {
+          sm.pm[jb] = m2;
+          sm.ps[jb] = s2;
+        }
       }
     }
-    if (lane == 0 && wdelta > 0.f)
-      atomicMax((int *)d, __float_as_int(wdelta));
-    __syncthreads();
-    if (tid == 0) delta[(it + 1) & 1] = 0.f;
-    // column update: thread per column
-    for (int j = tid; j < C; j += TW_THREADS) {
-      float m = -INFINITY, s = 0.f;
-      for (int i = 0; i < R; ++i)
-        lse_push(m, s, logit(S[(size_t)i * C + j], inv_eps, sm.phi[i]));
-      float lc = sm.log_c[j];
-      sm.psi[j] = lc > 0.5f * kNeg ? lc - (m + logf(s)) : kNeg;
+    cl.sync();
+    if (tid == 0) {
+      float d = 0.f;
+      for (int q = 0; q < g.G; ++q) d = fmaxf(d, *cl.map_shared_rank(&s_delta[it & 1], q));
+      s_dmax = d;
     }
-    __syncthreads();
+    // merge this CTA's column slice: a lane per (column, peer)
+    const int n = (g.c1 - g.c0) * g.G;
+    for (int base = 0; base < n; base += TW_THREADS) {
+      const int e = base + tid, q = e % g.G, j = g.c0 + e / g.G;
+      const bool ok = e < n;
+      float m = -INFINITY, s = 0.f;
+      if (ok) {
+        m = *cl.map_shared_rank(sm.pm + j, q);
+        s = *cl.map_shared_rank(sm.ps + j, q);
+      }
+      group_lse(m, s, g.G);
+      if (ok) {
+        const float lc = sm.log_c[j - g.c0];
+        *cl.map_shared_rank(sm.psi2 + j, q) =
+            (lc > 0.5f * kNeg ? lc - lse_ln(m, s) : kNeg) * kLog2e;
+      }
+    }
+    cl.sync();
     ++it;
-    if (tol_phi > 0.f && *d <= tol_phi) break;
+    if (tol_phi > 0.f && s_dmax <= tol_phi) break;
   }
+  if (streams) mbar_wait(&s_bar[k & 1], (k >> 1) & 1);  // the tile past the last
+  cp_async_wait_all();
+  __syncthreads();
   return it;
 }
 
-// plan entry accessors for the rounding code
+// plan entry accessors for the rounding code (row i is a block row)
 struct PlanFromScores {
   const float *S;
-  int C;
+  int C, r0;
   float inv_eps;
-  const float *phi, *psi;
+  const float *phi, *psi2;  // phi of the stripe starting at row r0
   __device__ float operator()(int i, int j) const {
-    return plan_val(S[(size_t)i * C + j], inv_eps, phi[i], psi[j]);
+    return plan_val(S[(size_t)i * C + j], inv_eps, phi[i - r0], psi2[j] * kLn2);
   }
 };
 
@@ -221,152 +525,213 @@ struct PlanFromTensor {
 
 // Greedy mutual-best rounding (ops/rounding.py greedy_round_core) over
 // rows [0, n_rows) and columns [0, C), skip column C - 1, then the top-k
-// peel (topk_peel_core) of the col-valid plan. sm.row_ok / sm.col_ok must
-// be set. The masked plan ("mass") is never stored: an entry is
-// unavailable when its row is invalid or assigned, its column invalid or
-// taken, or it is the skip column after the capacity ran out.
+// peel (topk_peel_core) of the col-valid plan, spread over the cluster:
+// this CTA rounds the rows of its stripe below n_rows. sm.row_ok (stripe)
+// and sm.col_ok must be set. The masked plan ("mass") is never stored: an
+// entry is unavailable when its row is invalid or assigned, its column
+// invalid or taken, or it is the skip column after the capacity ran out.
 template <class Plan>
-__device__ int round_and_peel(const Plan &P, int n_rows, int C, int cap,
-                              int topk, float min_mass, const Smem &sm,
-                              int *assign_out, int *topk_out) {
+__device__ int round_and_peel(cg::cluster_group cl, const Plan &P,
+                              int n_rows, int C, const Geo &g, int TR, int cap, int topk,
+                              float min_mass, const Smem &sm, int *assign_out,
+                              int *topk_out) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int skip_col = C - 1;
-  __shared__ int s_skip_used, s_skip_closed, s_nskip, s_any, s_progress;
+  const int lo = g.r0, nloc = max(min(g.r1, n_rows) - lo, 0);
+  // s_cnt[parity] = {skip commits, any commit} of a round, read by peers
+  __shared__ int s_cnt[2][2];
+  __shared__ int s_skip_used, s_closed, s_progress;
   __shared__ int s_pk[TW_WARPS][TW_MAX_TOPK];
+  float *pv = sm.pm;
+  int *pi = (int *)sm.ps;
 
-  for (int i = tid; i < n_rows; i += TW_THREADS) sm.assign[i] = -1;
+  for (int li = tid; li < nloc; li += TW_THREADS) sm.assign[li] = -1;
   for (int j = tid; j < C; j += TW_THREADS) {
     sm.col_taken[j] = 0;
     sm.wanted[j] = 0;
   }
   if (tid == 0) {
+    s_cnt[0][0] = s_cnt[0][1] = s_cnt[1][0] = s_cnt[1][1] = 0;
     s_skip_used = 0;
-    s_skip_closed = 0;
-    s_nskip = 0;
-    s_any = 0;
+    s_closed = 0;
   }
-  __syncthreads();
+  cl.sync();  // every peer is initialised before the first remote store
 
   int rounds = 0;
   for (int t = 0; t < n_rows; ++t) {
-    const int closed = s_skip_closed;
-    // 1. row pass: each unassigned valid row's best available column
-    for (int i = warp; i < n_rows; i += TW_WARPS) {
+    const int closed = s_closed;
+    // 1. row pass: each unassigned valid row's best available column;
+    //    its wanted column and skip mass go to every peer
+    for (int li = warp; li < nloc; li += TW_WARPS) {
+      const int i = lo + li;
       uint8_t fl = 0;
-      if (sm.row_ok[i] && sm.assign[i] == -1) {
+      float sk = -INFINITY;
+      if (sm.row_ok[li] && sm.assign[li] == -1) {
         float bv = -INFINITY;
         int bi = INT_MAX;
-        for (int j = lane; j < C; j += 32) {
-          if (!sm.col_ok[j] || sm.col_taken[j] || (j == skip_col && closed))
-            continue;
-          float v = P(i, j);
-          if (v > bv) {
-            bv = v;
-            bi = j;
+        for (int j0 = lane; j0 < C; j0 += 32 * TW_BATCH) {
+          float v[TW_BATCH];
+#pragma unroll
+          for (int u = 0; u < TW_BATCH; ++u) {
+            const int j = j0 + 32 * u;
+            const bool ok = j < C && sm.col_ok[j] && !sm.col_taken[j] &&
+                            !(j == skip_col && closed);
+            v[u] = ok ? P(i, j) : -INFINITY;
           }
+#pragma unroll
+          for (int u = 0; u < TW_BATCH; ++u)
+            if (v[u] > bv) {
+              bv = v[u];
+              bi = j0 + 32 * u;
+            }
         }
         warp_argmax(bv, bi);
         if (bv > 0.5f * kNeg) {
           fl = F_ACTIVE;
           float smass = (sm.col_ok[skip_col] && !closed) ? P(i, skip_col) : kNeg;
-          if (smass > 0.5f * kNeg) fl |= F_CONTENDER;
+          if (smass > 0.5f * kNeg) {
+            fl |= F_CONTENDER;
+            sk = smass;
+          }
           if (bi == skip_col)
             fl |= F_WANTS_SKIP;
-          else if (lane == 0)
-            sm.wanted[bi] = 1;
-          if (lane == 0) {
-            sm.row_arg[i] = bi;
-            sm.skip_m[i] = smass;
-          }
+          else if (lane < g.G)
+            *cl.map_shared_rank(sm.wanted + bi, lane) = 1;
+          if (lane == 0) sm.row_arg[li] = bi;
         }
       }
-      if (lane == 0) sm.flags[i] = fl;
+      if (lane < g.G) *cl.map_shared_rank(sm.skip_all + i, lane) = sk;
+      if (lane == 0) sm.flags[li] = fl;
     }
-    __syncthreads();
-    // 2. column pass: best unassigned row of every wanted real column
+    cl.sync();
+    // peers read s_cnt[(t + 1) & 1] before this round's first barrier
+    if (tid == 0) s_cnt[(t + 1) & 1][0] = s_cnt[(t + 1) & 1][1] = 0;
+    // 2. column pass: this stripe's best unassigned row of every wanted
+    //    real column
     for (int j = tid; j < skip_col; j += TW_THREADS) {
       if (!sm.wanted[j]) continue;
       float bv = -INFINITY;
       int bi = INT_MAX;
-      for (int i = 0; i < n_rows; ++i) {
-        if (!sm.row_ok[i] || sm.assign[i] != -1) continue;
-        float v = P(i, j);
-        if (v > bv) {
-          bv = v;
-          bi = i;
+      for (int l0 = 0; l0 < nloc; l0 += TW_BATCH) {
+        float v[TW_BATCH];
+#pragma unroll
+        for (int u = 0; u < TW_BATCH; ++u) {
+          const int li = l0 + u;
+          const bool ok = li < nloc && sm.row_ok[li] && sm.assign[li] == -1;
+          v[u] = ok ? P(lo + li, j) : -INFINITY;
         }
+#pragma unroll
+        for (int u = 0; u < TW_BATCH; ++u)
+          if (v[u] > bv) {
+            bv = v[u];
+            bi = lo + l0 + u;
+          }
       }
-      sm.col_best[j] = bi;
+      pv[j] = bv;
+      pi[j] = bi;
     }
-    __syncthreads();
-    // 3. commits: mutual-best real pairs, and skip rows whose skip mass
-    //    ranks inside the remaining capacity among all contenders
+    cl.sync();
+    // 3. commits: mutual-best real pairs (a row merges its column's G
+    //    partials), and skip rows whose skip mass ranks inside the
+    //    remaining capacity among all contenders of the block
     const int room = max(cap - s_skip_used, 0);
-    for (int i = tid; i < n_rows; i += TW_THREADS) {
-      const uint8_t fl = sm.flags[i];
+    for (int li = warp; li < nloc; li += TW_WARPS) {
+      const int i = lo + li;
+      const uint8_t fl = sm.flags[li];
       if (fl & F_WANTS_SKIP) {
-        const float mi = sm.skip_m[i];
+        const float mi = sm.skip_all[i];
         int rank = 0;
-        for (int k = 0; k < n_rows; ++k) {
-          if (!(sm.flags[k] & F_CONTENDER)) continue;
-          const float mk = sm.skip_m[k];
+        for (int k = lane; k < n_rows; k += 32) {
+          const float mk = sm.skip_all[k];
           rank += (mk > mi || (mk == mi && k < i));
         }
-        if (rank < room) {
-          sm.assign[i] = skip_col;
-          atomicAdd(&s_nskip, 1);
-          s_any = 1;
+        for (int off = 16; off > 0; off >>= 1)
+          rank += __shfl_xor_sync(TW_FULL, rank, off);
+        if (lane == 0 && rank < room) {
+          sm.assign[li] = skip_col;
+          atomicAdd(&s_cnt[t & 1][0], 1);
+          s_cnt[t & 1][1] = 1;
         }
       } else if (fl & F_ACTIVE) {
-        const int j = sm.row_arg[i];
-        if (sm.col_best[j] == i) {
-          sm.assign[i] = j;
-          sm.col_taken[j] = 1;
-          s_any = 1;
+        const int j = sm.row_arg[li];
+        float bv = -INFINITY;
+        int bi = INT_MAX;
+        if (lane < g.G) {
+          bv = *cl.map_shared_rank(pv + j, lane);
+          bi = *cl.map_shared_rank(pi + j, lane);
+        }
+        warp_argmax(bv, bi);
+        if (bi == i) {
+          if (lane < g.G) *cl.map_shared_rank(sm.col_taken + j, lane) = 1;
+          if (lane == 0) {
+            sm.assign[li] = j;
+            s_cnt[t & 1][1] = 1;
+          }
         }
       }
     }
     for (int j = tid; j < C; j += TW_THREADS) sm.wanted[j] = 0;
-    __syncthreads();
+    cl.sync();
     if (tid == 0) {
-      s_skip_used += s_nskip;
-      s_nskip = 0;
-      if (s_skip_used >= cap) s_skip_closed = 1;
-      s_progress = s_any;
-      s_any = 0;
+      int nskip = 0, any = 0;
+      for (int q = 0; q < g.G; ++q) {
+        const int *c = cl.map_shared_rank(&s_cnt[t & 1][0], q);
+        nskip += c[0];
+        any |= c[1];
+      }
+      s_skip_used += nskip;
+      if (s_skip_used >= cap) s_closed = 1;
+      s_progress = any;
     }
     __syncthreads();
     ++rounds;
     if (!s_progress) break;
   }
 
-  for (int i = tid; i < n_rows; i += TW_THREADS) assign_out[i] = sm.assign[i];
+  for (int li = tid; li < nloc; li += TW_THREADS) assign_out[lo + li] = sm.assign[li];
 
   // top-k peel over the col-valid plan (rows are not masked): k passes
   // of argmax + mask; a pass whose best unpicked value is -inf takes the
-  // first unpicked index
+  // first unpicked index. The first pass keeps the row's masked plan in
+  // a row of the (now idle) tile ring, so the later passes read shared
+  // memory; a warp per row, as many warps as the ring has rows.
   int *pk = s_pk[warp];
-  for (int i = warp; i < n_rows; i += TW_WARPS) {
+  const int n_peel = min(TW_WARPS, 2 * TR);
+  float *cache = sm.ring + (size_t)warp * C;
+  for (int li = warp; li < nloc && warp < n_peel; li += n_peel) {
+    const int i = lo + li;
     for (int step = 0; step < topk; ++step) {
       float bv = -INFINITY;
       int bi = INT_MAX, first_free = INT_MAX;
-      for (int j = lane; j < C; j += 32) {
-        bool picked = false;
-        for (int q = 0; q < step; ++q) picked |= (pk[q] == j);
-        if (picked) continue;
-        if (j < first_free) first_free = j;
-        float v = sm.col_ok[j] ? P(i, j) : kNeg;
-        if (v > bv) {
-          bv = v;
-          bi = j;
+      for (int j0 = lane; j0 < C; j0 += 32 * TW_BATCH) {
+        float v[TW_BATCH];
+#pragma unroll
+        for (int u = 0; u < TW_BATCH; ++u) {
+          const int j = j0 + 32 * u;
+          bool ok = j < C;
+          if (step == 0) {
+            if (ok) cache[j] = v[u] = sm.col_ok[j] ? P(i, j) : kNeg;
+          } else {
+            for (int q = 0; q < step; ++q) ok &= (pk[q] != j);
+            if (ok) v[u] = cache[j];
+          }
+          if (ok && j < first_free) first_free = j;
+          if (!ok) v[u] = -INFINITY;
         }
+#pragma unroll
+        for (int u = 0; u < TW_BATCH; ++u)
+          if (v[u] > bv) {
+            bv = v[u];
+            bi = j0 + 32 * u;
+          }
       }
+      __syncwarp();
       warp_argmax(bv, bi);
       for (int off = 16; off > 0; off >>= 1)
         first_free = min(first_free, __shfl_xor_sync(TW_FULL, first_free, off));
       if (bv == -INFINITY) {
         bi = first_free;
-        bv = sm.col_ok[bi] ? P(i, bi) : kNeg;
+        bv = cache[bi];
       }
       if (lane == 0) {
         pk[step] = bi;
@@ -375,35 +740,44 @@ __device__ int round_and_peel(const Plan &P, int n_rows, int C, int cap,
       __syncwarp();
     }
   }
+  cl.sync();  // peers may still read this CTA's counters
   return rounds;
+}
+
+// load the stripe's log row marginals and every column's log marginal
+__device__ inline void load_marginals(const float *row_marg, const float *col_marg,
+                                      int C, const Geo &g, const Smem &sm) {
+  const int tid = threadIdx.x;
+  for (int li = tid; li < g.r1 - g.r0; li += TW_THREADS)
+    sm.log_r[li] = log_marginal(row_marg[g.r0 + li]);
+  for (int j = tid; j < C; j += TW_THREADS) {
+    if (j >= g.c0 && j < g.c1) sm.log_c[j - g.c0] = log_marginal(col_marg[j]);
+    sm.col_ok[j] = col_marg[j] > 0.f;
+  }
 }
 
 __global__ void __launch_bounds__(TW_THREADS, 1)
 fused_assign_kernel(const float *__restrict__ S, const float *__restrict__ row_marg,
                     const float *__restrict__ col_marg, const float *__restrict__ cap,
-                    int R, int C, int n_rows, int n_iters, float inv_eps,
+                    int R, int C, int TR, int n_rows, int n_iters, float inv_eps,
                     float tol_phi, int topk, float min_mass, int *assign_out,
                     int *topk_out, int *stats_out) {
   extern __shared__ __align__(16) unsigned char tw_smem[];
-  __shared__ float s_delta[2];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  Smem sm = carve(tw_smem, R, C);
+  cg::cluster_group cl = cg::this_cluster();
+  const Geo g = geometry(cl, R, C);
+  const int b = blockIdx.x / g.G;
+  Smem sm = carve(tw_smem, R, C, g.G, TR);
   const float *Sb = S + (size_t)b * R * C;
-  for (int i = tid; i < R; i += TW_THREADS) {
-    sm.log_r[i] = log_marginal(row_marg[(size_t)b * R + i]);
-    if (i < n_rows) sm.row_ok[i] = sm.log_r[i] > 0.5f * kNeg;
-  }
-  for (int j = tid; j < C; j += TW_THREADS) {
-    sm.log_c[j] = log_marginal(col_marg[(size_t)b * C + j]);
-    sm.col_ok[j] = sm.log_c[j] > 0.5f * kNeg;
-  }
+  load_marginals(row_marg + (size_t)b * R, col_marg + (size_t)b * C, C, g, sm);
+  for (int li = threadIdx.x; li < g.r1 - g.r0; li += TW_THREADS)
+    sm.row_ok[li] = sm.log_r[li] > 0.5f * kNeg;
   __syncthreads();
-  const int iters = sinkhorn_block(Sb, R, C, n_iters, inv_eps, tol_phi, sm, s_delta);
-  PlanFromScores P{Sb, C, inv_eps, sm.phi, sm.psi};
-  const int rounds = round_and_peel(P, n_rows, C, (int)cap[b], topk, min_mass, sm,
-                                    assign_out + (size_t)b * n_rows,
+  const int iters = sinkhorn_cluster(cl, Sb, R, C, g, TR, n_iters, inv_eps, tol_phi, sm);
+  PlanFromScores P{Sb, C, g.r0, inv_eps, sm.phi, sm.psi2};
+  const int rounds = round_and_peel(cl, P, n_rows, C, g, TR, (int)cap[b], topk, min_mass,
+                                    sm, assign_out + (size_t)b * n_rows,
                                     topk_out + (size_t)b * n_rows * topk);
-  if (tid == 0) {
+  if (threadIdx.x == 0 && g.rank == 0) {
     stats_out[2 * b] = iters;
     stats_out[2 * b + 1] = rounds;
   }
@@ -411,85 +785,129 @@ fused_assign_kernel(const float *__restrict__ S, const float *__restrict__ row_m
 
 __global__ void __launch_bounds__(TW_THREADS, 1)
 sinkhorn_plan_kernel(const float *__restrict__ S, const float *__restrict__ row_marg,
-                     const float *__restrict__ col_marg, int R, int C, int n_iters,
-                     float inv_eps, float tol_phi, float *plan_out, int *iters_out) {
+                     const float *__restrict__ col_marg, int R, int C, int TR,
+                     int n_iters, float inv_eps, float tol_phi, float *plan_out,
+                     int *iters_out) {
   extern __shared__ __align__(16) unsigned char tw_smem[];
-  __shared__ float s_delta[2];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  Smem sm = carve(tw_smem, R, C);
+  cg::cluster_group cl = cg::this_cluster();
+  const Geo g = geometry(cl, R, C);
+  const int b = blockIdx.x / g.G;
+  Smem sm = carve(tw_smem, R, C, g.G, TR);
   const float *Sb = S + (size_t)b * R * C;
-  for (int i = tid; i < R; i += TW_THREADS)
-    sm.log_r[i] = log_marginal(row_marg[(size_t)b * R + i]);
-  for (int j = tid; j < C; j += TW_THREADS)
-    sm.log_c[j] = log_marginal(col_marg[(size_t)b * C + j]);
+  load_marginals(row_marg + (size_t)b * R, col_marg + (size_t)b * C, C, g, sm);
   __syncthreads();
-  const int iters = sinkhorn_block(Sb, R, C, n_iters, inv_eps, tol_phi, sm, s_delta);
-  float *Pb = plan_out + (size_t)b * R * C;
-  const size_t n = (size_t)R * C;
-  for (size_t e = tid; e < n; e += TW_THREADS) {
-    const int i = (int)(e / C), j = (int)(e % C);
-    Pb[e] = plan_val(Sb[e], inv_eps, sm.phi[i], sm.psi[j]);
+  const int iters = sinkhorn_cluster(cl, Sb, R, C, g, TR, n_iters, inv_eps, tol_phi, sm);
+  // the stripe's plan rows; no peer reads this CTA's memory after the
+  // loop's last barrier
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int li = warp; li < g.r1 - g.r0; li += TW_WARPS) {
+    const size_t off = (size_t)b * R * C + (size_t)(g.r0 + li) * C;
+    for (int j = lane; j < C; j += 32)
+      plan_out[off + j] = plan_val(S[off + j], inv_eps, sm.phi[li], sm.psi2[j] * kLn2);
   }
-  if (tid == 0) iters_out[b] = iters;
+  if (threadIdx.x == 0 && g.rank == 0) iters_out[b] = iters;
 }
 
 __global__ void __launch_bounds__(TW_THREADS, 1)
 round_topk_kernel(const float *__restrict__ plan, const uint8_t *__restrict__ row_valid,
                   const uint8_t *__restrict__ col_valid, const float *__restrict__ cap,
-                  int N, int C, int topk, float min_mass, int *assign_out,
+                  int N, int C, int TR, int topk, float min_mass, int *assign_out,
                   int *topk_out) {
   extern __shared__ __align__(16) unsigned char tw_smem[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  Smem sm = carve(tw_smem, N, C);
-  for (int i = tid; i < N; i += TW_THREADS) sm.row_ok[i] = row_valid[(size_t)b * N + i] != 0;
+  cg::cluster_group cl = cg::this_cluster();
+  const Geo g = geometry(cl, N, C);
+  const int b = blockIdx.x / g.G, tid = threadIdx.x;
+  Smem sm = carve(tw_smem, N, C, g.G, TR);
+  for (int li = tid; li < g.r1 - g.r0; li += TW_THREADS)
+    sm.row_ok[li] = row_valid[(size_t)b * N + g.r0 + li] != 0;
   for (int j = tid; j < C; j += TW_THREADS) sm.col_ok[j] = col_valid[(size_t)b * C + j] != 0;
   __syncthreads();
   PlanFromTensor P{plan + (size_t)b * N * C, C};
-  round_and_peel(P, N, C, (int)cap[b], topk, min_mass, sm, assign_out + (size_t)b * N,
-                 topk_out + (size_t)b * N * topk);
+  round_and_peel(cl, P, N, C, g, TR, (int)cap[b], topk, min_mass, sm,
+                 assign_out + (size_t)b * N, topk_out + (size_t)b * N * topk);
 }
 
+// Allow G-CTA clusters (16 is above the portable 8) and the block's
+// dynamic shared memory.
 template <class K>
-static int prepare(K kernel, size_t smem) {
+static cudaError_t prepare(K kernel, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  return (int)err;
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+static cudaLaunchConfig_t cluster_config(int B, int G, size_t smem, void *stream,
+                                         cudaLaunchAttribute *attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * G), 1, 1);
+  cfg.blockDim = dim3(TW_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)G;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 extern "C" {
 
+// How many G-CTA clusters of the kernels (the same threads and shared
+// memory for all three) the card runs at once; 0 when none fits.
+int tw_max_active_clusters(int G, int R, int C, int TR, int *out) {
+  const size_t smem = smem_bytes(R, C, G, TR);
+  cudaError_t err = prepare(fused_assign_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(1, G, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, fused_assign_kernel, &cfg);
+}
+
 int tw_fused_assign(const float *S, const float *row_marg, const float *col_marg,
                     const float *cap, int B, int R, int C, int n_rows, int n_iters,
                     float inv_eps, float tol_phi, int topk, float min_mass,
-                    int *assign_out, int *topk_out, int *stats_out, void *stream) {
-  size_t smem = smem_bytes(R, C);
-  int err = prepare(fused_assign_kernel, smem);
-  if (err) return err;
-  fused_assign_kernel<<<B, TW_THREADS, smem, (cudaStream_t)stream>>>(
-      S, row_marg, col_marg, cap, R, C, n_rows, n_iters, inv_eps, tol_phi, topk,
-      min_mass, assign_out, topk_out, stats_out);
+                    int *assign_out, int *topk_out, int *stats_out, int G, int TR,
+                    void *stream) {
+  const size_t smem = smem_bytes(R, C, G, TR);
+  cudaError_t err = prepare(fused_assign_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(B, G, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, fused_assign_kernel, S, row_marg, col_marg, cap, R,
+                           C, TR, n_rows, n_iters, inv_eps, tol_phi, topk, min_mass,
+                           assign_out, topk_out, stats_out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 int tw_sinkhorn(const float *S, const float *row_marg, const float *col_marg, int B,
                 int R, int C, int n_iters, float inv_eps, float tol_phi,
-                float *plan_out, int *iters_out, void *stream) {
-  size_t smem = smem_bytes(R, C);
-  int err = prepare(sinkhorn_plan_kernel, smem);
-  if (err) return err;
-  sinkhorn_plan_kernel<<<B, TW_THREADS, smem, (cudaStream_t)stream>>>(
-      S, row_marg, col_marg, R, C, n_iters, inv_eps, tol_phi, plan_out, iters_out);
+                float *plan_out, int *iters_out, int G, int TR, void *stream) {
+  const size_t smem = smem_bytes(R, C, G, TR);
+  cudaError_t err = prepare(sinkhorn_plan_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(B, G, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, sinkhorn_plan_kernel, S, row_marg, col_marg, R, C,
+                           TR, n_iters, inv_eps, tol_phi, plan_out, iters_out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 int tw_round_topk(const float *plan, const uint8_t *row_valid, const uint8_t *col_valid,
                   const float *cap, int B, int N, int C, int topk, float min_mass,
-                  int *assign_out, int *topk_out, void *stream) {
-  size_t smem = smem_bytes(N, C);
-  int err = prepare(round_topk_kernel, smem);
-  if (err) return err;
-  round_topk_kernel<<<B, TW_THREADS, smem, (cudaStream_t)stream>>>(
-      plan, row_valid, col_valid, cap, N, C, topk, min_mass, assign_out, topk_out);
+                  int *assign_out, int *topk_out, int G, int TR, void *stream) {
+  const size_t smem = smem_bytes(N, C, G, TR);
+  cudaError_t err = prepare(round_topk_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(B, G, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, round_topk_kernel, plan, row_valid, col_valid, cap, N,
+                           C, TR, topk, min_mass, assign_out, topk_out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -4,14 +4,21 @@
 Two TPU kernels become two CUDA kernels in ``csrc/sinkhorn.cu``:
 
 - :func:`fused_assign_cuda` (K1, replaces ``fused_assign_pallas``):
-  Sinkhorn, greedy rounding and the top-k peel in one kernel, one CTA
-  per window block;
+  Sinkhorn, greedy rounding and the top-k peel in one kernel;
 - :func:`sinkhorn_cuda` (K2, replaces ``sinkhorn_log_pallas``): the same
   Sinkhorn loop, returning the plan.
 
 :func:`round_topk_cuda` launches K1's rounding and peel code on a given
 plan; it exists so that stage can be checked bit for bit against the
 plain rounding on the card.
+
+Each window block runs on one thread-block cluster of 8 or 16 CTAs
+(:func:`launch_plan`): every CTA owns a stripe of rows, and the column
+reductions and the rounding's column argmaxes are merged through
+distributed shared memory. The exponentials of the Sinkhorn loop bound
+both kernels; spreading a window over a cluster puts 64 to 128 SMs to
+work at 8 windows instead of 8. The three kernels use one plan for one
+(B, R, C), so K1 equals K2's plan rounded by ``round_topk`` bit for bit.
 
 Plain versions live beside them: :func:`assign_topk_plain` (the
 ``sinkhorn -> greedy_round -> topk_peel`` composition, ``assign_topk_jnp``
@@ -20,8 +27,9 @@ in the JAX package), :func:`round_topk_plain` and
 
 The dispatchers :func:`assign_topk` and :func:`sinkhorn` take the plain
 version only for tensors on the CPU. For CUDA tensors they launch the
-kernel or raise: there is no fallback. Each kernel wrapper counts its
-launches in :data:`LAUNCHES`.
+kernel or raise: there is no fallback, and a cluster that the card cannot
+schedule raises. Each kernel wrapper counts its launches in
+:data:`LAUNCHES`.
 
 The kernels are built by ``nvcc`` for ``sm_90a`` from the sources in
 ``csrc/`` at first use, into ``traceweaver_tpu_torch/_build/``, and
@@ -36,7 +44,8 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,8 +60,14 @@ from traceweaver_tpu_torch.ops.sinkhorn import sinkhorn_log
 #: kernel launch counters, one per wrapper (incremented only at a launch)
 LAUNCHES: Dict[str, int] = {"fused_assign": 0, "sinkhorn": 0, "round_topk": 0}
 
-#: dynamic shared memory one CTA may use on Hopper
-MAX_SMEM_BYTES = 232448
+#: dynamic shared memory one CTA may use: Hopper's 232448 bytes less
+#: room for the kernels' static shared memory (under 3 KB)
+MAX_SMEM_BYTES = 232448 - 4096
+#: cluster sizes: 16 CTAs (a non-portable size) where the card runs all
+#: of a launch's clusters at once, else 8 (the portable maximum)
+CLUSTER_LARGE, CLUSTER_SMALL = 16, 8
+#: threads of one CTA (TW_THREADS in ``csrc/sinkhorn.cu``)
+THREADS_PER_CTA = 512
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "ops", "csrc", "sinkhorn.cu")
@@ -62,6 +77,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_ACTIVE_CLUSTERS: Dict[Tuple[int, int, int, int], int] = {}
 
 
 def reset_launches() -> None:
@@ -103,30 +119,110 @@ def _lib() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(build())
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.tw_max_active_clusters.argtypes = [i, i, i, i, p]
+            lib.tw_max_active_clusters.restype = i
             lib.tw_fused_assign.argtypes = [p, p, p, p, i, i, i, i, i, f, f, i,
-                                            f, p, p, p, p]
+                                            f, p, p, p, i, i, p]
             lib.tw_fused_assign.restype = i
-            lib.tw_sinkhorn.argtypes = [p, p, p, i, i, i, i, f, f, p, p, p]
+            lib.tw_sinkhorn.argtypes = [p, p, p, i, i, i, i, f, f, p, p, i, i, p]
             lib.tw_sinkhorn.restype = i
-            lib.tw_round_topk.argtypes = [p, p, p, p, i, i, i, i, f, p, p, p]
+            lib.tw_round_topk.argtypes = [p, p, p, p, i, i, i, i, f, p, p, i, i,
+                                          p]
             lib.tw_round_topk.restype = i
             _LIB = lib
     return _LIB
 
 
-def smem_bytes(rows: int, cols: int) -> int:
-    """Dynamic shared memory of one CTA for an [rows, cols] block (the
-    layout of ``csrc/sinkhorn.cu``: potentials, marginals and rounding
-    state, never the block itself)."""
-    return 4 * (5 * rows + 3 * cols) + 2 * rows + 3 * cols
+#: rows per tile of the Sinkhorn loop's shared-memory ring, largest first
+TILE_ROWS = (8, 4, 2, 1)
 
 
-def _check_block(rows: int, cols: int) -> None:
-    need = smem_bytes(rows, cols)
+def smem_bytes(rows: int, cols: int, cluster: int, tile_rows: int) -> int:
+    """Dynamic shared memory of one CTA of a ``cluster``-CTA cluster for
+    an [rows, cols] block (the layout of ``csrc/sinkhorn.cu``: a ring of
+    two ``tile_rows``-row tiles, a full psi, the column partials and
+    flags, the log column marginals of the CTA's merge slice, the
+    stripe's potentials and rounding state, every row's skip mass; never
+    the whole block)."""
+    stripe, cslice = -(-rows // cluster), -(-cols // cluster)
+    slot = -(-tile_rows * cols // 4) * 4 + 4
+    return 8 * slot + 15 * cols + 4 * cslice + 4 * rows + 18 * stripe
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch spreads B blocks of [rows, cols] over the card: a
+    cluster of ``cluster`` CTAs per block, CTA r owning rows
+    [r * rows_per_cta, (r + 1) * rows_per_cta) (clipped to ``rows``;
+    trailing CTAs may own none) and streaming them through shared memory
+    ``tile_rows`` rows at a time."""
+
+    cluster: int
+    rows_per_cta: int
+    tile_rows: int
+    smem_bytes: int
+
+    def stripes(self, rows: int):
+        """The row range each CTA of a cluster owns."""
+        return [(min(r * self.rows_per_cta, rows),
+                 min((r + 1) * self.rows_per_cta, rows))
+                for r in range(self.cluster)]
+
+
+def launch_plan(B: int, rows: int, cols: int, large_clusters: int) -> LaunchPlan:
+    """The plan for B blocks of [rows, cols], given how many
+    ``CLUSTER_LARGE`` clusters the card runs at once: the large size
+    when all B fit together, else ``CLUSTER_SMALL``; the largest tile
+    that fits in shared memory. K1, K2 and ``round_topk`` take the same
+    plan for the same (B, rows, cols)."""
+    cluster = CLUSTER_LARGE if large_clusters >= B else CLUSTER_SMALL
+    _check_block(rows, cols, cluster)
+    tile = next(t for t in TILE_ROWS
+                if smem_bytes(rows, cols, cluster, t) <= MAX_SMEM_BYTES)
+    return LaunchPlan(cluster, -(-rows // cluster), tile,
+                      smem_bytes(rows, cols, cluster, tile))
+
+
+def _check_block(rows: int, cols: int, cluster: int = CLUSTER_SMALL) -> None:
+    need = smem_bytes(rows, cols, cluster, TILE_ROWS[-1])
     if need > MAX_SMEM_BYTES:
         raise ValueError(
-            f"block [{rows}, {cols}] needs {need} bytes of shared memory; the "
-            f"kernel's limit is {MAX_SMEM_BYTES} bytes per CTA")
+            f"block [{rows}, {cols}] needs {need} bytes of shared memory per CTA "
+            f"at a cluster of {cluster}; the kernel's limit is {MAX_SMEM_BYTES} "
+            "bytes per CTA")
+
+
+def _active_clusters(cluster: int, rows: int, cols: int, dev: torch.device) -> int:
+    """How many ``cluster``-CTA clusters of the kernels the card runs at
+    once at the plan's shared memory (cached per card and shape)."""
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
+           cluster, rows, cols)
+    if key not in _ACTIVE_CLUSTERS:
+        try:
+            plan = launch_plan(1, rows, cols, 1 if cluster == CLUSTER_LARGE else 0)
+        except ValueError:
+            _ACTIVE_CLUSTERS[key] = 0
+            return 0
+        n = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = _lib().tw_max_active_clusters(cluster, rows, cols, plan.tile_rows,
+                                                ctypes.addressof(n))
+        _raise_on(err, f"occupancy query for a cluster of {cluster}")
+        _ACTIVE_CLUSTERS[key] = n.value
+    return _ACTIVE_CLUSTERS[key]
+
+
+def card_plan(B: int, rows: int, cols: int, dev: torch.device) -> LaunchPlan:
+    """:func:`launch_plan` on this card; raises when the card cannot run
+    even one cluster of the chosen size."""
+    plan = launch_plan(B, rows, cols,
+                       _active_clusters(CLUSTER_LARGE, rows, cols, dev))
+    if _active_clusters(plan.cluster, rows, cols, dev) < 1:
+        raise RuntimeError(
+            f"a cluster of {plan.cluster} CTAs of {THREADS_PER_CTA} threads with "
+            f"{plan.smem_bytes} bytes of shared memory each cannot be scheduled "
+            "on this card")
+    return plan
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
@@ -152,7 +248,12 @@ def _stream(t: torch.Tensor) -> int:
 def fused_assign_cuda(scores, row_marg, col_marg, skip_cap, n_rows: int, *,
                       epsilon: float, n_iters: int, tol: float, topk: int,
                       min_topk_mass: float, return_stats: bool = False):
-    """K1: Sinkhorn -> greedy rounding -> top-k peel per block.
+    """K1: Sinkhorn -> greedy rounding -> top-k peel per block, one
+    cluster of :func:`card_plan` CTAs per block.
+
+    The Sinkhorn loop's exponentials bound it (one per element and
+    half-iteration), and its block streams from L2/HBM twice per
+    iteration; the cluster spreads both over 8 or 16 SMs per block.
 
     scores [B, R, C] f32 (dummy row and skip column included, column
     C - 1 is the skip column), row_marg [B, R], col_marg [B, C], skip_cap
@@ -174,13 +275,14 @@ def fused_assign_cuda(scores, row_marg, col_marg, skip_cap, n_rows: int, *,
     stats = torch.empty((B, 2), dtype=torch.int32, device=dev)
     if B == 0:
         return (assign, tk, stats) if return_stats else (assign, tk)
-    lib = _lib()
+    lib, plan = _lib(), card_plan(B, R, C, dev)
     with torch.cuda.device(dev):
         err = lib.tw_fused_assign(
             scores.data_ptr(), row_marg.data_ptr(), col_marg.data_ptr(),
             skip_cap.data_ptr(), B, R, C, n_rows, n_iters, 1.0 / epsilon,
             tol / epsilon, topk, min_topk_mass, assign.data_ptr(),
-            tk.data_ptr(), stats.data_ptr(), _stream(scores))
+            tk.data_ptr(), stats.data_ptr(), plan.cluster, plan.tile_rows,
+            _stream(scores))
     _raise_on(err, "fused_assign launch")
     LAUNCHES["fused_assign"] += 1
     return (assign, tk, stats) if return_stats else (assign, tk)
@@ -190,7 +292,8 @@ def sinkhorn_cuda(scores, row_marg, col_marg, *, epsilon: float, n_iters: int,
                   tol: float = 0.0, return_iters: bool = False):
     """K2: the Sinkhorn plan [B, N, M] f32 of scores [B, N, M] under
     marginals [B, N] / [B, M]; ``return_iters`` adds the iterations run
-    per block ([B] int32)."""
+    per block ([B] int32). The same cluster design and bound as K1, plus
+    one write of the plan."""
     B, N, M = scores.shape
     _check("scores", scores, torch.float32, (B, N, M))
     _check("row_marg", row_marg, torch.float32, (B, N))
@@ -201,12 +304,12 @@ def sinkhorn_cuda(scores, row_marg, col_marg, *, epsilon: float, n_iters: int,
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return (plan, iters) if return_iters else plan
-    lib = _lib()
+    lib, lp = _lib(), card_plan(B, N, M, dev)
     with torch.cuda.device(dev):
         err = lib.tw_sinkhorn(
             scores.data_ptr(), row_marg.data_ptr(), col_marg.data_ptr(), B, N,
             M, n_iters, 1.0 / epsilon, tol / epsilon, plan.data_ptr(),
-            iters.data_ptr(), _stream(scores))
+            iters.data_ptr(), lp.cluster, lp.tile_rows, _stream(scores))
     _raise_on(err, "sinkhorn launch")
     LAUNCHES["sinkhorn"] += 1
     return (plan, iters) if return_iters else plan
@@ -230,12 +333,13 @@ def round_topk_cuda(plan, row_valid, col_valid, skip_cap, *, topk: int,
     tk = torch.empty((B, N, topk), dtype=torch.int32, device=dev)
     if B == 0:
         return assign, tk
-    lib = _lib()
+    lib, lp = _lib(), card_plan(B, N, C, dev)
     with torch.cuda.device(dev):
         err = lib.tw_round_topk(
             plan.data_ptr(), row_valid.data_ptr(), col_valid.data_ptr(),
             skip_cap.data_ptr(), B, N, C, topk, min_topk_mass,
-            assign.data_ptr(), tk.data_ptr(), _stream(plan))
+            assign.data_ptr(), tk.data_ptr(), lp.cluster, lp.tile_rows,
+            _stream(plan))
     _raise_on(err, "round_topk launch")
     LAUNCHES["round_topk"] += 1
     return assign, tk
