@@ -3,8 +3,9 @@
 against their plain versions.
 
     python3 chip_smoke.py      # needs one CUDA card
-    python3 chip_smoke.py --slice-root DIR   # only the slice phase, with
-                                             # the package of checkout DIR
+    python3 chip_smoke.py --slice-root DIR   # only the slice and fleet
+                                             # phases, with the package
+                                             # of checkout DIR
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -16,21 +17,32 @@ Phases, each of which raises on failure (non-zero exit):
    with its launch counter reset just before and read just after;
    accuracy must reach ``ACCURACY_FLOOR``; a 256-request cut must give
    the same assignments on the card as on the CPU;
-3. kernels: each kernel against its plain PyTorch version on the card,
+3. fleet: on a 256-request cut of config ``synth-fleet-8svc`` (eight
+   services), ``solve_fleet`` on the card must agree with
+   ``solve_fleet`` on the CPU and with per-service ``FindAssignments``
+   on the card on >= 0.99 of every service's (endpoint, span) pairs;
+   then the full config (8 x 8192 requests) through ``solve_fleet`` on
+   the card, once with each kernel, each launch counter reset just
+   before and read just after: every service's accuracy must reach the
+   JAX package's less one point (``FLEET_JAX_ACCURACY``), and no
+   ``fault_*`` counter may move (a run that needed the supervisor
+   fails);
+4. kernels: each kernel against its plain PyTorch version on the card,
    on random blocks (ragged, all-masked, padded rows, skip-heavy, tol 0
    and 1e-3; rows not a multiple of the cluster size, fewer rows than
    CTAs in a cluster, one window, more windows than clusters run at
-   once, an early tolerance exit) and on a score block captured from
-   the slice run; then each kernel's time, its plain version's time and
-   its bound at the main-path block.
+   once, an early tolerance exit, all-invalid padding windows) and on
+   the score blocks captured from the slice run and from the fleet's
+   chain group ([32, 1025, 2049]); then each kernel's time, its plain
+   version's time and its bound at both blocks.
 
-``--slice-root`` runs the slice phase alone against another checkout
-(one process per checkout, since both packages share a name), so that
-two commits are compared on one card in turns.
+``--slice-root`` runs the slice and fleet phases alone against another
+checkout (one process per checkout, since both packages share a name),
+so that two commits are compared on one card in turns.
 
-The slice line carries ``kernel_ms``, the summed device time of the
-path's kernel launches (CUDA events around each launch), beside
-``wall_s``. The kernel-timing line carries each kernel's cluster size
+The slice and fleet lines carry ``kernel_ms``, the summed device time of
+the path's kernel launches (CUDA events around each launch), beside
+``wall_s``. The kernel-timing lines carry each kernel's cluster size
 and the three terms of its bound.
 
 The last lines are the launch counts, the kernel table as one JSON
@@ -54,6 +66,15 @@ import time
 # JAX package on the CPU, same config: 0.9847412109375
 # (tests/jax_reference_synth.py), less one point
 ACCURACY_FLOOR = 0.9747
+# JAX package on the CPU, config synth-fleet-8svc, per service
+# (JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config
+# synth-fleet-8svc); each service's floor is its number less one point
+FLEET_JAX_ACCURACY = {
+    "chain0": 0.9847412109375, "chain1": 0.9864501953125,
+    "chain2": 0.9869384765625, "chain3": 0.9857177734375,
+    "async": 0.5130615234375, "fanout": 0.1552734375, "seq": 1.0,
+    "cache": 0.1636962890625}
+FLEET_SMALL = 256
 # NVIDIA H100 SXM data sheet: HBM rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -119,10 +140,13 @@ def cuda_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 def random_blocks(rng, B, W, M, *, row_frac=0.75, col_frac=0.75,
-                  all_masked_cols=False, cap_max=4, cap_zero=False):
+                  all_masked_cols=False, cap_max=4, cap_zero=False,
+                  empty_windows=0):
     """B OT blocks in the solver's layout ([W+1, M+1] with the dummy row
     and the skip column), as numpy: scores, row/col marginals, row and
-    column validity, skip capacity."""
+    column validity, skip capacity. The last ``empty_windows`` blocks are
+    the fleet's padding windows: no valid row or column, zero skip
+    capacity, so every marginal is zero."""
     import numpy as np
 
     S = rng.normal(scale=5.0, size=(B, W + 1, M + 1)).astype(np.float32)
@@ -130,6 +154,10 @@ def random_blocks(rng, B, W, M, *, row_frac=0.75, col_frac=0.75,
     in_v[:, 0] = True
     o_v = np.zeros((B, M), bool) if all_masked_cols else rng.random((B, M)) < col_frac
     cap = rng.integers(0, cap_max, size=B).astype(np.float32)
+    if empty_windows:
+        in_v[B - empty_windows:] = False
+        o_v[B - empty_windows:] = False
+        cap[B - empty_windows:] = 0.0
     n_rows = in_v.sum(1).astype(np.float32)
     n_cols = o_v.sum(1).astype(np.float32)
     cap_e = np.maximum(cap, np.maximum(n_rows - n_cols, 0.0))
@@ -233,7 +261,7 @@ def check_case(name, blk, tol, n_iters=40, early_exit=False):
     return dict(plan_err=plan_err, k1_err=err)
 
 
-def kernel_phase(real_block):
+def kernel_phase(real_block, fleet_block):
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -254,6 +282,7 @@ def kernel_phase(real_block):
         ("many-windows", random_blocks(rng, 40, 256, 512), 1e-3),
         ("tiles-of-4", random_blocks(rng, 2, 1024, 4096), 1e-3),
         ("tiles-of-1", random_blocks(rng, 1, 512, 8192), 1e-3),
+        ("padding-windows", random_blocks(rng, 8, 64, 128, empty_windows=3), 1e-3),
     ]
     worst = dict(plan_err=0.0, k1_err=0.0)
     runs = [(name, blk, tol, {}) for name, blk, tol in cases]
@@ -263,9 +292,10 @@ def kernel_phase(real_block):
         r = check_case(name, to_cuda(blk), tol, **extra)
         for k in worst:
             worst[k] = max(worst[k], r[k])
-    r = check_case("slice-block", real_block, 1e-3)
-    for k in worst:
-        worst[k] = max(worst[k], r[k])
+    for name, blk in (("slice-block", real_block), ("fleet-block", fleet_block)):
+        r = check_case(name, blk, 1e-3)
+        for k in worst:
+            worst[k] = max(worst[k], r[k])
     return worst
 
 
@@ -367,60 +397,75 @@ def run_slice(prob, fused: bool, device="cuda"):
     return out, acc, wall, peak, algo.stats
 
 
-def slice_phase(card):
+KERNEL_OF = {True: ("fused_assign", "fused_assign_cuda"),
+             False: ("sinkhorn", "sinkhorn_cuda")}
+
+
+def drive(run, fused: bool, captured=None, want=lambda S: True):
+    """Call ``run()`` with the path's kernel wrapper timed by CUDA events
+    around each launch and, when ``captured`` is a dict, ``assign_topk``
+    keeping the first block ``want`` accepts; every launch counter is
+    reset just before and read just after. Returns ``run()``'s result,
+    the path kernel's launches, the other kernel's and the summed kernel
+    device ms."""
     import torch
 
     import traceweaver_tpu_torch.algorithms.weaver_torch as wt
-    from traceweaver_tpu_torch.metrics.synth import synth_async_8k
     from traceweaver_tpu_torch.ops import cuda_sinkhorn as K
+
+    key, wrapper = KERNEL_OF[fused]
+    real_wrapper, real_assign_topk, events = getattr(K, wrapper), wt.assign_topk, []
+
+    def timed(*args, **kw):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = real_wrapper(*args, **kw)
+        t1.record()
+        events.append((t0, t1))
+        return out
+
+    def recording(*args, **kw):
+        if "block" not in captured and want(args[0]):
+            S, rm, cm, in_v, cv, cap, W = args
+            captured["block"] = dict(S=S, row_marg=rm, col_marg=cm, in_v=in_v,
+                                     col_valid=cv, cap=cap, n_rows=W)
+        return real_assign_topk(*args, **kw)
+
+    if captured is not None:
+        wt.assign_topk = recording
+    setattr(K, wrapper, timed)
+    try:
+        K.reset_launches()
+        out = run()
+        launches = K.LAUNCHES[key]
+        other = K.LAUNCHES[KERNEL_OF[not fused][0]]
+    finally:
+        wt.assign_topk = real_assign_topk
+        setattr(K, wrapper, real_wrapper)
+    return out, launches, other, sum(t0.elapsed_time(t1) for t0, t1 in events)
+
+
+def slice_phase(card):
+    import torch
+
+    from traceweaver_tpu_torch.metrics.synth import synth_async_8k
 
     # reference on a small input: the same cut on the card and on the CPU
     small = synth_async_8k(256)
     on_card = run_slice(small, True)[0][0]
     on_cpu = run_slice(small, True, device="cpu")[0][0]
-    pairs = [(ep, i) for ep in on_cpu for i in on_cpu[ep]]
-    same = sum(on_card[ep][i] == on_cpu[ep][i] for ep, i in pairs) / len(pairs)
+    same = agreement(on_card, on_cpu)
     print(f"slice-small: 256 requests, card vs CPU identical pairs {same:.6f}", flush=True)
     if same < 0.99:
         raise AssertionError(f"card and CPU assignments agree on {same} < 0.99 of pairs")
 
     prob = synth_async_8k()
     launches, captured = {}, {}
-    real_assign_topk = wt.assign_topk
-
-    def recording(*args, **kw):
-        if "block" not in captured:
-            S, rm, cm, in_v, cv, cap, W = args
-            captured["block"] = dict(S=S, row_marg=rm, col_marg=cm, in_v=in_v,
-                                     col_valid=cv, cap=cap, n_rows=W)
-        return real_assign_topk(*args, **kw)
-
-    def timed(fn, events):
-        """``fn`` with CUDA events recorded around each call."""
-        def call(*args, **kw):
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            out = fn(*args, **kw)
-            t1.record()
-            events.append((t0, t1))
-            return out
-        return call
-
-    for fused, key in ((True, "fused_assign"), (False, "sinkhorn")):
-        wrapper = "fused_assign_cuda" if fused else "sinkhorn_cuda"
-        real_wrapper, events = getattr(K, wrapper), []
-        wt.assign_topk = recording if fused else real_assign_topk
-        setattr(K, wrapper, timed(real_wrapper, events))
-        try:
-            K.reset_launches()
-            _, acc, wall, peak, stats = run_slice(prob, fused)
-            launches[key] = K.LAUNCHES[key]
-            other = K.LAUNCHES["sinkhorn" if fused else "fused_assign"]
-        finally:
-            wt.assign_topk = real_assign_topk
-            setattr(K, wrapper, real_wrapper)
-        kernel_ms = sum(t0.elapsed_time(t1) for t0, t1 in events)
+    for fused in (True, False):
+        key = KERNEL_OF[fused][0]
+        (_, acc, wall, peak, stats), launches[key], other, kernel_ms = drive(
+            lambda: run_slice(prob, fused), fused, captured if fused else None)
         line = dict(config="synth-async-8k", fused_kernel=fused, accuracy=acc,
                     wall_s=wall, kernel=key, kernel_ms=kernel_ms,
                     kernel_share=kernel_ms / 1e3 / wall,
@@ -436,10 +481,112 @@ def slice_phase(card):
     return launches, captured["block"]
 
 
+# ---------------------------------------------------------------------------
+# fleet
+# ---------------------------------------------------------------------------
+
+def agreement(got, ref) -> float:
+    """Share of ``ref``'s (endpoint, span) pairs that ``got`` assigns alike."""
+    pairs = [(ep, i) for ep in ref for i in ref[ep]]
+    return sum(got[ep][i] == ref[ep][i] for ep, i in pairs) / len(pairs)
+
+
+def run_fleet(probs, fused: bool, device="cuda"):
+    """``solve_fleet`` over the services; returns the results, each
+    service's accuracy, wall seconds, peak device bytes, the stats
+    ledger and the quarantine list."""
+    import torch
+
+    from traceweaver_tpu_torch.algorithms.fleet import FleetItem, solve_fleet
+    from traceweaver_tpu_torch.metrics.accuracy import accuracy_for_service
+
+    items = [FleetItem(p["service"], p["in_parts"], p["out_parts"], p["truth"],
+                       p["dag"]) for p in probs]
+    stats, quarantined = {}, []
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = solve_fleet(items, stats=stats, quarantined=quarantined, device=device,
+                      fused_kernel=fused)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc = {}
+    for p, res in zip(probs, out):
+        in_ids = [s.GetId() for s in next(iter(p["in_parts"].values()))]
+        if res is None or len(res) != 6 or any(
+                i not in amap for amap in res[0].values() for i in in_ids):
+            raise AssertionError(f"{p['service']}: no complete FindAssignments result")
+        acc[p["service"]] = accuracy_for_service(res[0], p["truth"], p["in_parts"])
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    return out, acc, wall, peak, stats, quarantined
+
+
+def fleet_phase(card):
+    """The fleet phase (see the module docstring). Returns each kernel's
+    launches on the full config and the first score block of the chain
+    group."""
+    import torch
+
+    from traceweaver_tpu_torch.metrics.synth import synth_fleet_8svc
+
+    small = synth_fleet_8svc(FLEET_SMALL)
+    on_card = run_fleet(small, True)[0]
+    on_cpu = run_fleet(small, True, device="cpu")[0]
+    per_service = [run_slice(p, True)[0] for p in small]
+    vs_cpu = {p["service"]: agreement(c[0], h[0])
+              for p, c, h in zip(small, on_card, on_cpu)}
+    vs_service = {p["service"]: agreement(c[0], s[0])
+                  for p, c, s in zip(small, on_card, per_service)}
+    print("fleet-small " + json.dumps(dict(
+        config="synth-fleet-8svc", requests_per_service=FLEET_SMALL,
+        card_vs_cpu=vs_cpu, card_fleet_vs_per_service=vs_service)), flush=True)
+    low = {k: v for d in (vs_cpu, vs_service) for k, v in d.items() if v < 0.99}
+    if low:
+        raise AssertionError(f"small fleet cut agrees on < 0.99 of pairs: {low}")
+
+    probs = synth_fleet_8svc()
+    n_spans = sum(len(next(iter(p["in_parts"].values()))) for p in probs)
+    floors = {k: v - 0.01 for k, v in FLEET_JAX_ACCURACY.items()}
+    launches, captured = {}, {}
+    for fused in (True, False):
+        key = KERNEL_OF[fused][0]
+        (_, acc, wall, peak, stats, quarantined), launches[key], other, kernel_ms = drive(
+            lambda: run_fleet(probs, fused), fused, captured if fused else None,
+            want=lambda S: S.shape[0] >= 32 and S.shape[1:] == (1025, 2049))
+        faults = {k: v for k, v in stats.items() if k.startswith("fault")}
+        line = dict(
+            config="synth-fleet-8svc", fused_kernel=fused, wall_s=wall,
+            spans_per_s=n_spans / wall, kernel=key, kernel_ms=kernel_ms,
+            kernel_share=kernel_ms / 1e3 / wall, launches=launches[key],
+            other_kernel_launches=other, peak_mem_bytes=peak,
+            **{k: stats.get(k, 0.0) for k in (
+                "fleet_dispatches", "fleet_services", "fused_em_applied",
+                "fleet_dynamism_dispatches", "compact_windows_total",
+                "compact_windows_redispatched", "plan_fit_s", "pack_s",
+                "dispatch_s", "wait_s", "decode_s")},
+            accuracy=acc, accuracy_floor=floors, faults=faults,
+            quarantined=quarantined, card=card)
+        print("fleet " + json.dumps(line), flush=True)
+        if launches[key] <= 0:
+            raise AssertionError(f"fleet path (fused={fused}) launched no {key} kernel")
+        below = {k: v for k, v in acc.items() if v < floors[k]}
+        if below:
+            raise AssertionError(f"fleet accuracy below the floor (fused={fused}): {below}")
+        if any(v for v in faults.values()) or quarantined:
+            raise AssertionError(f"fleet run needed the supervisor: {faults}, "
+                                 f"quarantined {quarantined}")
+    if "block" not in captured:
+        raise AssertionError("no [>= 32, 1025, 2049] block in the fleet run")
+    torch.cuda.synchronize()
+    return launches, captured["block"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--slice-root", help="run only the slice phase, importing "
-                    "traceweaver_tpu_torch from this checkout")
+    ap.add_argument("--slice-root", help="run only the slice and fleet phases, "
+                    "importing traceweaver_tpu_torch from this checkout")
     args = ap.parse_args()
 
     import torch
@@ -464,27 +611,34 @@ def main() -> int:
     if args.slice_root:
         print(f"package: {os.path.dirname(os.path.dirname(K.__file__))}", flush=True)
         slice_phase(card)
+        fleet_phase(card)
         return 0
     launches, real_block = slice_phase(card)
+    fleet_launches, fleet_block = fleet_phase(card)
     K.reset_launches()
-    worst = kernel_phase(real_block)
+    worst = kernel_phase(real_block, fleet_block)
     checks = dict(K.LAUNCHES)
     timing = kernel_timing(real_block)
+    fleet_timing = kernel_timing(fleet_block)
     print("kernels: " + json.dumps({
         "fused_assign": launches["fused_assign"],
         "sinkhorn": launches["sinkhorn"],
+        "fleet_fused_assign": fleet_launches["fused_assign"],
+        "fleet_sinkhorn": fleet_launches["sinkhorn"],
         "round_topk": checks["round_topk"]}), flush=True)
     src = "traceweaver_tpu_torch/ops/csrc/sinkhorn.cu"
-    table = [
-        dict(name="fused_assign", route="cuda", source=src,
-             replaces="traceweaver_tpu/ops/pallas_sinkhorn.py:308",
-             launches=launches["fused_assign"], max_abs_err=worst["k1_err"],
-             library_ms=None, **timing["fused_assign"]),
-        dict(name="sinkhorn", route="cuda", source=src,
-             replaces="traceweaver_tpu/ops/pallas_sinkhorn.py:140",
-             launches=launches["sinkhorn"], max_abs_err=worst["plan_err"],
-             library_ms=None, **timing["sinkhorn"]),
-    ]
+    fleet_shape = list(fleet_block["S"].shape)
+
+    def row(name, replaces, err):
+        fleet = {f"fleet_{k}": v for k, v in fleet_timing[name].items()}
+        return dict(name=name, route="cuda", source=src, replaces=replaces,
+                    launches=launches[name], max_abs_err=worst[err],
+                    library_ms=None, **timing[name],
+                    fleet_launches=fleet_launches[name], fleet_shape=fleet_shape,
+                    **fleet)
+
+    table = [row("fused_assign", "traceweaver_tpu/ops/pallas_sinkhorn.py:308", "k1_err"),
+             row("sinkhorn", "traceweaver_tpu/ops/pallas_sinkhorn.py:140", "plan_err")]
     print(json.dumps({"kernels": table}), flush=True)
     torch.cuda.synchronize()
     print(card, flush=True)

@@ -31,10 +31,20 @@ def _forbidden(name: str) -> bool:
             or name == "traceweaver_tpu" or name.startswith("traceweaver_tpu."))
 
 
+#: modules of the port and the JAX module each mirrors
+MIRRORS = {
+    "traceweaver_tpu_torch.algorithms.weaver_torch": "traceweaver_tpu/algorithms/weaver_tpu.py",
+    "traceweaver_tpu_torch.ops.cuda_sinkhorn": "traceweaver_tpu/ops/pallas_sinkhorn.py",
+    "traceweaver_tpu_torch.algorithms.fleet": "traceweaver_tpu/algorithms/fleet.py",
+    "traceweaver_tpu_torch.runtime.faults": "traceweaver_tpu/runtime/faults.py",
+    "traceweaver_tpu_torch.synth.transforms": "traceweaver_tpu/synth/transforms.py",
+    "traceweaver_tpu_torch.metrics.synth": "traceweaver_tpu/metrics/scorecard.py",
+}
+
+
 def test_port_modules_import_without_jax():
     mods = _port_modules()
-    assert "traceweaver_tpu_torch.algorithms.weaver_torch" in mods
-    assert "traceweaver_tpu_torch.ops.cuda_sinkhorn" in mods
+    assert set(MIRRORS) <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -45,7 +55,15 @@ def test_port_modules_import_without_jax():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert not [m for m in loaded if _forbidden(m)]
-    assert "traceweaver_tpu_torch.algorithms.weaver_torch" in loaded
+    assert set(MIRRORS) <= set(loaded)
+
+
+@pytest.mark.parametrize("module", sorted(MIRRORS))
+def test_module_names_the_jax_module_it_mirrors(module):
+    import importlib
+
+    doc = importlib.import_module(module).__doc__ or ""
+    assert MIRRORS[module] in " ".join(doc.split()).replace("``", "")
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "traceweaver_tpu_torch"])

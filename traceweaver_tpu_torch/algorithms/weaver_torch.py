@@ -291,6 +291,35 @@ def solve_windows_packed(*args, **kw):
     return _pack_solver_outputs(*solve_windows(*args, **kw))
 
 
+def solve_windows_fleet(in_start, in_end, in_valid, out_start, out_end,
+                        out_valid, skip_cap, force_skip, param_idx,
+                        pred_masks, root_masks, is_lasts,
+                        edge_wts, edge_mus, edge_sds, in_wts, in_mus, in_sds,
+                        ret_wts, ret_mus, ret_sds, epsilon: float = 1.0,
+                        n_sinkhorn: int = 40, topk: int = DEFAULT_TOPK,
+                        n_sweeps: int = 5, sinkhorn_tol: float = 0.0,
+                        max_preds: int = 0, max_succs: int = 0,
+                        precision: str = "f32", fused: bool = True):
+    """Multi-service solve: ``param_idx[b]`` picks window b's row of the
+    stacked ``[P, ...]`` tables, so windows of every service of a fleet
+    share one batch (endpoint axes padded to the fleet's widest; padded
+    endpoints have no valid columns, assign nothing and pass predecessor
+    times through).
+
+    Returns ``(packed [B, E, W, 3 + topk] int32, converged [B] bool)``:
+    the flags come apart from the block so the compacted flow can fetch
+    B bytes alone."""
+    outs = _solve_windows_impl(
+        in_start, in_end, in_valid, out_start, out_end, out_valid,
+        skip_cap, force_skip, param_idx.to(torch.int64),
+        pred_masks, root_masks, is_lasts, edge_wts, edge_mus, edge_sds,
+        in_wts, in_mus, in_sds, ret_wts, ret_mus, ret_sds,
+        epsilon=epsilon, n_sinkhorn=n_sinkhorn, topk=topk, n_sweeps=n_sweeps,
+        sinkhorn_tol=sinkhorn_tol, max_preds=max_preds, max_succs=max_succs,
+        precision=precision, fused=fused)
+    return _pack_solver_outputs(*outs[:4]), outs[4]
+
+
 def em_family_samples(assign, in_start, in_end, in_valid,
                       out_start, out_end, pred_mask, root_mask):
     """Per-edge delay samples of the three refit families from hard
@@ -351,6 +380,72 @@ def solve_em_packed(in_start, in_end, in_valid, out_start, out_end, out_valid,
         w[edge].reshape(E, E, K), mu[edge].reshape(E, E, K),
         sd[edge].reshape(E, E, K),
         w[:E], mu[:E], sd[:E], w[ret], mu[ret], sd[ret], **kw)
+
+
+def refit_fleet_params(assign0, in_start, in_end, in_valid, out_start, out_end,
+                       param_idx, window_rows, window_valid, pred_masks,
+                       root_masks, edge_wts, edge_mus, edge_sds,
+                       in_wts, in_mus, in_sds, ret_wts, ret_mus, ret_sds):
+    """Per-service three-family BIC-GMM refit from pass-0 assignments
+    (JAX ``_fleet_refit_tables`` and its ``refit_fleet_params`` dispatch):
+    the middle stage of :func:`solve_em_fleet` and the compacted fleet
+    flow's refit between its passes.
+
+    ``window_rows``/``window_valid`` ([P, Bmax]) list each service's
+    window rows; the refit matrix ``[P*Ne, Bmax*W]`` gathers them, so a
+    service's fit sees only its own windows. Returns the nine refit
+    tables in ``[P, ...]`` layout (edge, in, return; w, mu, sd each)."""
+    B, E, W = assign0.shape
+    P, _, K = in_wts.shape
+    Ne = E + E * E + E
+    Bmax = window_rows.shape[1]
+    pidx = param_idx.to(torch.int64)
+    samples, smask = em_family_samples(assign0, in_start, in_end, in_valid,
+                                       out_start, out_end, pred_masks[pidx],
+                                       root_masks[pidx])        # [Ne, B*W]
+    rows = window_rows.to(torch.int64)
+    fs = samples.reshape(Ne, B, W)[:, rows, :]                  # [Ne, P, Bmax, W]
+    fm = smask.reshape(Ne, B, W)[:, rows, :] & window_valid[None, :, :, None]
+    fleet_samples = torch.movedim(fs, 1, 0).reshape(P * Ne, Bmax * W)
+    fleet_mask = torch.movedim(fm, 1, 0).reshape(P * Ne, Bmax * W)
+
+    def prior(t_in, t_edge, t_ret):
+        return torch.cat([t_in, t_edge.reshape(P, E * E, K), t_ret],
+                         dim=1).reshape(P * Ne, K)
+
+    w, mu, sd = fit_gmm_in_graph(fleet_samples, fleet_mask,
+                                 prior(in_wts, edge_wts, ret_wts),
+                                 prior(in_mus, edge_mus, ret_mus),
+                                 prior(in_sds, edge_sds, ret_sds), max_k=K)
+    w, mu, sd = (a.reshape(P, Ne, K) for a in (w, mu, sd))
+    edge = slice(E, E + E * E)
+    ret = slice(E + E * E, None)
+    return (w[:, edge].reshape(P, E, E, K), mu[:, edge].reshape(P, E, E, K),
+            sd[:, edge].reshape(P, E, E, K),
+            w[:, :E], mu[:, :E], sd[:, :E], w[:, ret], mu[:, ret], sd[:, ret])
+
+
+def solve_em_fleet(in_start, in_end, in_valid, out_start, out_end, out_valid,
+                   skip_cap, force_skip, param_idx, window_rows, window_valid,
+                   pred_masks, root_masks, is_lasts,
+                   edge_wts, edge_mus, edge_sds, in_wts, in_mus, in_sds,
+                   ret_wts, ret_mus, ret_sds, **kw):
+    """Both EM passes for a whole fleet in one call: pass 0 over every
+    service's windows, :func:`refit_fleet_params`, pass 1. Returns
+    ``(packed, converged)`` like :func:`solve_windows_fleet` (pass 1's
+    flags)."""
+    windows = (in_start, in_end, in_valid, out_start, out_end, out_valid,
+               skip_cap, force_skip, param_idx)
+    structure = (pred_masks, root_masks, is_lasts)
+    packed0, _ = solve_windows_fleet(
+        *windows, *structure, edge_wts, edge_mus, edge_sds,
+        in_wts, in_mus, in_sds, ret_wts, ret_mus, ret_sds, **kw)
+    tables = refit_fleet_params(
+        packed0[..., _layout.CH_ASSIGN], in_start, in_end, in_valid,
+        out_start, out_end, param_idx, window_rows, window_valid,
+        pred_masks, root_masks, edge_wts, edge_mus, edge_sds,
+        in_wts, in_mus, in_sds, ret_wts, ret_mus, ret_sds)
+    return solve_windows_fleet(*windows, *structure, *tables, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +550,10 @@ class EndpointIds:
         self.count = count
         self.M = M
 
+    def rows(self, n: int) -> "EndpointIds":
+        """The first ``n`` window rows (the fleet packer's row cut)."""
+        return EndpointIds(self.table, self.r0[:n], self.count[:n], self.M)
+
     def gather(self) -> np.ndarray:
         """The ``[B * M]`` id layout (None in empty slots)."""
         B, M = self.r0.shape[0], self.M
@@ -483,6 +582,12 @@ class PackedProblem:
 
     def out_id_array(self, e: int) -> np.ndarray:
         return self.out_ids[e].gather()
+
+    def truncate_rows(self, n_rows: int) -> None:
+        """Drop the power-of-two B padding from the id maps: the fleet
+        packer slices every batch tensor to its exact window count, and
+        decode's ``b * M + j`` indexing must follow."""
+        self.out_ids = [col.rows(n_rows) for col in self.out_ids]
 
 
 def _problem_tables(out_eps: List[str], E_pad: int,
@@ -696,6 +801,17 @@ def plan_find_assignments(
 # The plugin-facing solver class
 # ---------------------------------------------------------------------------
 
+def resolve_device(device) -> torch.device:
+    """``None`` means the card, and raises when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("the port runs on the card and no CUDA device is "
+                               "available; pass device='cpu' to run the plain "
+                               "versions on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
 class WeaverTorch:
     """The TraceWeaverV3-capability solver behind the reconstructor
     plugin contract (``WeaverTPU`` in the JAX package).
@@ -712,13 +828,7 @@ class WeaverTorch:
                  sinkhorn_tol: float = 1e-3,
                  precision: str = "f32", topk: int = DEFAULT_TOPK,
                  fused_kernel: bool = True, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("WeaverTorch runs on the card and no CUDA "
-                                   "device is available; pass device='cpu' "
-                                   "to run the plain versions on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.all_spans = all_spans
         self.all_processes = all_processes
         self.max_window = max_window

@@ -57,7 +57,8 @@ from traceweaver_tpu_torch.ops.rounding import (
 )
 from traceweaver_tpu_torch.ops.sinkhorn import sinkhorn_log
 
-#: kernel launch counters, one per wrapper (incremented only at a launch)
+#: kernel launch counters, one per wrapper (incremented only at a launch,
+#: under ``_lock``)
 LAUNCHES: Dict[str, int] = {"fused_assign": 0, "sinkhorn": 0, "round_topk": 0}
 
 #: dynamic shared memory one CTA may use: Hopper's 232448 bytes less
@@ -81,8 +82,16 @@ _ACTIVE_CLUSTERS: Dict[Tuple[int, int, int, int], int] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    """One launch of ``name``, under the lock: the fleet's per-service
+    fallback launches from several threads."""
+    with _lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -284,7 +293,7 @@ def fused_assign_cuda(scores, row_marg, col_marg, skip_cap, n_rows: int, *,
             tk.data_ptr(), stats.data_ptr(), plan.cluster, plan.tile_rows,
             _stream(scores))
     _raise_on(err, "fused_assign launch")
-    LAUNCHES["fused_assign"] += 1
+    _count_launch("fused_assign")
     return (assign, tk, stats) if return_stats else (assign, tk)
 
 
@@ -311,7 +320,7 @@ def sinkhorn_cuda(scores, row_marg, col_marg, *, epsilon: float, n_iters: int,
             M, n_iters, 1.0 / epsilon, tol / epsilon, plan.data_ptr(),
             iters.data_ptr(), lp.cluster, lp.tile_rows, _stream(scores))
     _raise_on(err, "sinkhorn launch")
-    LAUNCHES["sinkhorn"] += 1
+    _count_launch("sinkhorn")
     return (plan, iters) if return_iters else plan
 
 
@@ -341,7 +350,7 @@ def round_topk_cuda(plan, row_valid, col_valid, skip_cap, *, topk: int,
             assign.data_ptr(), tk.data_ptr(), lp.cluster, lp.tile_rows,
             _stream(plan))
     _raise_on(err, "round_topk launch")
-    LAUNCHES["round_topk"] += 1
+    _count_launch("round_topk")
     return assign, tk
 
 
