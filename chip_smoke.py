@@ -22,27 +22,49 @@ Phases, each of which raises on failure (non-zero exit):
    ``solve_fleet`` on the CPU and with per-service ``FindAssignments``
    on the card on >= 0.99 of every service's (endpoint, span) pairs;
    then the full config (8 x 8192 requests) through ``solve_fleet`` on
-   the card, once with each kernel, each launch counter reset just
-   before and read just after: every service's accuracy must reach the
-   JAX package's less one point (``FLEET_JAX_ACCURACY``), and no
-   ``fault_*`` counter may move (a run that needed the supervisor
-   fails);
+   the card, with each kernel, once pipelined (the default) and once
+   with ``pipeline=False`` (the serial reference), each run with every
+   launch counter reset just before and read just after, each with
+   ``confidences=``: the two flows must give the same assignment on
+   every pair of every service and the same confidence records, every
+   service's accuracy must reach the JAX package's less one point
+   (``FLEET_JAX_ACCURACY``), every incoming span must get one record,
+   and no ``fault_*`` counter may move (a run that needed the
+   supervisor fails). Then two pipelined rounds with the fused kernel
+   and one ``PlanCache``: round 2 must hit the cache for all eight
+   services, run no two-pass EM (``fused_em_applied`` 0), keep every
+   accuracy floor and agree with round 1 on >= 0.99 of the pairs of
+   every service but ``cache`` (reported only: its assignments hang on
+   near ties);
 4. kernels: each kernel against its plain PyTorch version on the card,
    on random blocks (ragged, all-masked, padded rows, skip-heavy, tol 0
    and 1e-3; rows not a multiple of the cluster size, fewer rows than
    CTAs in a cluster, one window, more windows than clusters run at
    once, an early tolerance exit, all-invalid padding windows) and on
    the score blocks captured from the slice run and from the fleet's
-   chain group ([32, 1025, 2049]); then each kernel's time, its plain
-   version's time and its bound at both blocks.
+   chain group ([32, 1025, 2049]); ``two-streams``: K1 and K2 launched
+   from two host threads on two CUDA streams at once, on those two
+   blocks and two small blocks of other shapes (so the threads' launches
+   need different shared-memory limits), must equal their single-stream
+   launches bit for bit; then
+   each kernel's time, its plain version's time and its bound at both
+   blocks.
 
 ``--slice-root`` runs the slice and fleet phases alone against another
 checkout (one process per checkout, since both packages share a name),
-so that two commits are compared on one card in turns.
+so that two commits are compared on one card in turns; its fleet phase
+needs a checkout whose ``solve_fleet`` has the pipelined flow.
 
-The slice and fleet lines carry ``kernel_ms``, the summed device time of
-the path's kernel launches (CUDA events around each launch), beside
-``wall_s``. The kernel-timing lines carry each kernel's cluster size
+Lines: ``slice`` and ``fleet`` lines carry the wall time and the summed
+device time of the path's kernel launches (CUDA events around each
+launch on the launching thread's stream; ``kernel_ms`` on the slice
+line, ``kernel_ms_summed`` on the fleet lines, where the flows' streams
+overlap, so it is no share of the wall), the stage seconds,
+``pipeline_groups`` and ``pipeline_depth``; ``fleet-warm`` lines carry
+the plan-cache counters, plan-fit seconds, launches and accuracy of
+each round; ``fleet-confidence`` lines the records and mean confidence
+per service and the accuracy of the spans above and at or below
+``CONF_LOW``. The kernel-timing lines carry each kernel's cluster size
 and the three terms of its bound.
 
 The last lines are the launch counts, the kernel table as one JSON
@@ -61,6 +83,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 # JAX package on the CPU, same config: 0.9847412109375
@@ -296,7 +319,79 @@ def kernel_phase(real_block, fleet_block):
         r = check_case(name, blk, 1e-3)
         for k in worst:
             worst[k] = max(worst[k], r[k])
+    two_streams_check(real_block, fleet_block)
     return worst
+
+
+def two_streams_check(slice_blk, fleet_blk):
+    """K1 and K2 launched from two host threads, each on a CUDA stream
+    of its own, at once: thread 0 alternates the slice block with a
+    small block, thread 1 the fleet block with a block of a third shape,
+    so the two threads' launches need different shared-memory limits.
+    Each output must equal the same launch made alone on the default
+    stream, bit for bit. Events on both streams, timed from one event on
+    the default stream, give the span in which both had kernels queued."""
+    import numpy as np
+    import torch
+
+    from traceweaver_tpu_torch.ops import cuda_sinkhorn as K
+
+    kw = dict(epsilon=1.0, n_iters=40, tol=1e-3)
+    rng = np.random.default_rng(1)
+    blocks = {"slice": slice_blk, "fleet": fleet_blk,
+              "small": to_cuda(random_blocks(rng, 3, 36, 52)),
+              "mid": to_cuda(random_blocks(rng, 4, 100, 300))}
+    kernels = {
+        "k1": lambda b: K.fused_assign_cuda(b["S"], b["row_marg"], b["col_marg"], b["cap"],
+                                            b["n_rows"], topk=TOPK, min_topk_mass=MIN_MASS,
+                                            **kw),
+        "k2": lambda b: (K.sinkhorn_cuda(b["S"], b["row_marg"], b["col_marg"], **kw),)}
+    jobs = [[("k1", "slice"), ("k2", "small"), ("k2", "slice"), ("k1", "small")] * 3,
+            [("k2", "fleet"), ("k1", "mid"), ("k1", "fleet"), ("k2", "mid")] * 3]
+    alone = {job: kernels[job[0]](blocks[job[1]]) for stream_jobs in jobs
+             for job in stream_jobs}
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    origin = torch.cuda.Event(enable_timing=True)
+    origin.record()
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    barrier, got, spans, errors = threading.Barrier(2), [[], []], {}, []
+
+    def worker(i):
+        try:
+            with torch.cuda.stream(streams[i]):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                barrier.wait(timeout=60)
+                t0.record()
+                for kernel, block in jobs[i]:
+                    got[i].append(kernels[kernel](blocks[block]))
+                t1.record()
+                spans[i] = (t0, t1)
+        except Exception as e:  # noqa: BLE001 — re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"two-streams launch failed: {errors}")
+    torch.cuda.synchronize()
+    differ = [f"{i}:{n}:{job[0]}-{job[1]}" for i in range(2)
+              for n, (job, out) in enumerate(zip(jobs[i], got[i]))
+              if not all(torch.equal(a, g) for a, g in zip(alone[job], out))]
+    ms = [(origin.elapsed_time(t0), origin.elapsed_time(t1)) for t0, t1 in
+          (spans[0], spans[1])]
+    line = dict(case="two-streams", shapes={k: list(b["S"].shape) for k, b in blocks.items()},
+                launches=sum(map(len, jobs)), bit_equal=not differ, differ=differ,
+                stream_ms=ms,
+                overlap_ms=max(0.0, min(ms[0][1], ms[1][1]) - max(ms[0][0], ms[1][0])))
+    print("kernel-check " + json.dumps(line), flush=True)
+    if differ:
+        raise AssertionError(f"two-streams launches differ from single-stream ones: {differ}")
 
 
 def kernel_timing(blk, tol=1e-3, n_iters=40):
@@ -403,11 +498,12 @@ KERNEL_OF = {True: ("fused_assign", "fused_assign_cuda"),
 
 def drive(run, fused: bool, captured=None, want=lambda S: True):
     """Call ``run()`` with the path's kernel wrapper timed by CUDA events
-    around each launch and, when ``captured`` is a dict, ``assign_topk``
-    keeping the first block ``want`` accepts; every launch counter is
-    reset just before and read just after. Returns ``run()``'s result,
-    the path kernel's launches, the other kernel's and the summed kernel
-    device ms."""
+    around each launch (on the launching thread's current stream) and,
+    when ``captured`` is a dict, ``assign_topk`` keeping the first block
+    ``want`` accepts; every launch counter is reset just before and read
+    just after. Returns ``run()``'s result, the path kernel's launches,
+    the other kernel's and the summed kernel device ms (summed over
+    streams: under the pipelined fleet flow launches overlap)."""
     import torch
 
     import traceweaver_tpu_torch.algorithms.weaver_torch as wt
@@ -415,6 +511,7 @@ def drive(run, fused: bool, captured=None, want=lambda S: True):
 
     key, wrapper = KERNEL_OF[fused]
     real_wrapper, real_assign_topk, events = getattr(K, wrapper), wt.assign_topk, []
+    lock = threading.Lock()
 
     def timed(*args, **kw):
         t0 = torch.cuda.Event(enable_timing=True)
@@ -426,10 +523,12 @@ def drive(run, fused: bool, captured=None, want=lambda S: True):
         return out
 
     def recording(*args, **kw):
-        if "block" not in captured and want(args[0]):
-            S, rm, cm, in_v, cv, cap, W = args
-            captured["block"] = dict(S=S, row_marg=rm, col_marg=cm, in_v=in_v,
-                                     col_valid=cv, cap=cap, n_rows=W)
+        # flow workers launch from several threads: check and set at once
+        with lock:
+            if "block" not in captured and want(args[0]):
+                S, rm, cm, in_v, cv, cap, W = args
+                captured["block"] = dict(S=S, row_marg=rm, col_marg=cm, in_v=in_v,
+                                         col_valid=cv, cap=cap, n_rows=W)
         return real_assign_topk(*args, **kw)
 
     if captured is not None:
@@ -491,10 +590,10 @@ def agreement(got, ref) -> float:
     return sum(got[ep][i] == ref[ep][i] for ep, i in pairs) / len(pairs)
 
 
-def run_fleet(probs, fused: bool, device="cuda"):
-    """``solve_fleet`` over the services; returns the results, each
-    service's accuracy, wall seconds, peak device bytes, the stats
-    ledger and the quarantine list."""
+def run_fleet(probs, fused: bool, device="cuda", **kw):
+    """``solve_fleet`` over the services (``kw``: more of its keywords);
+    returns the results, each service's accuracy, wall seconds, peak
+    device bytes, the stats ledger and the quarantine list."""
     import torch
 
     from traceweaver_tpu_torch.algorithms.fleet import FleetItem, solve_fleet
@@ -508,7 +607,7 @@ def run_fleet(probs, fused: bool, device="cuda"):
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = solve_fleet(items, stats=stats, quarantined=quarantined, device=device,
-                      fused_kernel=fused)
+                      fused_kernel=fused, **kw)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -547,40 +646,124 @@ def fleet_phase(card):
         raise AssertionError(f"small fleet cut agrees on < 0.99 of pairs: {low}")
 
     probs = synth_fleet_8svc()
-    n_spans = sum(len(next(iter(p["in_parts"].values()))) for p in probs)
     floors = {k: v - 0.01 for k, v in FLEET_JAX_ACCURACY.items()}
     launches, captured = {}, {}
     for fused in (True, False):
         key = KERNEL_OF[fused][0]
-        (_, acc, wall, peak, stats, quarantined), launches[key], other, kernel_ms = drive(
-            lambda: run_fleet(probs, fused), fused, captured if fused else None,
-            want=lambda S: S.shape[0] >= 32 and S.shape[1:] == (1025, 2049))
-        faults = {k: v for k, v in stats.items() if k.startswith("fault")}
-        line = dict(
-            config="synth-fleet-8svc", fused_kernel=fused, wall_s=wall,
-            spans_per_s=n_spans / wall, kernel=key, kernel_ms=kernel_ms,
-            kernel_share=kernel_ms / 1e3 / wall, launches=launches[key],
-            other_kernel_launches=other, peak_mem_bytes=peak,
-            **{k: stats.get(k, 0.0) for k in (
-                "fleet_dispatches", "fleet_services", "fused_em_applied",
-                "fleet_dynamism_dispatches", "compact_windows_total",
-                "compact_windows_redispatched", "plan_fit_s", "pack_s",
-                "dispatch_s", "wait_s", "decode_s")},
-            accuracy=acc, accuracy_floor=floors, faults=faults,
-            quarantined=quarantined, card=card)
-        print("fleet " + json.dumps(line), flush=True)
-        if launches[key] <= 0:
-            raise AssertionError(f"fleet path (fused={fused}) launched no {key} kernel")
-        below = {k: v for k, v in acc.items() if v < floors[k]}
-        if below:
-            raise AssertionError(f"fleet accuracy below the floor (fused={fused}): {below}")
-        if any(v for v in faults.values()) or quarantined:
-            raise AssertionError(f"fleet run needed the supervisor: {faults}, "
-                                 f"quarantined {quarantined}")
+        runs = {}
+        for pipeline in (True, False):
+            confs = [None] * len(probs)
+            runs[pipeline], n, _ = fleet_run(
+                "fleet", probs, fused, floors, card, captured if fused else None,
+                pipeline=pipeline, confidences=confs)
+            if pipeline:  # the default flow is the main path
+                launches[key] = n
+                confidence_line(probs, runs[pipeline][0], confs, fused, card)
+            runs[pipeline] += (confs,)
+        same = {p["service"]: agreement(a[0], b[0])
+                for p, a, b in zip(probs, runs[True][0], runs[False][0])}
+        print("fleet-pipelined-vs-serial " + json.dumps(dict(
+            fused_kernel=fused, identical_pairs=same,
+            identical_records=runs[True][-1] == runs[False][-1])), flush=True)
+        if any(v != 1.0 for v in same.values()) or runs[True][-1] != runs[False][-1]:
+            raise AssertionError(f"pipelined and serial flows differ (fused={fused}): "
+                                 f"{same}")
     if "block" not in captured:
         raise AssertionError("no [>= 32, 1025, 2049] block in the fleet run")
+    warm_rounds(probs, floors, card)
     torch.cuda.synchronize()
     return launches, captured["block"]
+
+
+def fleet_run(tag, probs, fused, floors, card, captured=None, **kw):
+    """One full-size ``solve_fleet`` through :func:`drive`, its line
+    printed under ``tag``; fails on a missing launch, an accuracy below
+    its floor, a moved ``fault_*`` counter or a quarantine. Returns the
+    :func:`run_fleet` tuple, the path kernel's launches and the line."""
+    key = KERNEL_OF[fused][0]
+    n_spans = sum(len(next(iter(p["in_parts"].values()))) for p in probs)
+    result, launches, other, kernel_ms = drive(
+        lambda: run_fleet(probs, fused, **kw), fused, captured,
+        want=lambda S: S.shape[0] >= 32 and S.shape[1:] == (1025, 2049))
+    _, acc, wall, peak, stats, quarantined = result
+    faults = {k: v for k, v in stats.items() if k.startswith("fault")}
+    line = dict(
+        config="synth-fleet-8svc", fused_kernel=fused,
+        pipeline=kw.get("pipeline", True), wall_s=wall,
+        spans_per_s=n_spans / wall, kernel=key, kernel_ms_summed=kernel_ms,
+        launches=launches, other_kernel_launches=other, peak_mem_bytes=peak,
+        **{k: stats.get(k, 0.0) for k in (
+            "pipeline_groups", "pipeline_depth", "fleet_dispatches",
+            "fleet_services", "fused_em_applied", "fleet_dynamism_dispatches",
+            "compact_windows_total", "compact_windows_redispatched",
+            "plan_fit_s", "pack_s", "dispatch_s", "wait_s", "decode_s")},
+        accuracy=acc, accuracy_floor=floors, faults=faults,
+        quarantined=quarantined, card=card)
+    print(f"{tag} " + json.dumps(line), flush=True)
+    if launches <= 0:
+        raise AssertionError(f"{tag} (fused={fused}) launched no {key} kernel")
+    below = {k: v for k, v in acc.items() if v < floors[k]}
+    if below:
+        raise AssertionError(f"{tag} accuracy below the floor (fused={fused}): {below}")
+    if any(v for v in faults.values()) or quarantined:
+        raise AssertionError(f"{tag} needed the supervisor: {faults}, "
+                             f"quarantined {quarantined}")
+    return result, launches, line
+
+
+def confidence_line(probs, out, confs, fused, card):
+    """The ``fleet-confidence`` line: records per service (one per
+    incoming span, else fail), mean confidence, and the accuracy of the
+    spans above and at or below ``CONF_LOW``."""
+    from traceweaver_tpu_torch.metrics.accuracy import span_correctness
+    from traceweaver_tpu_torch.obs.quality import CONF_LOW
+
+    per = {}
+    for p, res, recs in zip(probs, out, confs):
+        ids = [s.GetId() for s in next(iter(p["in_parts"].values()))]
+        if recs is None or sorted(recs) != sorted(ids):
+            raise AssertionError(f"{p['service']}: {len(recs or {})} confidence "
+                                 f"records for {len(ids)} incoming spans")
+        right = span_correctness(res[0], p["truth"], p["in_parts"])
+        low = [i for i in ids if recs[i]["conf"] <= CONF_LOW]
+        high = [i for i in ids if recs[i]["conf"] > CONF_LOW]
+
+        def acc(sel):
+            return sum(right[i] for i in sel) / len(sel) if sel else None
+
+        per[p["service"]] = dict(
+            records=len(recs), spans=len(ids),
+            mean_conf=sum(r["conf"] for r in recs.values()) / len(recs),
+            n_low=len(low), accuracy_above_low=acc(high), accuracy_at_or_below_low=acc(low))
+    print("fleet-confidence " + json.dumps(dict(
+        config="synth-fleet-8svc", fused_kernel=fused, conf_low=CONF_LOW,
+        services=per, card=card)), flush=True)
+
+
+def warm_rounds(probs, floors, card):
+    """Two pipelined rounds with the fused kernel and one plan cache."""
+    from traceweaver_tpu_torch.algorithms.plancache import PlanCache
+
+    cache, rounds = PlanCache(), []
+    for r in (1, 2):
+        result, _, line = fleet_run("fleet-warm-run", probs, True, floors, card,
+                                    plan_cache=cache)
+        rounds.append(result[0])
+        counters = cache.counters()
+        agree = ({p["service"]: agreement(b[0], a[0])
+                  for p, a, b in zip(probs, rounds[0], rounds[1])} if r == 2 else None)
+        print("fleet-warm " + json.dumps(dict(
+            config="synth-fleet-8svc", round=r, plan_cache=counters,
+            **{k: line[k] for k in ("wall_s", "plan_fit_s", "launches",
+                                     "fused_em_applied", "fleet_dispatches",
+                                     "peak_mem_bytes", "accuracy")},
+            round2_vs_round1_pairs=agree, card=card)), flush=True)
+    if counters["hits"] != len(probs) or line["fused_em_applied"] != 0.0:
+        raise AssertionError(f"round 2 missed the plan cache: {counters}, "
+                             f"fused_em_applied {line['fused_em_applied']}")
+    low = {k: v for k, v in agree.items() if k != "cache" and v < 0.99}
+    if low:
+        raise AssertionError(f"round 2 agrees with round 1 on < 0.99 of pairs: {low}")
 
 
 def main() -> int:

@@ -39,6 +39,10 @@ MIRRORS = {
     "traceweaver_tpu_torch.runtime.faults": "traceweaver_tpu/runtime/faults.py",
     "traceweaver_tpu_torch.synth.transforms": "traceweaver_tpu/synth/transforms.py",
     "traceweaver_tpu_torch.metrics.synth": "traceweaver_tpu/metrics/scorecard.py",
+    "traceweaver_tpu_torch.algorithms.plancache": "traceweaver_tpu/algorithms/plancache.py",
+    "traceweaver_tpu_torch.algorithms.packed_layout":
+        "traceweaver_tpu/algorithms/packed_layout.py",
+    "traceweaver_tpu_torch.obs.quality": "traceweaver_tpu/obs/quality.py",
 }
 
 

@@ -300,3 +300,44 @@ def test_all_masked_and_launch_counts_on_card(card):
     K.assign_topk(S, rm, cm, in_v, cv, cap, 9, epsilon=1.0, n_iters=30, tol=0.0,
                   topk=4, min_topk_mass=1e-3, fused=False)
     assert K.LAUNCHES["sinkhorn"] == before["sinkhorn"] + 1
+
+
+@pytest.mark.gpu
+def test_launches_from_two_threads_with_different_shapes_on_card(card):
+    """The fleet's flow workers launch from several threads at once, each
+    on its own stream, with blocks of different shapes (so different
+    shared-memory limits, a per-kernel attribute): every output equals
+    the same launch made alone."""
+    import threading
+
+    rng = np.random.default_rng(11)
+    blocks = [_cuda_blocks(rng, *shape) for shape in ((2, 255, 511), (3, 36, 52))]
+    kw = dict(epsilon=1.0, n_iters=40, tol=1e-3, topk=5, min_topk_mass=1e-3)
+
+    def k1(block):
+        S, rm, cm, _, _, cap = block
+        return K.fused_assign_cuda(S, rm, cm, cap, S.shape[1] - 1, **kw)
+
+    alone = [k1(b) for b in blocks]
+    torch.cuda.synchronize()
+    got, errors = [[], []], []
+
+    def worker(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(40):
+                    got[i].append(k1(blocks[i]))
+                torch.cuda.current_stream().synchronize()
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for i in range(2):
+        assert len(got[i]) == 40
+        for a, tk in got[i]:
+            assert torch.equal(a, alone[i][0]) and torch.equal(tk, alone[i][1])

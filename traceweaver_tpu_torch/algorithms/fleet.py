@@ -1,6 +1,5 @@
 """Fleet solve: every service's windows in one dispatch per shape class
-(mirrors ``traceweaver_tpu/algorithms/fleet.py``, serial single-device
-flow).
+(mirrors ``traceweaver_tpu/algorithms/fleet.py``, single-device).
 
 Window batches of several services are padded to shared ``[B, E, W, M]``
 shape classes, each window tagged with ``param_idx``, the row of its
@@ -35,15 +34,33 @@ all-NA result and the item's index recorded). The JAX package's "xla"
 rung, a redispatch with the Pallas kernel pinned off, has no
 counterpart: the port allows no kernel-free path on the card.
 
+The groups run pipelined by default (:func:`_solve_groups_pipelined`):
+one pack thread builds the next group's host tensors while a pool of
+``decode_workers`` flow workers each runs one group's dispatch,
+compaction round trips, fetch, decode and ladder, each worker on its own
+CUDA stream, so one group's host decode overlaps the next group's
+device solve. The live-byte budget is the admission gate.
+``pipeline=False`` is the serial reference flow; both give the same
+output in input order.
+
+A :class:`~traceweaver_tpu_torch.algorithms.plancache.PlanCache` passed
+as ``plan_cache`` carries each service's fitted distributions to the
+next solve: a hit skips the host fit and runs one warm pass instead of
+the two-pass EM (the ``FleetItem.warm_dists`` contract). A list passed
+as ``confidences`` receives each item's per-span confidence records
+(:mod:`traceweaver_tpu_torch.obs.quality`), reduced from the block the
+decode fetched; ``conf_device=True`` adds the margin and entropy
+channels to every dispatch.
+
 The JAX package's ``TW_*`` knobs are keyword arguments of
-:func:`solve_fleet` with the knobs' defaults. Not ported yet: the
-pipelined flow, the plan cache and warm starts, confidence channels,
-device-resident columns, mesh sharding, AOT notes, tenancy and the
-self-trace (none of them changes an output).
+:func:`solve_fleet` with the knobs' defaults. Not ported yet:
+device-resident columns, mesh sharding, AOT notes, tenancy, the
+self-trace and the metrics mirrors (none of them changes an output).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -54,6 +71,7 @@ import numpy as np
 import torch
 
 from traceweaver_tpu_torch.algorithms import packed_layout as _layout
+from traceweaver_tpu_torch.algorithms.plancache import PlanCache
 from traceweaver_tpu_torch.algorithms.skips import water_fill_skip_caps
 from traceweaver_tpu_torch.algorithms.weaver_torch import (
     DEFAULT_MAX_WINDOW,
@@ -61,6 +79,7 @@ from traceweaver_tpu_torch.algorithms.weaver_torch import (
     WeaverTorch,
     _bucket,
     candidate_ranges,
+    dists_from_tables,
     in_columns,
     out_columns,
     pack_problem,
@@ -72,6 +91,7 @@ from traceweaver_tpu_torch.algorithms.weaver_torch import (
     solve_em_fleet,
     solve_windows_fleet,
 )
+from traceweaver_tpu_torch.obs import quality as _quality
 from traceweaver_tpu_torch.ops.precision import validate_precision
 from traceweaver_tpu_torch.runtime import faults as _faults
 from traceweaver_tpu_torch.spans import NA
@@ -108,6 +128,7 @@ class _Run:
     retry_backoff_s: float
     budget_bytes: int
     faults: Optional[_faults.FaultPlan]
+    plan_cache: Optional[PlanCache]
 
 
 class _Stats:
@@ -163,13 +184,20 @@ def _fault_check(site: str, st: _Stats, plan) -> None:
         raise
 
 
-def _fetch(t, st: _Stats, plan, flag_fetch: bool = False) -> np.ndarray:
-    """Blocking device-to-host fetch, billed to ``wait_s`` and the D2H
-    byte ledger (flag fetches also to ``d2h_bytes_flags``)."""
+def _fetch(t, st: _Stats, plan, flag_fetch: bool = False,
+           flow_wait: Optional[List[float]] = None) -> np.ndarray:
+    """Blocking device-to-host fetch (it waits for the current stream
+    only), billed to ``wait_s`` and the D2H byte ledger (flag fetches
+    also to ``d2h_bytes_flags``). ``flow_wait`` (a list) collects this
+    flow's own blocking times, so the flow's ``dispatch_s`` can leave
+    them out while other flows bill ``wait_s`` at the same time."""
     _fault_check("fetch", st, plan)
     t0 = time.perf_counter()
     out = t.cpu().numpy()
-    st.add("wait_s", time.perf_counter() - t0)
+    dt = time.perf_counter() - t0
+    st.add("wait_s", dt)
+    if flow_wait is not None:
+        flow_wait.append(dt)
     st.add("d2h_bytes_fetched", float(out.nbytes))
     if flag_fetch:
         st.add("d2h_bytes_flags", float(out.nbytes))
@@ -180,11 +208,17 @@ class FleetItem:
     """One service's solve request (the FindAssignments argument set).
 
     ``store`` (anything with ``all_spans``/``all_processes``) feeds the
-    per-service fallback's host refit."""
+    per-service fallback's host refit. ``warm_dists`` (a carried
+    ``{edge: EdgeDist}``) replaces the plan's fit and the refit pass: the
+    item solves single-pass on them (unseen edges get the packer's
+    near-flat Gaussian). ``plan_key`` is the item's plan-cache key (the
+    service name when None; callers that solve several call graphs
+    against one cache tell them apart with it)."""
 
     def __init__(self, svc, in_span_partitions, out_span_partitions,
                  true_assignments, dag=None,
-                 method="MaxScoreBatchSubsetWithSkips", store=None):
+                 method="MaxScoreBatchSubsetWithSkips", store=None,
+                 warm_dists=None, plan_key=None):
         self.svc = svc
         self.in_span_partitions = in_span_partitions
         self.out_span_partitions = out_span_partitions
@@ -192,13 +226,23 @@ class FleetItem:
         self.dag = dag
         self.method = method
         self.store = store
+        self.warm_dists = warm_dists
+        self.plan_key = plan_key
 
 
-def _prepare(item: FleetItem):
+def _plan_key(item: FleetItem) -> str:
+    return item.plan_key if item.plan_key is not None else item.svc
+
+
+def _prepare(item: FleetItem, cached_dists=None):
     """Host preamble of FindAssignments for one item (sort, topological
     order, skip budget, distributions, pass count). None when the item
     needs the per-service path (no DAG, or a method the fleet does not
-    carry)."""
+    carry).
+
+    ``item.warm_dists``, else ``cached_dists`` (a plan-cache hit),
+    replaces the fit, which is then skipped, and the refit pass: the
+    item solves single-pass on them."""
     if item.dag is None or item.method not in (
             "MaxScoreBatchSubsetWithSkips", "MaxScoreBatchSubsetWithTrueSkips"):
         return None
@@ -208,10 +252,16 @@ def _prepare(item: FleetItem):
     plan = plan_find_assignments(
         item.in_span_partitions, item.out_span_partitions, out_eps, item.dag,
         item.true_assignments,
-        true_skips=(item.method == "MaxScoreBatchSubsetWithTrueSkips"))
+        true_skips=(item.method == "MaxScoreBatchSubsetWithTrueSkips"),
+        skip_fit=(item.warm_dists is not None or cached_dists is not None))
+    dists, n_passes = plan["dists"], plan["iterations"]
+    if item.warm_dists is not None:
+        dists, n_passes = item.warm_dists, 1
+    elif cached_dists is not None:
+        dists, n_passes = cached_dists, 1
     return dict(in_ep=in_ep, in_spans=in_spans, out_eps=out_eps,
-                skip_budget=plan["skip_budget"], dists=plan["dists"],
-                n_in=plan["n_in"], n_passes=plan["iterations"],
+                skip_budget=plan["skip_budget"], dists=dists,
+                n_in=plan["n_in"], n_passes=n_passes,
                 force_skip_ids=plan["force_skip_ids"],
                 in_cols=in_columns(in_spans),
                 out_cols=out_columns(item.out_span_partitions, out_eps))
@@ -238,17 +288,18 @@ def _raw_cells(item: FleetItem, max_window: int) -> float:
 
 
 def _run_fallback(entries, results, all_spans, all_processes, solver_kwargs,
-                  stats) -> None:
+                  stats, confidences=None) -> None:
     """Per-service ``WeaverTorch`` solves (on the fleet's device) for
     items the fused dispatch cannot carry, overlapped through a thread
-    pool; each solver's stage stats merge into the caller's."""
+    pool; each solver's stage stats merge into the caller's, and its
+    per-span confidence records into ``confidences`` when given."""
     st = _as_stats(stats)
 
     def run(entry):
         i, item = entry
         algo = WeaverTorch(item.store.all_spans if item.store else all_spans,
                            item.store.all_processes if item.store else all_processes,
-                           **solver_kwargs)
+                           confidence=confidences is not None, **solver_kwargs)
         kwargs = {}
         if item.method == "MaxScoreBatchSubsetWithTrueSkips":
             kwargs["true_skips"] = True
@@ -258,11 +309,13 @@ def _run_fallback(entries, results, all_spans, all_processes, solver_kwargs,
             item.method, item.svc, item.in_span_partitions,
             item.out_span_partitions, False, [], item.true_assignments,
             item.dag, **kwargs)
-        return i, out, algo.stats
+        return i, out, algo.stats, algo.per_span_confidence
 
     with ThreadPoolExecutor(max_workers=max(1, len(entries))) as pool:
-        for i, out, solver_stats in pool.map(run, entries):
+        for i, out, solver_stats, conf in pool.map(run, entries):
             results[i] = out
+            if confidences is not None:
+                confidences[i] = conf
             st.merge(solver_stats)
 
 
@@ -279,6 +332,8 @@ def solve_fleet(
     item_cells: Optional[List[float]] = None,
     precision: str = "f32",
     quarantined: Optional[List[int]] = None,
+    confidences: Optional[List[Optional[Dict]]] = None,
+    plan_cache: Optional[PlanCache] = None,
     *,
     fleet_budget_elems: int = FLEET_BUDGET_ELEMS,
     merge_budget: Optional[int] = None,
@@ -287,6 +342,9 @@ def solve_fleet(
     retry_max: int = 2,
     retry_backoff_s: float = 0.02,
     faults: Optional[_faults.FaultPlan] = None,
+    pipeline: bool = True,
+    decode_workers: int = 2,
+    conf_device: bool = False,
     device=None,
     fused_kernel: bool = True,
 ) -> List[Tuple]:
@@ -303,16 +361,29 @@ def solve_fleet(
     (``TW_FLEET_BUDGET``), ``merge_budget`` (``TW_FLEET_MERGE``; None
     picks by device, :data:`MERGE_BUDGET`), ``compaction``
     (``TW_COMPACT``), ``sweep_warm`` (``TW_SWEEP_WARM``), ``retry_max``
-    (``TW_RETRY_MAX``), ``retry_backoff_s`` (``TW_RETRY_BACKOFF_S``) and
+    (``TW_RETRY_MAX``), ``retry_backoff_s`` (``TW_RETRY_BACKOFF_S``),
     ``faults`` (a :class:`~traceweaver_tpu_torch.runtime.faults.FaultPlan`
-    in place of ``TW_FAULTS``).
+    in place of ``TW_FAULTS``), ``pipeline`` (``TW_PIPELINE``; False is
+    the serial reference flow), ``decode_workers``
+    (``TW_DECODE_WORKERS``, the pipeline's flow workers) and
+    ``conf_device`` (``TW_CONF_DEVICE``).
 
     ``item_cells`` (a list sized to ``len(items)``) receives each item's
     padded-cell count; ``quarantined`` receives the indices of items the
-    supervisor gave up on. ``stats`` gets the JAX package's ledger keys
-    (``fleet_dispatches``, ``fleet_services``, ``fused_em_applied``,
-    ``fleet_dynamism_dispatches``, ``compact_windows_*``, ``fault_*`` and
-    the ordered ``fault_ladder`` list, stage seconds, byte counts).
+    supervisor gave up on; ``confidences`` (a list sized to
+    ``len(items)``; the JAX package's ``TW_CONFIDENCE=0`` is passing
+    none) receives each item's ``{in span id: record}`` of
+    :mod:`~traceweaver_tpu_torch.obs.quality`, zero-confidence records
+    for a quarantined item. ``plan_cache`` is looked up before each
+    item's fit (items with ``warm_dists`` bypass it); misses are
+    admitted, a single-pass item's from its fit, a two-pass item's from
+    its refit tables decoded after the compacted flow's dispatch. Host
+    plan time, admissions included, is ``plan_fit_s``. ``stats`` gets
+    the JAX package's ledger keys (``fleet_dispatches``,
+    ``fleet_services``, ``fused_em_applied``,
+    ``fleet_dynamism_dispatches``, ``compact_windows_*``,
+    ``pipeline_groups``, ``pipeline_depth``, ``fault_*`` and the ordered
+    ``fault_ladder`` list, stage seconds, byte counts).
     """
     dev = resolve_device(device)
     precision = validate_precision(precision)
@@ -328,17 +399,24 @@ def solve_fleet(
     prepared, fallback_entries = [], []
     t_plan = time.perf_counter()
     for i, item in enumerate(items):
-        prep = _prepare(item)
+        cached = (plan_cache.lookup(_plan_key(item))
+                  if plan_cache is not None and item.warm_dists is None else None)
+        prep = _prepare(item, cached_dists=cached)
         if prep is None:
             fallback_entries.append((i, item))
             if item_cells is not None:
                 item_cells[i] = _raw_cells(item, max_window)
         else:
+            if (plan_cache is not None and cached is None
+                    and item.warm_dists is None and prep["n_passes"] == 1):
+                # a single-pass miss has no refit to admit later: the
+                # fit that just ran is the plan
+                plan_cache.admit(_plan_key(item), prep["dists"])
             prepared.append((i, item, prep))
     st.add("plan_fit_s", time.perf_counter() - t_plan)
     if fallback_entries:
         _run_fallback(fallback_entries, results, all_spans, all_processes,
-                      solver_kwargs, st)
+                      solver_kwargs, st, confidences=confidences)
     if not prepared:
         return results  # type: ignore[return-value]
 
@@ -396,27 +474,33 @@ def solve_fleet(
     # --- budget, then dispatch per group -------------------------------------
     run = _Run(hypers=dict(epsilon=epsilon, n_sinkhorn=n_sinkhorn,
                            sinkhorn_tol=sinkhorn_tol, precision=precision,
-                           topk=DEFAULT_TOPK, fused=fused_kernel),
+                           topk=DEFAULT_TOPK, fused=fused_kernel,
+                           confidence=conf_device),
                n_sweeps=n_sweeps, device=dev, compaction=compaction,
                sweep_warm=sweep_warm, retry_max=retry_max,
                retry_backoff_s=retry_backoff_s,
-               budget_bytes=fleet_budget_elems * 4, faults=faults)
+               budget_bytes=fleet_budget_elems * 4, faults=faults,
+               plan_cache=plan_cache)
     ctx = dict(all_spans=all_spans, all_processes=all_processes,
                solver_kwargs=solver_kwargs,
-               quarantined=quarantined if quarantined is not None else [])
+               quarantined=quarantined if quarantined is not None else [],
+               confidences=confidences)
     specs: List[_GroupSpec] = []
     for group in groups:
         spec = _make_spec(group)
         if spec.cost > run.budget_bytes:
             # the padded group would stress device memory: per service
             _run_fallback([(p[0], p[1]) for p in group], results, all_spans,
-                          all_processes, solver_kwargs, st)
+                          all_processes, solver_kwargs, st, confidences=confidences)
             st.add("fleet_fallback_budget", 1.0)
             continue
         st.record_max("fleet_group_cost_max", float(spec.cost))
         st.add("fleet_group_cost_total", float(spec.cost))
         specs.append(spec)
-    _solve_groups_serial(specs, results, st, run, ctx)
+    if pipeline and specs:
+        _solve_groups_pipelined(specs, results, st, run, ctx, decode_workers)
+    else:
+        _solve_groups_serial(specs, results, st, run, ctx)
     return results  # type: ignore[return-value]
 
 
@@ -462,7 +546,7 @@ def _attempt_group(pg, spec, results, st, run, ctx):
     so every attempt places fresh device copies)."""
     _fault_check("dispatch", st, run.faults)
     pend = _dispatch_packed(pg, spec, st, run)
-    _decode_group(pend, results, st, run)
+    _decode_group(pend, results, st, run, ctx)
 
 
 def _enter_ladder(err, pg, spec, results, st, run, ctx):
@@ -520,7 +604,8 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
     try:
         _fault_check("host", st, run.faults)
         _run_fallback([(plan[0], plan[1])], results, ctx["all_spans"],
-                      ctx["all_processes"], ctx["solver_kwargs"], st)
+                      ctx["all_processes"], ctx["solver_kwargs"], st,
+                      confidences=ctx["confidences"])
         if results[plan[0]] is not None:
             return
     except Exception as e:  # noqa: BLE001
@@ -530,6 +615,10 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
     st.add("fault_quarantined")
     st.note("fault_ladder", "quarantine")
     results[plan[0]] = _quarantine_result(plan)
+    if ctx["confidences"] is not None:
+        # an all-NA result has zero confidence, so queries can leave it out
+        ctx["confidences"][plan[0]] = {s.GetId(): _quality.zero_confidence()
+                                       for s in plan[2]["in_spans"]}
     ctx["quarantined"].append(plan[0])
 
 
@@ -545,7 +634,8 @@ def _quarantine_result(plan) -> Tuple:
 
 
 def _solve_groups_serial(specs, results, st, run, ctx):
-    """Pack and dispatch the groups in order on the calling thread; the
+    """The ``pipeline=False`` reference flow: pack and dispatch the
+    groups in order on the calling thread (and its current stream); the
     live groups' bytes stay under one budget (decode drains them first).
     Failures enter the degradation ladder per group."""
     pending = []
@@ -554,7 +644,7 @@ def _solve_groups_serial(specs, results, st, run, ctx):
     def finish(entry):
         spec, pg, pend = entry
         try:
-            _decode_group(pend, results, st, run)
+            _decode_group(pend, results, st, run, ctx)
         except Exception as e:  # noqa: BLE001
             _enter_ladder(e, pg, spec, results, st, run, ctx)
 
@@ -574,6 +664,78 @@ def _solve_groups_serial(specs, results, st, run, ctx):
         pending.append((spec, pg, pend))
     for entry in pending:
         finish(entry)
+
+
+def _solve_groups_pipelined(specs, results, st, run, ctx, workers: int):
+    """Bounded pipeline over the dispatch groups (the JAX package's
+    ``_solve_groups_pipelined``):
+
+    - one pack thread builds the groups' host tensors in order (numpy
+      only, no device work);
+    - a pool of ``workers`` flow workers each runs one group's dispatch,
+      compaction round trips, fetch, decode and, on a transient failure,
+      the degradation ladder. On the card each worker runs its flows
+      inside ``torch.cuda.stream`` on a stream of its own: kernels,
+      copies and fetches of a flow queue on that stream alone, and a
+      fetch waits for it alone, so one flow's host work overlaps another
+      flow's device work. Every tensor of a flow is made and freed on
+      its stream, so no ``record_stream`` is needed;
+    - the live-byte budget is the admission gate: a group waits until
+      the groups in flight leave room for it.
+
+    The output is the serial flow's, in input order: every flow writes
+    only its own items' slots. Non-transient errors propagate through
+    ``fut.result()``; flows not yet started are then cancelled."""
+    gate = threading.Condition()
+    live_bytes = live_flows = 0  # guarded by ``gate``
+    st.add("pipeline_groups", float(len(specs)))
+    local = threading.local()
+
+    def flow_stream():
+        if run.device.type != "cuda":
+            return contextlib.nullcontext()
+        if getattr(local, "stream", None) is None:
+            local.stream = torch.cuda.Stream(device=run.device)
+        return torch.cuda.stream(local.stream)
+
+    def flow(pg, spec):
+        nonlocal live_bytes, live_flows
+        try:
+            with flow_stream():
+                try:
+                    _attempt_group(pg, spec, results, st, run, ctx)
+                except Exception as e:  # noqa: BLE001 — classified by the ladder
+                    _enter_ladder(e, pg, spec, results, st, run, ctx)
+        finally:
+            with gate:
+                live_bytes -= spec.cost
+                live_flows -= 1
+                gate.notify_all()
+
+    pack_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="tw-fleet-pack")
+    flow_pool = ThreadPoolExecutor(max_workers=max(1, workers),
+                                   thread_name_prefix="tw-fleet-flow")
+    ok = False
+    try:
+        pack_futs = [pack_pool.submit(_pack_group, spec, st) for spec in specs]
+        flow_futs = []
+        for spec, fut in zip(specs, pack_futs):
+            pg = fut.result()
+            with gate:
+                # a lone over-budget group went to the per-service
+                # fallback upstream, so an empty pipeline admits anything
+                while live_bytes > 0 and live_bytes + spec.cost > run.budget_bytes:
+                    gate.wait()
+                live_bytes += spec.cost
+                live_flows += 1
+                st.record_max("pipeline_depth", float(live_flows))
+            flow_futs.append(flow_pool.submit(flow, pg, spec))
+        for fut in flow_futs:
+            fut.result()
+        ok = True
+    finally:
+        pack_pool.shutdown(wait=True, cancel_futures=not ok)
+        flow_pool.shutdown(wait=True, cancel_futures=not ok)
 
 
 def _pack_group(spec: _GroupSpec, st: _Stats):
@@ -639,19 +801,24 @@ def _place(arrs: Dict[str, np.ndarray], pidx: np.ndarray, dev, st: _Stats):
 
 def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
     """Run one packed group's device solve and return its decode ticket
-    ``(per_item_pack, out)``: ``out`` is a host array from the compacted
-    flow, else the packed device block."""
+    ``(per_item_pack, out, confidence)``: ``out`` is a host array from
+    the compacted flow, else the packed device block; ``confidence``
+    says whether it carries the confidence channels. With a plan cache,
+    a two-pass group's refit tables are decoded and admitted here, after
+    the dispatch time is taken (billed to ``plan_fit_s``)."""
     dev = run.device
     hypers = dict(run.hypers, max_preds=pg["max_preds"], max_succs=pg["max_succs"])
     use_compact = (run.compaction and run.sweep_warm < run.n_sweeps
                    and pg["n_rows"] > 1)
+    flow_wait: List[float] = []
+    refit_sink = [] if (run.plan_cache is not None and spec.n_passes == 2) else None
     t0 = time.perf_counter()
-    wait0 = (st.d or {}).get("wait_s", 0.0)
     if use_compact:
         out = _solve_group_compacted(
             pg["batch"], pg["pidx"], pg["params"], pg["window_rows"],
             pg["window_valid"], spec.n_passes, run.n_sweeps, run.sweep_warm,
-            hypers, st, dev, run.faults)
+            hypers, st, dev, run.faults, flow_wait=flow_wait,
+            refit_sink=refit_sink)
     else:
         common = _place(pg["batch"], pg["pidx"], dev, st)
         tables = _tables_on(pg["params"], dev)
@@ -663,9 +830,17 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
         else:
             out, _ = solve_windows_fleet(*common, *tables,
                                          n_sweeps=run.n_sweeps, **hypers)
-    st.add("dispatch_s", time.perf_counter() - t0
-           - ((st.d or {}).get("wait_s", 0.0) - wait0))
-    return pg["per_item_pack"], out
+    st.add("dispatch_s", time.perf_counter() - t0 - sum(flow_wait))
+    if refit_sink:
+        # the device already fitted the next round's plan: keep it
+        t_admit = time.perf_counter()
+        tables9 = tuple(t.cpu().numpy() for t in refit_sink[0])
+        for p, (_, item, prep, _, _) in enumerate(pg["per_item_pack"]):
+            if item.warm_dists is None:
+                run.plan_cache.admit(_plan_key(item), dists_from_tables(
+                    prep["out_eps"], prep["in_ep"], *(t[p] for t in tables9)))
+        st.add("plan_fit_s", time.perf_counter() - t_admit)
+    return pg["per_item_pack"], out, hypers["confidence"]
 
 
 def _tables_on(params: Dict[str, np.ndarray], dev) -> Tuple[torch.Tensor, ...]:
@@ -673,7 +848,7 @@ def _tables_on(params: Dict[str, np.ndarray], dev) -> Tuple[torch.Tensor, ...]:
 
 
 def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
-                    faults=None) -> np.ndarray:
+                    faults=None, flow_wait=None) -> np.ndarray:
     """One solve pass as a warm dispatch of ``warm`` sweeps plus a full
     redispatch of only the unconverged windows. Returns the packed
     ``[B, E, W, 3 + topk]`` block on the host; ``batch``/``pidx`` are
@@ -683,12 +858,13 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
     out_warm, flags = solve_windows_fleet(*_place(batch, pidx, device, st),
                                           *tables, n_sweeps=warm, **hypers)
     st.add("d2h_flag_fetches", 1.0)
-    converged = _fetch(flags, st, faults, flag_fetch=True).astype(bool)
+    converged = _fetch(flags, st, faults, flag_fetch=True,
+                       flow_wait=flow_wait).astype(bool)
     active = np.flatnonzero(~converged)
     st.add("compact_windows_total", float(converged.shape[0]))
     st.add("compact_windows_redispatched", float(active.size))
     if active.size == 0:
-        return _fetch(out_warm, st, faults)
+        return _fetch(out_warm, st, faults, flow_wait=flow_wait)
     # stragglers rerun from sweep 0, padded to a power of two with
     # all-invalid rows (no valid spans or columns: decoded by nobody)
     pad = _bucket(int(active.size), minimum=1) - int(active.size)
@@ -700,22 +876,24 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
                                   np.zeros(pad, dtype=np.asarray(pidx).dtype)])
     out_full, _ = solve_windows_fleet(*_place(gathered, pidx_active, device, st),
                                       *tables, n_sweeps=n_sweeps, **hypers)
-    out = _fetch(out_warm, st, faults).copy()
-    out[active] = _fetch(out_full, st, faults)[:active.size]
+    out = _fetch(out_warm, st, faults, flow_wait=flow_wait).copy()
+    out[active] = _fetch(out_full, st, faults, flow_wait=flow_wait)[:active.size]
     return out
 
 
 def _solve_group_compacted(batch, pidx, params, window_rows, window_valid,
                            n_passes, n_sweeps, warm, hypers, stats, device,
-                           faults=None) -> np.ndarray:
+                           faults=None, flow_wait=None,
+                           refit_sink=None) -> np.ndarray:
     """The compacted counterpart of one group dispatch: a compacted pass
     0, for two-pass groups :func:`refit_fleet_params` on pass 0's merged
     assignments (the refit :func:`solve_em_fleet` runs), then a
-    compacted pass 1."""
+    compacted pass 1. ``refit_sink`` (a list) receives the refit tables
+    for the plan cache."""
     st = _as_stats(stats)
     tables = _tables_on(params, device)
     out0 = _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, st,
-                           device, faults)
+                           device, faults, flow_wait)
     if n_passes == 1:
         return out0
 
@@ -727,19 +905,24 @@ def _solve_group_compacted(batch, pidx, params, window_rows, window_valid,
         *(on(batch[k]) for k in ("in_start", "in_end", "in_valid",
                                  "out_start", "out_end")),
         on(pidx), on(window_rows), on(window_valid), *tables[:2], *tables[3:])
+    if refit_sink is not None:
+        refit_sink.append(new_tables)
     return _compacted_pass(batch, pidx, tables[:3] + tuple(new_tables), n_sweeps,
-                           warm, hypers, st, device, faults)
+                           warm, hypers, st, device, faults, flow_wait)
 
 
-def _decode_group(pend, results, st: _Stats, run: _Run) -> None:
+def _decode_group(pend, results, st: _Stats, run: _Run, ctx) -> None:
     """Fetch one group's packed output (unless the compacted flow already
-    did) and decode it per service into its input-order slot."""
-    per_item_pack, out = pend
+    did) and decode it per service into its input-order slot, with the
+    item's confidence records when the caller asked for them."""
+    per_item_pack, out, conf_device = pend
+    confidences = ctx["confidences"]
     o = out if isinstance(out, np.ndarray) else _fetch(out, st, run.faults)
     t0 = time.perf_counter()
     row = 0
     for i, item, prep, packed, n_w in per_item_pack:
-        ch = _layout.split_packed(o[row:row + n_w])
+        rows = o[row:row + n_w]
+        ch = _layout.split_packed(rows, confidence=conf_device)
         row += n_w
         out_eps = prep["out_eps"]
         in_ids = prep["in_cols"].ids.tolist()
@@ -752,6 +935,10 @@ def _decode_group(pend, results, st: _Stats, run: _Run) -> None:
         span_cands = np.ones(n_in, dtype=np.int64)
         scatter_window_span_stats(packed.windows, ch["not_best"], ch["feas"],
                                   span_not_best, span_cands)
+        if confidences is not None:
+            arrs = _quality.span_confidence_arrays(packed.windows, rows, n_in,
+                                                   device=conf_device)
+            confidences[i] = _quality.confidence_records(in_ids, arrs)
         WeaverTorch._resolve_cross_window_duplicates(
             all_assignments, all_topk, in_ids, prep["skip_budget"])
         cnt_unassigned = sum(

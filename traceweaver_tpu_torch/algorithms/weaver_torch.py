@@ -40,6 +40,7 @@ from traceweaver_tpu_torch.algorithms.skips import water_fill_skip_caps
 from traceweaver_tpu_torch.algorithms.timing import MAX_COMPONENTS, EdgeDist
 from traceweaver_tpu_torch.dag import DAG
 from traceweaver_tpu_torch.metrics.accuracy import get_out_eps_in_order
+from traceweaver_tpu_torch.obs import quality as _quality
 from traceweaver_tpu_torch.ops.cuda_sinkhorn import assign_topk
 from traceweaver_tpu_torch.ops.gmm import fit_gmm_in_graph
 from traceweaver_tpu_torch.ops.precision import validate_precision
@@ -100,6 +101,7 @@ def _solve_windows_impl(
     max_succs: int = 0,
     precision: str = "f32",
     fused: bool = True,
+    confidence: bool = False,
 ):
     """Shared body of :func:`solve_windows` and the packed entry points.
 
@@ -107,7 +109,13 @@ def _solve_windows_impl(
     not_best [B, E, W] bool, feas_count [B, E, W] int32, converged [B]
     bool)``. ``max_preds``/``max_succs`` (0 = no bound) cap the DAG
     neighbours each score block sums over; ``fused`` picks the fused
-    kernel on the card.
+    kernel on the card. ``confidence`` adds, before ``converged``, the
+    two quantized quality channels of
+    :mod:`~traceweaver_tpu_torch.algorithms.packed_layout` ([B, E, W]
+    int32 each): the top1-top2 margin of each row of the assembled block
+    and the entropy of its ``softmax(S / epsilon)`` over feasible
+    columns, both x ``CONF_SCALE``. They are plain tensor operations on
+    the block, outside the kernels.
     """
     validate_precision(precision)
     B, E, M = out_start.shape
@@ -216,7 +224,18 @@ def _solve_windows_impl(
         chosen_end[:, e] = torch.where(real, torch.gather(o_e, 1, safe), t_prev)
         chosen_start[:, e] = torch.where(real, torch.gather(o_s, 1, safe), pos)
         not_best = (assign != Sfull.argmax(dim=2)) & in_v
-        return assign, tk, not_best, feas_count
+        if not confidence:
+            return assign, tk, not_best, feas_count
+        # the row conditional softmax(S / eps) is the Sinkhorn plan row
+        # without the column potentials: its entropy is 0 for a one-hot row
+        top2 = torch.topk(Sfull, 2, dim=2).values
+        margin = torch.clamp(top2[..., 0] - top2[..., 1], min=0.0)
+        p = torch.softmax(torch.where(Sfull > NEG / 2, Sfull / epsilon, neg), dim=2)
+        ent = -torch.where(p > 0.0, p * torch.log(p + 1e-30), zero).sum(dim=2)
+        scale = _layout.CONF_SCALE
+        margin_q = (torch.clamp(margin, max=2.0e6) * scale).to(torch.int32)
+        ent_q = (torch.clamp(ent, min=0.0) * scale).to(torch.int32)
+        return assign, tk, not_best, feas_count, margin_q, ent_q
 
     chosen_end = torch.zeros(B, E, W, dtype=in_s.dtype, device=dev)
     chosen_start = torch.full((B, E, W), POS, dtype=in_s.dtype, device=dev)
@@ -224,6 +243,9 @@ def _solve_windows_impl(
             torch.zeros(B, E, W, topk, dtype=torch.int32, device=dev),
             torch.zeros(B, E, W, dtype=torch.bool, device=dev),
             torch.zeros(B, E, W, dtype=torch.int32, device=dev))
+    if confidence:
+        outs = outs + tuple(torch.zeros(B, E, W, dtype=torch.int32, device=dev)
+                            for _ in range(_layout.N_CONF))
     changed = torch.ones(B, dtype=torch.bool, device=dev)
     live = torch.ones(B, dtype=torch.bool, device=dev)  # sweep < n & changed
     for sweep in range(n_sweeps):
@@ -278,11 +300,12 @@ def solve_windows(in_start, in_end, in_valid, out_start, out_end, out_valid,
     return outs[:4]
 
 
-def _pack_solver_outputs(assign, tk, not_best, feas):
-    """One int32 block ``[B, E, W, 3 + topk]`` in the channel order of
-    :mod:`traceweaver_tpu_torch.algorithms.packed_layout`."""
+def _pack_solver_outputs(assign, tk, not_best, feas, *conf):
+    """One int32 block ``[B, E, W, 3 + topk (+ 2)]`` in the channel order
+    of :mod:`traceweaver_tpu_torch.algorithms.packed_layout`; ``conf``
+    is the confidence variant's margin and entropy channels."""
     return torch.cat([assign[..., None], not_best[..., None].to(torch.int32),
-                      feas[..., None], tk], dim=-1)
+                      feas[..., None], tk, *(c[..., None] for c in conf)], dim=-1)
 
 
 def solve_windows_packed(*args, **kw):
@@ -299,7 +322,8 @@ def solve_windows_fleet(in_start, in_end, in_valid, out_start, out_end,
                         n_sinkhorn: int = 40, topk: int = DEFAULT_TOPK,
                         n_sweeps: int = 5, sinkhorn_tol: float = 0.0,
                         max_preds: int = 0, max_succs: int = 0,
-                        precision: str = "f32", fused: bool = True):
+                        precision: str = "f32", fused: bool = True,
+                        confidence: bool = False):
     """Multi-service solve: ``param_idx[b]`` picks window b's row of the
     stacked ``[P, ...]`` tables, so windows of every service of a fleet
     share one batch (endpoint axes padded to the fleet's widest; padded
@@ -308,7 +332,7 @@ def solve_windows_fleet(in_start, in_end, in_valid, out_start, out_end,
 
     Returns ``(packed [B, E, W, 3 + topk] int32, converged [B] bool)``:
     the flags come apart from the block so the compacted flow can fetch
-    B bytes alone."""
+    B bytes alone. ``confidence`` appends the two quality channels."""
     outs = _solve_windows_impl(
         in_start, in_end, in_valid, out_start, out_end, out_valid,
         skip_cap, force_skip, param_idx.to(torch.int64),
@@ -316,8 +340,8 @@ def solve_windows_fleet(in_start, in_end, in_valid, out_start, out_end,
         in_wts, in_mus, in_sds, ret_wts, ret_mus, ret_sds,
         epsilon=epsilon, n_sinkhorn=n_sinkhorn, topk=topk, n_sweeps=n_sweeps,
         sinkhorn_tol=sinkhorn_tol, max_preds=max_preds, max_succs=max_succs,
-        precision=precision, fused=fused)
-    return _pack_solver_outputs(*outs[:4]), outs[4]
+        precision=precision, fused=fused, confidence=confidence)
+    return _pack_solver_outputs(*outs[:-1]), outs[-1]
 
 
 def em_family_samples(assign, in_start, in_end, in_valid,
@@ -433,7 +457,8 @@ def solve_em_fleet(in_start, in_end, in_valid, out_start, out_end, out_valid,
     """Both EM passes for a whole fleet in one call: pass 0 over every
     service's windows, :func:`refit_fleet_params`, pass 1. Returns
     ``(packed, converged)`` like :func:`solve_windows_fleet` (pass 1's
-    flags)."""
+    flags; ``confidence`` applies to pass 1's block)."""
+    confidence = kw.pop("confidence", False)
     windows = (in_start, in_end, in_valid, out_start, out_end, out_valid,
                skip_cap, force_skip, param_idx)
     structure = (pred_masks, root_masks, is_lasts)
@@ -445,7 +470,8 @@ def solve_em_fleet(in_start, in_end, in_valid, out_start, out_end, out_valid,
         out_start, out_end, param_idx, window_rows, window_valid,
         pred_masks, root_masks, edge_wts, edge_mus, edge_sds,
         in_wts, in_mus, in_sds, ret_wts, ret_mus, ret_sds)
-    return solve_windows_fleet(*windows, *structure, *tables, **kw)
+    return solve_windows_fleet(*windows, *structure, *tables,
+                               confidence=confidence, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -642,6 +668,33 @@ def _problem_tables(out_eps: List[str], E_pad: int,
     )
 
 
+def dists_from_tables(out_eps: List[str], in_ep: str,
+                      edge_wt, edge_mu, edge_sd, in_wt, in_mu, in_sd,
+                      ret_wt, ret_mu, ret_sd) -> Dict[Tuple[str, str], EdgeDist]:
+    """Inverse of :func:`_problem_tables`: one service's refit tables (the
+    order :func:`refit_fleet_params` returns them) back into the
+    ``{(parent_ep, child_ep): EdgeDist}`` dict.
+
+    Every family row of the true endpoints is decoded, edges the refit
+    saw no samples for included: :func:`fit_gmm_in_graph` keeps the
+    prior for empty rows, so repacking the dict reproduces the device
+    tables bit for bit (f32 -> f64 -> f32 is exact). That is what lets
+    the plan cache admit a device refit and the next solve start from
+    it unchanged."""
+    def mk(w, m, s) -> EdgeDist:
+        return EdgeDist(np.asarray(w, dtype=np.float64),
+                        np.asarray(m, dtype=np.float64),
+                        np.asarray(s, dtype=np.float64))
+
+    dists: Dict[Tuple[str, str], EdgeDist] = {}
+    for e, ep in enumerate(out_eps):
+        dists[(in_ep, ep)] = mk(in_wt[e], in_mu[e], in_sd[e])
+        dists[(ep, in_ep)] = mk(ret_wt[e], ret_mu[e], ret_sd[e])
+        for p, pep in enumerate(out_eps):
+            dists[(pep, ep)] = mk(edge_wt[e, p], edge_mu[e, p], edge_sd[e, p])
+    return dists
+
+
 def pack_problem(
     in_spans: List[Span],
     out_span_partitions: Dict[str, List[Span]],
@@ -764,10 +817,13 @@ def plan_find_assignments(
     true_skips: bool = False,
     true_dist: bool = False,
     parallel_mode: bool = False,
+    skip_fit: bool = False,
 ) -> Dict:
     """The solve plan: per-endpoint skip budgets, the dynamism flag,
     forced-skip rows of the true-skips oracle, initial distributions and
-    the EM iteration count."""
+    the EM iteration count. ``skip_fit`` leaves ``dists`` empty for a
+    caller that brings its own (a warm start or a plan-cache hit); the
+    rest of the plan is the same."""
     in_ep = next(iter(in_span_partitions))
     n_in = len(in_span_partitions[in_ep])
     skip_budget = {ep: n_in - len(out_span_partitions[ep]) for ep in out_eps}
@@ -781,7 +837,9 @@ def plan_find_assignments(
             for ep in out_eps
         }
 
-    if true_dist:
+    if skip_fit:
+        dists = {}
+    elif true_dist:
         dists = timing.true_distributions(
             in_span_partitions, out_span_partitions, out_eps, true_assignments)
     elif dynamism or dag is None:
@@ -819,7 +877,11 @@ class WeaverTorch:
     ``device=None`` means the card (``cuda``), and raises when there is
     none; tests pass ``device="cpu"``. The JAX package's ``TW_*`` knobs
     are constructor arguments here with the knobs' defaults;
-    ``fused_kernel`` is the counterpart of ``TW_PALLAS_FUSED``.
+    ``fused_kernel`` is the counterpart of ``TW_PALLAS_FUSED`` and
+    ``confidence`` of ``TW_CONFIDENCE``: with it, every
+    ``FindAssignments`` leaves its per-span records
+    (:mod:`traceweaver_tpu_torch.obs.quality`) in
+    :attr:`per_span_confidence`.
     """
 
     def __init__(self, all_spans, all_processes,
@@ -827,7 +889,8 @@ class WeaverTorch:
                  n_sinkhorn: int = 40, n_sweeps: int = 5,
                  sinkhorn_tol: float = 1e-3,
                  precision: str = "f32", topk: int = DEFAULT_TOPK,
-                 fused_kernel: bool = True, device=None):
+                 fused_kernel: bool = True, device=None,
+                 confidence: bool = True):
         self.device = resolve_device(device)
         self.all_spans = all_spans
         self.all_processes = all_processes
@@ -839,8 +902,11 @@ class WeaverTorch:
         self.precision = validate_precision(precision)
         self.topk = topk
         self.fused_kernel = fused_kernel
+        self.confidence = confidence
         # per-solve stage seconds, populated by FindAssignments
         self.stats: Dict[str, float] = {}
+        # {in span id: confidence record} of the last solve ({} when off)
+        self.per_span_confidence: Dict = {}
 
     @staticmethod
     def _topo_out_eps(out_span_partitions, invocation_graph) -> List[str]:
@@ -1070,12 +1136,19 @@ class WeaverTorch:
             all_topk = {ep: {} for ep in out_eps}
             span_not_best = np.zeros(n_in, dtype=bool)
             span_cands = np.ones(n_in, dtype=np.int64)
+            conf_arrs = _quality.new_span_arrays(n_in) if self.confidence else None
             for packed, (assign, topk_cols, not_best, feas) in batches:
                 self._decode(packed, assign, topk_cols, all_assignments, all_topk)
                 scatter_window_span_stats(packed.windows, not_best, feas,
                                           span_not_best, span_cands)
+                if self.confidence:
+                    _quality.scatter_confidence(packed.windows, not_best, feas,
+                                                topk_cols, conf_arrs)
             not_best_count = int(span_not_best.sum())
             per_span_candidates = {in_ids[i]: int(span_cands[i]) for i in range(n_in)}
+            self.per_span_confidence = (_quality.confidence_records(
+                in_ids, _quality.finish_confidence(conf_arrs))
+                if self.confidence else {})
             self._resolve_cross_window_duplicates(
                 all_assignments, all_topk, in_ids, skip_budget)
             self._stat_add("decode_s", time.perf_counter() - t0)

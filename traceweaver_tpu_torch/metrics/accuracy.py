@@ -61,19 +61,35 @@ def _normalize_pred(pred_assignments: Dict, ep: str,
     return True, val
 
 
-def accuracy_for_service(
-    pred_assignments: Dict,
-    true_assignments: Dict,
-    in_span_partitions: Dict[str, List[Span]],
-) -> float:
+def _span_results(pred_assignments: Dict, true_assignments: Dict,
+                  in_span_partitions: Dict[str, List[Span]]):
+    """(incoming span id, right at every endpoint?) per incoming span."""
     assert len(in_span_partitions) == 1
     _, in_spans = next(iter(in_span_partitions.items()))
-    cnt = 0
     for in_span in in_spans:
         correct = True
         for ep in true_assignments:
             ok, val = _normalize_pred(pred_assignments, ep, in_span.GetId())
             correct = correct and ok and val == _truth(
                 true_assignments, ep, in_span.GetId())
-        cnt += int(correct)
-    return float(cnt) / len(in_spans)
+        yield in_span.GetId(), correct
+
+
+def span_correctness(
+    pred_assignments: Dict,
+    true_assignments: Dict,
+    in_span_partitions: Dict[str, List[Span]],
+) -> Dict[SpanId, bool]:
+    """Per incoming span: is its prediction right at every endpoint?"""
+    return dict(_span_results(pred_assignments, true_assignments,
+                              in_span_partitions))
+
+
+def accuracy_for_service(
+    pred_assignments: Dict,
+    true_assignments: Dict,
+    in_span_partitions: Dict[str, List[Span]],
+) -> float:
+    results = [c for _, c in _span_results(pred_assignments, true_assignments,
+                                           in_span_partitions)]
+    return float(sum(results)) / len(results)

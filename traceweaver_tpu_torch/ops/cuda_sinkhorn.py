@@ -34,6 +34,14 @@ schedule raises. Each kernel wrapper counts its launches in
 The kernels are built by ``nvcc`` for ``sm_90a`` from the sources in
 ``csrc/`` at first use, into ``traceweaver_tpu_torch/_build/``, and
 bound through a plain C interface with ``ctypes``.
+
+Every launch first sets the kernel's dynamic shared-memory limit to the
+size this block shape needs (``cudaFuncSetAttribute``), an attribute of
+the function, not of the launch. The fleet's flow workers launch from
+several threads at once, so each C entry point (attribute, then launch
+or occupancy query) runs under :data:`_launch_lock`: otherwise a thread
+could launch with the smaller limit another thread set in between, and
+the launch fails with CUDA error 1 (invalid value).
 """
 
 from __future__ import annotations
@@ -77,6 +85,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
+#: held around each C entry point, which sets a per-function attribute
+#: and then launches (or queries occupancy) with it
+_launch_lock = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _ACTIVE_CLUSTERS: Dict[Tuple[int, int, int, int], int] = {}
 
@@ -212,10 +223,10 @@ def _active_clusters(cluster: int, rows: int, cols: int, dev: torch.device) -> i
         except ValueError:
             _ACTIVE_CLUSTERS[key] = 0
             return 0
-        n = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            err = _lib().tw_max_active_clusters(cluster, rows, cols, plan.tile_rows,
-                                                ctypes.addressof(n))
+        n, lib = ctypes.c_int(0), _lib()
+        with torch.cuda.device(dev), _launch_lock:
+            err = lib.tw_max_active_clusters(cluster, rows, cols, plan.tile_rows,
+                                             ctypes.addressof(n))
         _raise_on(err, f"occupancy query for a cluster of {cluster}")
         _ACTIVE_CLUSTERS[key] = n.value
     return _ACTIVE_CLUSTERS[key]
@@ -285,7 +296,7 @@ def fused_assign_cuda(scores, row_marg, col_marg, skip_cap, n_rows: int, *,
     if B == 0:
         return (assign, tk, stats) if return_stats else (assign, tk)
     lib, plan = _lib(), card_plan(B, R, C, dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _launch_lock:
         err = lib.tw_fused_assign(
             scores.data_ptr(), row_marg.data_ptr(), col_marg.data_ptr(),
             skip_cap.data_ptr(), B, R, C, n_rows, n_iters, 1.0 / epsilon,
@@ -314,7 +325,7 @@ def sinkhorn_cuda(scores, row_marg, col_marg, *, epsilon: float, n_iters: int,
     if B == 0:
         return (plan, iters) if return_iters else plan
     lib, lp = _lib(), card_plan(B, N, M, dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _launch_lock:
         err = lib.tw_sinkhorn(
             scores.data_ptr(), row_marg.data_ptr(), col_marg.data_ptr(), B, N,
             M, n_iters, 1.0 / epsilon, tol / epsilon, plan.data_ptr(),
@@ -343,7 +354,7 @@ def round_topk_cuda(plan, row_valid, col_valid, skip_cap, *, topk: int,
     if B == 0:
         return assign, tk
     lib, lp = _lib(), card_plan(B, N, C, dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _launch_lock:
         err = lib.tw_round_topk(
             plan.data_ptr(), row_valid.data_ptr(), col_valid.data_ptr(),
             skip_cap.data_ptr(), B, N, C, topk, min_topk_mass,
