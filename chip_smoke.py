@@ -36,13 +36,37 @@ Phases, each of which raises on failure (non-zero exit):
    accuracy floor and agree with round 1 on >= 0.99 of the pairs of
    every service but ``cache`` (reported only: its assignments hang on
    near ties);
-4. kernels: each kernel against its plain PyTorch version on the card,
+4. executor: config ``alibaba-exp5-15000``: the port's synthesizer
+   writes exp5's corpus (15 call graphs x 1000 traces, seed 10, replica
+   table) and the port's CLI ``main(argv)`` runs in this process once per
+   graph with exp5's arguments (fix 5, compress 15000, predictors
+   3,4,7,10, ``--execute_parallel 0``); WAP5, FCFS and vPath must equal
+   the JAX package's end-to-end accuracy on the CPU
+   (``EXP5_JAX_ACCURACY``), the flagship reach it less one point, and
+   all five result-pickle families must exist for every graph. A graph
+   whose flagship reads other than JAX's runs the flagship again on the
+   CPU (``--device cpu``), which must equal JAX's; the line gives the
+   share of pairs the card assigns alike and the CPU run's ill-posed
+   windows (see the kernels phase). Then
+   graph 0 with exp4's predictors 2,8,9,10 at compress 1, with
+   ``--execute_parallel`` 0 and 1: equal results, slot 2 equal to the
+   JAX number and slots 8-10 at least it less one point
+   (``EXP4_JAX_ACCURACY``). Then config ``alibaba-cg-8k`` (call graph 0
+   of seed 10 at 8192 traces, predictor 10) against
+   ``CG8K_JAX_ACCURACY`` less one point. Each CLI call runs with every
+   launch counter reset just before and read just after, and must
+   launch K1;
+5. kernels: each kernel against its plain PyTorch version on the card,
    on random blocks (ragged, all-masked, padded rows, skip-heavy, tol 0
    and 1e-3; rows not a multiple of the cluster size, fewer rows than
    CTAs in a cluster, one window, more windows than clusters run at
    once, an early tolerance exit, all-invalid padding windows) and on
-   the score blocks captured from the slice run and from the fleet's
-   chain group ([32, 1025, 2049]); ``two-streams``: K1 and K2 launched
+   the score blocks captured from the slice run, from the fleet's
+   chain group ([32, 1025, 2049]) and from the executor phase (the
+   largest K1 block of the exp5 loop and of ``alibaba-cg-8k``, less
+   their ill-posed windows: windows with an incoming span that has no
+   feasible child and no skip room, whose plans are rounding noise);
+   ``two-streams``: K1 and K2 launched
    from two host threads on two CUDA streams at once, on those two
    blocks and two small blocks of other shapes (so the threads' launches
    need different shared-memory limits), must equal their single-stream
@@ -64,8 +88,14 @@ overlap, so it is no share of the wall), the stage seconds,
 the plan-cache counters, plan-fit seconds, launches and accuracy of
 each round; ``fleet-confidence`` lines the records and mean confidence
 per service and the accuracy of the spans above and at or below
-``CONF_LOW``. The kernel-timing lines carry each kernel's cluster size
-and the three terms of its bound.
+``CONF_LOW``; ``executor`` lines per CLI call the services solved,
+their incoming spans, wall and stage seconds (``seconds``: ingest and
+each method; on the ``alibaba-cg-8k`` line also ``prepare_s`` and
+``solve_fleet``'s stages), fleet dispatches, K1 launches and summed
+device ms, peak memory, end-to-end accuracy per method and the
+flagship's accuracy per service; ``executor-phase`` the phase's wall.
+The kernel-timing lines carry each kernel's cluster size and the three
+terms of its bound.
 
 The last lines are the launch counts, the kernel table as one JSON
 object, the card's name and power limit, and the result object. In the
@@ -83,6 +113,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -98,6 +129,50 @@ FLEET_JAX_ACCURACY = {
     "async": 0.5130615234375, "fanout": 0.1552734375, "seq": 1.0,
     "cache": 0.1636962890625}
 FLEET_SMALL = 256
+# JAX package on the CPU, end-to-end accuracy in percent per method, from
+# JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-exp5-15000
+# (exp5's corpus: 15 call graphs x 1000 traces of seed 10, compress 15000,
+# predictors 3,4,7,10); the host baselines must equal them, the flagship
+# reach them less one point
+EXP5_JAX_ACCURACY = {
+    "call_graph_0": {"WAP5": 0.0, "FCFS": 77.10000000000001, "vPath": 0.0,
+                     "MaxScoreBatchSubsetWithSkips": 98.8},
+    "call_graph_1": {"WAP5": 0.0, "FCFS": 46.6, "vPath": 0.0,
+                     "MaxScoreBatchSubsetWithSkips": 91.9},
+    "call_graph_2": {"WAP5": 0.0, "FCFS": 62.1, "vPath": 0.0,
+                     "MaxScoreBatchSubsetWithSkips": 97.6},
+    "call_graph_3": {"WAP5": 0.0, "FCFS": 99.0, "vPath": 0.0,
+                     "MaxScoreBatchSubsetWithSkips": 100.0},
+    "call_graph_4": {"WAP5": 0.0, "FCFS": 17.599999999999998, "vPath": 0.0,
+                     "MaxScoreBatchSubsetWithSkips": 80.10000000000001},
+    "call_graph_5": {"WAP5": 0.0, "FCFS": 49.3, "vPath": 0.0,
+                     "MaxScoreBatchSubsetWithSkips": 86.6},
+    "call_graph_6": {"WAP5": 0.0, "FCFS": 61.199999999999996, "vPath": 0.0,
+                     "MaxScoreBatchSubsetWithSkips": 92.5},
+    "call_graph_7": {"WAP5": 0.0, "FCFS": 32.1, "vPath": 0.0,
+                     "MaxScoreBatchSubsetWithSkips": 92.5},
+    "call_graph_8": {"WAP5": 0.0, "FCFS": 76.4, "vPath": 0.0,
+                     "MaxScoreBatchSubsetWithSkips": 99.6},
+    "call_graph_9": {"WAP5": 0.0, "FCFS": 25.8, "vPath": 0.0,
+                     "MaxScoreBatchSubsetWithSkips": 66.5},
+    "call_graph_10": {"WAP5": 0.0, "FCFS": 35.5, "vPath": 0.0,
+                      "MaxScoreBatchSubsetWithSkips": 93.7},
+    "call_graph_11": {"WAP5": 0.0, "FCFS": 83.7, "vPath": 0.0,
+                      "MaxScoreBatchSubsetWithSkips": 99.2},
+    "call_graph_12": {"WAP5": 0.0, "FCFS": 98.6, "vPath": 0.0,
+                      "MaxScoreBatchSubsetWithSkips": 100.0},
+    "call_graph_13": {"WAP5": 0.0, "FCFS": 43.2, "vPath": 0.0,
+                      "MaxScoreBatchSubsetWithSkips": 95.6},
+    "call_graph_14": {"WAP5": 12.2, "FCFS": 99.2, "vPath": 3.6999999999999997,
+                      "MaxScoreBatchSubsetWithSkips": 99.6}}
+# the same run, call_graph_0 with exp4's predictors 2,8,9,10 at compress 1
+EXP4_JAX_ACCURACY = {"MaxScore": 100.0, "MaxScoreBatchParallelWithoutIterations": 100.0,
+                     "MaxScoreBatchParallel": 100.0, "MaxScoreBatchSubsetWithSkips": 100.0}
+# JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-cg-8k
+# (call graph 0 of seed 10 at 8192 traces, compress 15000, predictor 10)
+CG8K_JAX_ACCURACY = {"MaxScoreBatchSubsetWithSkips": 94.7998046875}
+FLAGSHIP = "MaxScoreBatchSubsetWithSkips"
+HOST_BASELINES = ("WAP5", "FCFS", "vPath", "MaxScore")
 # NVIDIA H100 SXM data sheet: HBM rate and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -210,10 +285,26 @@ def to_cuda(block):
 # checks
 # ---------------------------------------------------------------------------
 
-def check_case(name, blk, tol, n_iters=40, early_exit=False):
+def ill_posed_windows(S, row_marg, col_marg):
+    """[B] bool: windows with a live row whose every live column is
+    masked. The log-domain Sinkhorn lifts such a row's potential to about
+    -NEG, which cancels the mask of its entries in f32 (f32 values near
+    1e9 are 64 apart), so the window's plan is rounding noise and two
+    correct implementations that round differently disagree there (the
+    plain version in f32 and in f64 do too)."""
+    from traceweaver_tpu_torch.ops.sinkhorn import NEG
+
+    feas = (S > NEG / 2) & (col_marg > 0)[:, None, :]
+    return ((row_marg > 0) & ~feas.any(dim=2)).any(dim=1)
+
+
+def check_case(name, blk, tol, n_iters=40, early_exit=False, posed_only=False):
     """Hold K2, round_topk and K1 against their plain versions on one
     batch of blocks; returns the numbers of the comparison. With
-    ``early_exit`` every block must stop before ``n_iters``."""
+    ``early_exit`` every block must stop before ``n_iters``. With
+    ``posed_only`` (blocks captured from a path) the ill-posed windows
+    (:func:`ill_posed_windows`) are counted and left out, so at least one
+    window must remain."""
     import numpy as np
     import torch
 
@@ -221,6 +312,15 @@ def check_case(name, blk, tol, n_iters=40, early_exit=False):
     from traceweaver_tpu_torch.ops.compare import assign_diff_report, topk_diff_report
     from traceweaver_tpu_torch.ops.sinkhorn import sinkhorn_log
 
+    n_ill = 0
+    if posed_only:
+        bad = ill_posed_windows(blk["S"], blk["row_marg"], blk["col_marg"])
+        n_ill = int(bad.sum())
+        keep = (~bad).nonzero().flatten()
+        if keep.numel() == 0:
+            raise AssertionError(f"{name}: every window is ill-posed")
+        if n_ill:
+            blk = {k: v[keep] if torch.is_tensor(v) else v for k, v in blk.items()}
     S, rm, cm = blk["S"], blk["row_marg"], blk["col_marg"]
     in_v, cv, cap, W = blk["in_v"], blk["col_valid"], blk["cap"], blk["n_rows"]
     kw = dict(epsilon=1.0, n_iters=n_iters, tol=tol)
@@ -269,7 +369,8 @@ def check_case(name, blk, tol, n_iters=40, early_exit=False):
             mp = plan_n[b, i, a_p_n[b, i]] if a_p_n[b, i] >= 0 else 0.0
             err = max(err, abs(float(mk) - float(mp)))
     B, R, C = S.shape
-    line = dict(case=name, shape=[B, R, C], tol=tol, n_iters=n_iters,
+    line = dict(case=name, shape=[B, R, C], ill_posed_windows_left_out=n_ill,
+                tol=tol, n_iters=n_iters,
                 cluster=K.card_plan(B, R, C, S.device).cluster,
                 sinkhorn_iters=k2_iters.tolist() if B <= 8 else int(k2_iters.sum()),
                 plan_max_abs_err=plan_err,
@@ -284,7 +385,7 @@ def check_case(name, blk, tol, n_iters=40, early_exit=False):
     return dict(plan_err=plan_err, k1_err=err)
 
 
-def kernel_phase(real_block, fleet_block):
+def kernel_phase(real_block, fleet_block, executor_blocks):
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -317,6 +418,12 @@ def kernel_phase(real_block, fleet_block):
             worst[k] = max(worst[k], r[k])
     for name, blk in (("slice-block", real_block), ("fleet-block", fleet_block)):
         r = check_case(name, blk, 1e-3)
+        for k in worst:
+            worst[k] = max(worst[k], r[k])
+    # the Alibaba corpus has windows where an incoming span has no
+    # feasible child and no skip room: their plans are rounding noise
+    for name, blk in executor_blocks.items():
+        r = check_case(name, blk, 1e-3, posed_only=True)
         for k in worst:
             worst[k] = max(worst[k], r[k])
     two_streams_check(real_block, fleet_block)
@@ -496,14 +603,16 @@ KERNEL_OF = {True: ("fused_assign", "fused_assign_cuda"),
              False: ("sinkhorn", "sinkhorn_cuda")}
 
 
-def drive(run, fused: bool, captured=None, want=lambda S: True):
+def drive(run, fused: bool, captured=None, want=lambda S: True, largest=False):
     """Call ``run()`` with the path's kernel wrapper timed by CUDA events
     around each launch (on the launching thread's current stream) and,
     when ``captured`` is a dict, ``assign_topk`` keeping the first block
-    ``want`` accepts; every launch counter is reset just before and read
-    just after. Returns ``run()``'s result, the path kernel's launches,
-    the other kernel's and the summed kernel device ms (summed over
-    streams: under the pipelined fleet flow launches overlap)."""
+    ``want`` accepts (with ``largest``, the one of most elements, the
+    first of them; a block already in ``captured`` competes too); every
+    launch counter is reset just before and read just after. Returns
+    ``run()``'s result, the path kernel's launches, the other kernel's
+    and the summed kernel device ms (summed over streams: under the
+    pipelined fleet flow launches overlap)."""
     import torch
 
     import traceweaver_tpu_torch.algorithms.weaver_torch as wt
@@ -525,7 +634,9 @@ def drive(run, fused: bool, captured=None, want=lambda S: True):
     def recording(*args, **kw):
         # flow workers launch from several threads: check and set at once
         with lock:
-            if "block" not in captured and want(args[0]):
+            held = captured.get("block")
+            if want(args[0]) and (held is None or largest
+                                  and args[0].numel() > held["S"].numel()):
                 S, rm, cm, in_v, cv, cap, W = args
                 captured["block"] = dict(S=S, row_marg=rm, col_marg=cm, in_v=in_v,
                                          col_valid=cv, cap=cap, n_rows=W)
@@ -766,6 +877,213 @@ def warm_rounds(probs, floors, card):
         raise AssertionError(f"round 2 agrees with round 1 on < 0.99 of pairs: {low}")
 
 
+# ---------------------------------------------------------------------------
+# executor
+# ---------------------------------------------------------------------------
+
+def run_cli(argv):
+    """The port's CLI ``main(argv)`` in this process, on the card unless
+    ``argv`` names another device; returns the ``ExperimentResults`` its
+    ``run_experiment`` made (with ``flagship_pred``, the flagship's
+    assignments per service), peak device bytes and wall seconds."""
+    import torch
+
+    from traceweaver_tpu_torch.runtime import cli
+    from traceweaver_tpu_torch.runtime import executor as X
+
+    real, made = X.run_experiment, []
+    real_fleet, flagship = X._solve_fleet_method, {}
+
+    def capture(cfg, store=None):
+        made.append(real(cfg, store))
+        return made[-1]
+
+    def fleet_capture(*args, **kw):
+        out = real_fleet(*args, **kw)
+        flagship.update({r["process"]: r["pred"] for r in out})
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    X.run_experiment, X._solve_fleet_method = capture, fleet_capture
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(argv)
+    finally:
+        X.run_experiment, X._solve_fleet_method = real, real_fleet
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0 or len(made) != 1:
+        raise AssertionError(f"cli {argv} exited {rc}")
+    made[0].flagship_pred = flagship
+    return made[0], torch.cuda.max_memory_allocated(), wall
+
+
+def card_vs_cpu(graph_dir, n, root, card_res, card):
+    """The flagship on the CPU through the CLI (``--device cpu``) for a
+    graph whose card reading differs from the JAX package's: the CPU
+    must equal JAX exactly; prints the share of each service's pairs the
+    card assigns alike and the ill-posed windows of the CPU run."""
+    import traceweaver_tpu_torch.algorithms.weaver_torch as wt
+
+    name = os.path.basename(graph_dir)
+    real_assign_topk, windows = wt.assign_topk, [0, 0]
+
+    def counting(*args, **kw):
+        windows[0] += int(ill_posed_windows(*args[:3]).sum())
+        windows[1] += args[0].shape[0]
+        return real_assign_topk(*args, **kw)
+
+    wt.assign_topk = counting
+    try:
+        res, _, wall = run_cli(exp5_argv(graph_dir, n, os.path.join(root, "results-cpu"),
+                                         predictors="10") + ["--device", "cpu"])
+    finally:
+        wt.assign_topk = real_assign_topk
+    acc = res.accuracy_overall[FLAGSHIP]
+    pairs = {p: agreement(card_res.flagship_pred[p], pred)
+             for p, pred in res.flagship_pred.items()}
+    print("executor-card-vs-cpu " + json.dumps(dict(
+        config="alibaba-exp5-15000", graph=name, cpu_wall_s=wall,
+        flagship_card=card_res.accuracy_overall[FLAGSHIP], flagship_cpu=acc,
+        flagship_jax_cpu=EXP5_JAX_ACCURACY[name][FLAGSHIP],
+        card_vs_cpu_pairs=pairs, ill_posed_windows=windows[0],
+        windows=windows[1], card=card)), flush=True)
+    if acc != EXP5_JAX_ACCURACY[name][FLAGSHIP]:
+        raise AssertionError(f"exp5 {name}: the port on the CPU reads {acc}, "
+                             f"JAX {EXP5_JAX_ACCURACY[name][FLAGSHIP]}")
+
+
+def exp5_argv(graph_dir, n, results, compress=15000, predictors="3,4,7,10",
+              execute_parallel=0, max_traces=1000):
+    """exp5's arguments (``exps/common.sh run_executor``) for graph ``n``."""
+    return ["--absolute_path", graph_dir, "--fix", "5", "--cache_rate", "0",
+            "--test_name", f"alibaba_cg_{n}_load_multiple", "--load_level", "1",
+            "--compress_factor", str(compress), "--repeat_factor", "1",
+            "--execute_parallel", str(execute_parallel),
+            "--results_directory", results, "--predictor_indices", predictors,
+            "--max_traces", str(max_traces)]
+
+
+def solved(res):
+    """Services the flagship (else the first method) solved, and their
+    incoming spans."""
+    keys = {k for k, _ in res.accuracy_per_process}
+    key = FLAGSHIP if FLAGSHIP in keys else sorted(keys)[0]
+    procs = [p for k, p in res.accuracy_per_process if k == key]
+    return len(procs), sum(len(res.store.in_spans_by_process[p]) for p in procs)
+
+
+def executor_line(tag, res, peak, wall, launches, kernel_ms, card, **extra):
+    services, spans = solved(res)
+    fleet = res.fleet_stats.get(FLAGSHIP, {})
+    acc = {k: v for k, v in res.accuracy_overall.items() if not k.endswith("TopK")}
+    per_service = {p: a for (k, p), a in res.accuracy_per_process.items() if k == FLAGSHIP}
+    line = dict(services=services, incoming_spans=spans, wall_s=wall,
+                seconds=res.seconds, fleet_dispatches=fleet.get("fleet_dispatches", 0.0),
+                fused_assign_launches=launches, fused_assign_ms_summed=kernel_ms,
+                peak_mem_bytes=peak, accuracy=acc, flagship_per_service=per_service,
+                card=card, **extra)
+    print(f"{tag} " + json.dumps(line), flush=True)
+    return line
+
+
+def check_accuracy(tag, acc, jax_acc, exact=HOST_BASELINES):
+    """Host baselines equal the JAX package's; every other method reaches
+    the JAX number less one point."""
+    for method, ref in jax_acc.items():
+        got = acc[method]
+        if method in exact:
+            if got != ref:
+                raise AssertionError(f"{tag} {method}: {got} != JAX {ref}")
+        elif got < ref - 1.0:
+            raise AssertionError(f"{tag} {method}: {got} < JAX {ref} less one point")
+
+
+def executor_phase(card, root):
+    """Config ``alibaba-exp5-15000`` through the CLI, graph by graph, then
+    exp4's predictors on graph 0 with and without the thread pool, then
+    config ``alibaba-cg-8k``. Returns the K1 and K2 launches of the phase
+    and the largest K1 block of the exp5 loop and of ``alibaba-cg-8k``,
+    for the kernel phase to hold against the plain version."""
+    from traceweaver_tpu_torch.alibaba.synthesize import synthesize_corpus
+    from traceweaver_tpu_torch.runtime.executor import RESULT_FAMILIES
+
+    t_phase = time.perf_counter()
+    launches = {"fused_assign": 0, "sinkhorn": 0}
+
+    blocks = {"executor-exp5-block": {}, "executor-cg8k-block": {}}
+
+    def driven(argv, captured=None):
+        (res, peak, wall), n, other, ms = drive(lambda: run_cli(argv), True,
+                                                captured, largest=True)
+        launches["fused_assign"] += n
+        launches["sinkhorn"] += other
+        return res, peak, wall, n, ms
+
+    corpus, results = os.path.join(root, "exp5"), os.path.join(root, "results")
+    t0 = time.perf_counter()
+    dirs = synthesize_corpus(corpus, n_graphs=15, traces_per_graph=1000, seed=10)
+    print(f"executor-corpus alibaba-exp5-15000: {len(dirs)} call graphs in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if [os.path.basename(d) for d in dirs] != list(EXP5_JAX_ACCURACY):
+        raise AssertionError(f"corpus graphs {dirs}")
+    for n, d in enumerate(dirs):
+        res, peak, wall, k1, ms = driven(exp5_argv(d, n, results),
+                                         blocks["executor-exp5-block"])
+        line = executor_line("executor", res, peak, wall, k1, ms, card,
+                             config="alibaba-exp5-15000", graph=os.path.basename(d))
+        check_accuracy(f"exp5 {line['graph']}", line["accuracy"],
+                       EXP5_JAX_ACCURACY[line["graph"]])
+        if k1 <= 0:
+            raise AssertionError(f"exp5 {line['graph']}: no fused_assign launch")
+        if line["accuracy"][FLAGSHIP] != EXP5_JAX_ACCURACY[line["graph"]][FLAGSHIP]:
+            card_vs_cpu(d, n, root, res, card)
+    names = set(os.listdir(results))
+    missing = [f"{kind}_alibaba_cg_{n}_load_multiple_1_15000_1_0.0.pickle"
+               for n in range(len(dirs)) for kind in RESULT_FAMILIES]
+    missing = [m for m in missing if m not in names]
+    if missing:
+        raise AssertionError(f"result pickles missing: {missing}")
+
+    by_pool = {}
+    for pool in (0, 1):
+        res, peak, wall, k1, ms = driven(exp5_argv(
+            dirs[0], 0, os.path.join(root, f"exp4-{pool}"), compress=1,
+            predictors="2,8,9,10", execute_parallel=pool))
+        line = executor_line("executor", res, peak, wall, k1, ms, card,
+                             config="alibaba-exp5-15000", graph="call_graph_0",
+                             predictors="2,8,9,10", compress=1, execute_parallel=pool)
+        check_accuracy(f"exp4 execute_parallel={pool}", line["accuracy"],
+                       EXP4_JAX_ACCURACY)
+        by_pool[pool] = (res.accuracy_overall, res.accuracy_per_process)
+    if by_pool[0] != by_pool[1]:
+        raise AssertionError(f"execute_parallel changes the results: {by_pool}")
+
+    big = os.path.join(root, "cg8k")
+    t0 = time.perf_counter()
+    (d,) = synthesize_corpus(big, n_graphs=1, traces_per_graph=8192, seed=10)
+    synth_s = time.perf_counter() - t0
+    res, peak, wall, k1, ms = driven(exp5_argv(
+        d, 0, os.path.join(root, "results-8k"), predictors="10", max_traces=8192),
+        blocks["executor-cg8k-block"])
+    fleet = res.fleet_stats[FLAGSHIP]
+    _, spans = solved(res)
+    line = executor_line(
+        "executor", res, peak, wall, k1, ms, card, config="alibaba-cg-8k",
+        synthesize_s=synth_s, spans_per_s=spans / res.seconds[FLAGSHIP],
+        **{k: fleet.get(k, 0.0) for k in ("prepare_s", "plan_fit_s", "pack_s",
+                                          "dispatch_s", "wait_s", "decode_s")})
+    check_accuracy("cg-8k", line["accuracy"], CG8K_JAX_ACCURACY)
+    if k1 <= 0:
+        raise AssertionError("cg-8k: no fused_assign launch")
+    shapes = {k: list(v["block"]["S"].shape) for k, v in blocks.items()}
+    print(f"executor-phase: {time.perf_counter() - t_phase:.3f} s wall, "
+          f"launches {json.dumps(launches)}, K1 blocks kept {json.dumps(shapes)}",
+          flush=True)
+    return launches, {k: v["block"] for k, v in blocks.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--slice-root", help="run only the slice and fleet phases, "
@@ -798,8 +1116,10 @@ def main() -> int:
         return 0
     launches, real_block = slice_phase(card)
     fleet_launches, fleet_block = fleet_phase(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        executor_launches, executor_blocks = executor_phase(card, tmp)
     K.reset_launches()
-    worst = kernel_phase(real_block, fleet_block)
+    worst = kernel_phase(real_block, fleet_block, executor_blocks)
     checks = dict(K.LAUNCHES)
     timing = kernel_timing(real_block)
     fleet_timing = kernel_timing(fleet_block)
@@ -808,6 +1128,8 @@ def main() -> int:
         "sinkhorn": launches["sinkhorn"],
         "fleet_fused_assign": fleet_launches["fused_assign"],
         "fleet_sinkhorn": fleet_launches["sinkhorn"],
+        "executor_fused_assign": executor_launches["fused_assign"],
+        "executor_sinkhorn": executor_launches["sinkhorn"],
         "round_topk": checks["round_topk"]}), flush=True)
     src = "traceweaver_tpu_torch/ops/csrc/sinkhorn.cu"
     fleet_shape = list(fleet_block["S"].shape)
@@ -818,6 +1140,9 @@ def main() -> int:
                     launches=launches[name], max_abs_err=worst[err],
                     library_ms=None, **timing[name],
                     fleet_launches=fleet_launches[name], fleet_shape=fleet_shape,
+                    executor_launches=executor_launches[name],
+                    executor_shapes={k: list(v["S"].shape)
+                                     for k, v in executor_blocks.items()},
                     **fleet)
 
     table = [row("fused_assign", "traceweaver_tpu/ops/pallas_sinkhorn.py:308", "k1_err"),

@@ -5,6 +5,8 @@ these numbers (minus one point). Run on the CPU:
 
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py [--traces 8192]
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config synth-fleet-8svc
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-exp5-15000
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-cg-8k
 
 ``synth-async-8k`` (the default) runs ``WeaverTPU.FindAssignments`` and
 prints one JSON line: accuracy, wall seconds and the solver's
@@ -14,6 +16,14 @@ accuracy and the fleet's dispatch counters. The inputs are the repo's
 synthetic labelled services (``metrics/scorecard.py _make_service`` and
 ``synth_labeled_corpus``, ``synth/transforms.py create_cache_hits``),
 built exactly as ``traceweaver_tpu_torch.metrics.synth`` builds them.
+
+``alibaba-exp5-15000`` synthesizes exp5's corpus (15 call graphs x 1000
+traces, seed 10, replica table included) and runs the JAX executor on
+each graph with exp5's arguments (fix 5, compress 15000, predictors
+3,4,7,10, ``execute_parallel`` off), then graph 0 again with exp4's
+predictors 2,8,9,10 at compress 1; ``alibaba-cg-8k`` is the first call
+graph of seed 10 at 8192 traces, compress 15000, predictor 10. Each
+prints one JSON line per run with the end-to-end accuracy per method.
 """
 
 from __future__ import annotations
@@ -84,13 +94,62 @@ def run_fleet(probs, stats=None):
     return solve_fleet(items, stats=stats)
 
 
+def run_alibaba(graph_dir: str, replica_table, predictors, compress: float,
+                max_traces: int = 1000) -> dict:
+    """JAX ``run_experiment`` on one call graph with exp5's arguments
+    (``exps/common.sh run_executor``); returns the end-to-end accuracy
+    per method (percent) and the wall seconds."""
+    from traceweaver_tpu.runtime.executor import ExecutorConfig, run_experiment
+
+    cfg = ExecutorConfig(
+        data_path=graph_dir, results_directory="", fix=5, cache_rate=0.0,
+        load_level=1, compress_factor=compress, repeat_factor=1,
+        execute_parallel=False, predictor_indices=list(predictors),
+        max_traces=max_traces, service_to_replica=replica_table)
+    t0 = time.perf_counter()
+    res = run_experiment(cfg)
+    return dict(accuracy=res.accuracy_overall,
+                wall_s=time.perf_counter() - t0)
+
+
+def alibaba_configs(config: str, out_root: str) -> None:
+    from traceweaver_tpu.alibaba.synthesize import synthesize_corpus
+    from traceweaver_tpu.runtime.executor import load_replica_table
+
+    big = config == "alibaba-cg-8k"
+    n_graphs, traces = (1, 8192) if big else (15, 1000)
+    dirs = synthesize_corpus(out_root, n_graphs=n_graphs,
+                             traces_per_graph=traces, seed=10)
+    table = load_replica_table(os.path.join(out_root, "misc",
+                                            "service_to_replica_new.pickle"))
+    runs = [(d, (10,) if big else (3, 4, 7, 10), 15000.0) for d in dirs]
+    if not big:
+        runs.append((dirs[0], (2, 8, 9, 10), 1.0))
+    for d, preds, compress in runs:
+        r = run_alibaba(d, table, preds, compress, max_traces=traces)
+        print(json.dumps(dict(config=config, graph=os.path.basename(d),
+                              predictors=list(preds), compress=compress,
+                              **r, backend=jax.default_backend())),
+              flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="synth-async-8k",
-                    choices=("synth-async-8k", "synth-fleet-8svc"))
+                    choices=("synth-async-8k", "synth-fleet-8svc",
+                             "alibaba-exp5-15000", "alibaba-cg-8k"))
     ap.add_argument("--traces", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="corpus directory of the alibaba configs "
+                         "(default: a temporary one)")
     args = ap.parse_args()
+    if args.config.startswith("alibaba"):
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            alibaba_configs(args.config, args.out or tmp)
+        return
     if args.config == "synth-fleet-8svc":
         probs = synth_fleet_services(args.traces, args.seed)
         stats = {}

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of ``traceweaver_tpu_torch``
-and not ``chip_smoke.py`` loads ``jax`` or any ``traceweaver_tpu``
-module, and the solver refuses to run without a card unless asked for
-the CPU."""
+and not ``chip_smoke.py`` loads ``jax``, ``networkx`` or any
+``traceweaver_tpu`` module, and the solver refuses to run without a card
+unless asked for the CPU."""
 
 import ast
 import json
@@ -27,8 +27,8 @@ def _port_modules():
 
 
 def _forbidden(name: str) -> bool:
-    return (name == "jax" or name.startswith("jax.")
-            or name == "traceweaver_tpu" or name.startswith("traceweaver_tpu."))
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "networkx", "traceweaver_tpu"))
 
 
 #: modules of the port and the JAX module each mirrors
@@ -43,6 +43,32 @@ MIRRORS = {
     "traceweaver_tpu_torch.algorithms.packed_layout":
         "traceweaver_tpu/algorithms/packed_layout.py",
     "traceweaver_tpu_torch.obs.quality": "traceweaver_tpu/obs/quality.py",
+    "traceweaver_tpu_torch.spans": "traceweaver_tpu/spans.py",
+    "traceweaver_tpu_torch.metrics": "traceweaver_tpu/metrics",
+    "traceweaver_tpu_torch.metrics.accuracy": "traceweaver_tpu/metrics/accuracy.py",
+    "traceweaver_tpu_torch.synth": "traceweaver_tpu/synth",
+    "traceweaver_tpu_torch.ingest": "traceweaver_tpu/ingest",
+    "traceweaver_tpu_torch.ingest.repair": "traceweaver_tpu/ingest/repair.py",
+    "traceweaver_tpu_torch.ingest.jaeger": "traceweaver_tpu/ingest/jaeger.py",
+    "traceweaver_tpu_torch.ingest.partition": "traceweaver_tpu/ingest/partition.py",
+    "traceweaver_tpu_torch.ingest.order": "traceweaver_tpu/ingest/order.py",
+    "traceweaver_tpu_torch.algorithms": "traceweaver_tpu/algorithms",
+    "traceweaver_tpu_torch.algorithms.fcfs": "traceweaver_tpu/algorithms/fcfs.py",
+    "traceweaver_tpu_torch.algorithms.arrival_order":
+        "traceweaver_tpu/algorithms/arrival_order.py",
+    "traceweaver_tpu_torch.algorithms.vpath": "traceweaver_tpu/algorithms/vpath.py",
+    "traceweaver_tpu_torch.algorithms.wap5": "traceweaver_tpu/algorithms/wap5.py",
+    "traceweaver_tpu_torch.algorithms.mwis": "traceweaver_tpu/algorithms/mwis.py",
+    "traceweaver_tpu_torch.algorithms.weaver_exact":
+        "traceweaver_tpu/algorithms/weaver_exact.py",
+    "traceweaver_tpu_torch.alibaba": "traceweaver_tpu/alibaba",
+    "traceweaver_tpu_torch.alibaba.schema": "traceweaver_tpu/alibaba/schema.py",
+    "traceweaver_tpu_torch.alibaba.convert": "traceweaver_tpu/alibaba/convert.py",
+    "traceweaver_tpu_torch.alibaba.grouping": "traceweaver_tpu/alibaba/grouping.py",
+    "traceweaver_tpu_torch.alibaba.synthesize": "traceweaver_tpu/alibaba/synthesize.py",
+    "traceweaver_tpu_torch.alibaba.preprocess": "traceweaver_tpu/alibaba/preprocess.py",
+    "traceweaver_tpu_torch.runtime.executor": "traceweaver_tpu/runtime/executor.py",
+    "traceweaver_tpu_torch.runtime.cli": "traceweaver_tpu/runtime/cli.py",
 }
 
 
@@ -97,6 +123,27 @@ def test_weaver_torch_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         WeaverTorch({}, {})
     assert WeaverTorch({}, {}, device="cpu").device.type == "cpu"
+
+
+def test_entry_points_without_card_raise(monkeypatch, tmp_path):
+    """``make_predictors``, ``run_experiment`` and the CLI raise (or exit
+    non-zero) with no card and no device, before reading any data."""
+    from traceweaver_tpu_torch.algorithms import make_predictors
+    from traceweaver_tpu_torch.runtime import cli, executor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_predictors({}, {})
+    assert [m for m, _ in make_predictors({}, {}, device="cpu")][8:] == [
+        "MaxScoreBatchParallelWithoutIterations", "MaxScoreBatchParallel",
+        "MaxScoreBatchSubsetWithSkips"]
+    missing = str(tmp_path / "absent")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        executor.run_experiment(executor.ExecutorConfig(
+            data_path=missing, results_directory="", fix=5))
+    assert cli.main(["--absolute_path", missing, "--fix", "5", "--cache_rate", "0",
+                     "--results_directory", str(tmp_path / "out")]) != 0
+    assert not (tmp_path / "out").exists()
 
 
 def test_chip_smoke_refuses_without_card():

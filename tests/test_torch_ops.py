@@ -122,6 +122,43 @@ def test_sinkhorn_tol_batch_freezes_each_problem():
         np.testing.assert_allclose(both[b].numpy(), ref, atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sinkhorn_ill_posed_window_cancels_the_mask(seed):
+    """A window with a live row whose every live column is masked (an
+    incoming span with no feasible child and no skip room): the row's
+    potential rises to about -NEG and cancels the mask, so masked
+    entries carry O(1) mass and the plan follows the float rounding (f32
+    and f64 part by O(1)); its well-posed batchmate keeps masked entries
+    at exp(-80) and agrees across precisions. On both, the port equals
+    the JAX package on the CPU: the executor's Alibaba runs hit such
+    windows, and there the card's plans part from the CPU's."""
+    rng = np.random.default_rng(seed)
+    N = 12
+    S = (-rng.uniform(15, 40, size=(2, N + 1, N + 1))).astype(np.float32)
+    S[:, rng.random((N + 1, N + 1)) < 0.5] = NEG
+    for b in range(2):
+        np.fill_diagonal(S[b], -16.0)      # a perfect matching exists
+    S[:, :, N] = NEG                       # skip column, no capacity
+    S[:, N, :] = 0.0                       # dummy row, no mass
+    r = np.ones((2, N + 1), np.float32)
+    c = np.ones((2, N + 1), np.float32)
+    r[:, N] = c[:, N] = 0.0
+    S[1, 3, :] = NEG                       # window 1: a dead live row
+    kw = dict(epsilon=1.0, n_iters=40, tol=1e-3)
+    args = (torch.as_tensor(S), torch.as_tensor(r), torch.as_tensor(c))
+    p32 = t_sinkhorn(*args, **kw).numpy()
+    p64 = t_sinkhorn(*(a.double() for a in args), **kw).numpy()
+    masked = S <= NEG / 2
+    assert p32[0][masked[0]].max() < 1e-30
+    np.testing.assert_allclose(p32[0], p64[0], atol=1e-5)
+    assert p32[1][masked[1]].max() > 0.1 and p64[1][masked[1]].max() > 0.1
+    assert np.abs(p32[1] - p64[1]).max() > 0.1
+    for b in range(2):
+        ref = np.asarray(j_sinkhorn(jnp.asarray(S[b]), jnp.asarray(r[b]),
+                                    jnp.asarray(c[b]), **kw))
+        np.testing.assert_allclose(p32[b], ref, atol=1e-5, rtol=1e-4)
+
+
 def _tie_plans(rng, B, N, C):
     """Plans with deliberate exact ties (quantized masses), a -inf row
     and a row of equal masses."""

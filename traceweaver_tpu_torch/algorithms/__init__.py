@@ -1,1 +1,50 @@
-"""Solver algorithms of the port (mirrors ``traceweaver_tpu/algorithms``)."""
+"""Reconstruction algorithms of the port behind the reference's plugin
+contract (mirrors ``traceweaver_tpu/algorithms``).
+
+Every algorithm is a class with ``__init__(all_spans, all_processes)`` and
+``FindAssignments(method, process, in_span_partitions,
+out_span_partitions, parallel, instrumented_hops, true_assignments, ...)``
+returning ``{out_ep: {in_span_id: out_span_id}}``. :func:`make_predictors`
+is the reference executor's 11-entry, index-selected registry.
+"""
+
+from traceweaver_tpu_torch.algorithms.arrival_order import ArrivalOrder  # noqa: F401
+from traceweaver_tpu_torch.algorithms.fcfs import FCFS  # noqa: F401
+from traceweaver_tpu_torch.algorithms.vpath import VPath, VPathOld  # noqa: F401
+from traceweaver_tpu_torch.algorithms.wap5 import WAP5  # noqa: F401
+from traceweaver_tpu_torch.algorithms.weaver_exact import WeaverExact  # noqa: F401
+
+
+def make_predictors(all_spans, all_processes, device=None):
+    """The ordered ``(method_name, instance)`` registry, index-compatible
+    with the JAX package's (0..10):
+
+    0 MaxScoreBatch (V2)               1 MaxScoreBatchParallel (V2)
+    2 MaxScore (V1)                    3 WAP5
+    4 FCFS                             5 ArrivalOrder
+    6 vPathOld                         7 vPath
+    8 MaxScoreBatchParallelWithoutIterations (WeaverTorch)
+    9 MaxScoreBatchParallel (WeaverTorch)
+    10 MaxScoreBatchSubsetWithSkips (WeaverTorch)
+
+    Slots 0-7 run on the host; slots 8-10 on ``device`` (None: the card,
+    raising without one).
+    """
+    from traceweaver_tpu_torch.algorithms.weaver_torch import WeaverTorch
+
+    return [
+        ("MaxScoreBatch", WeaverExact(all_spans, all_processes)),
+        ("MaxScoreBatchParallel", WeaverExact(all_spans, all_processes)),
+        ("MaxScore", WeaverExact(all_spans, all_processes)),
+        ("WAP5", WAP5(all_spans, all_processes)),
+        ("FCFS", FCFS(all_spans, all_processes)),
+        ("ArrivalOrder", ArrivalOrder(all_spans, all_processes)),
+        ("vPathOld", VPathOld(all_spans, all_processes)),
+        ("vPath", VPath(all_spans, all_processes)),
+        ("MaxScoreBatchParallelWithoutIterations",
+         WeaverTorch(all_spans, all_processes, device=device)),
+        ("MaxScoreBatchParallel",
+         WeaverTorch(all_spans, all_processes, device=device)),
+        ("MaxScoreBatchSubsetWithSkips",
+         WeaverTorch(all_spans, all_processes, device=device)),
+    ]

@@ -859,6 +859,10 @@ def plan_find_assignments(
 # The plugin-facing solver class
 # ---------------------------------------------------------------------------
 
+def _stat_add(stats: Dict[str, float], key: str, val: float) -> None:
+    stats[key] = stats.get(key, 0.0) + val
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means the card, and raises when there is none."""
     if device is None:
@@ -919,15 +923,13 @@ class WeaverTorch:
                 key=lambda ep: first_start.get(ep, 0))
         return get_out_eps_in_order(out_span_partitions)
 
-    def _stat_add(self, key: str, val: float) -> None:
-        self.stats[key] = self.stats.get(key, 0.0) + val
-
     def _solve_once(self, in_spans, out_span_partitions, out_eps, dists,
-                    in_ep, dag, force_skip_ids, parallel, fused=False):
+                    in_ep, dag, force_skip_ids, parallel, stats, fused=False):
         """Solve every perfect-cut window in as few dispatches as the
         JAX package makes (same size-class merging and chunk budget, so
         the same fused-EM decision). Returns ``[(packed, (assign, topk,
-        not_best, feas))]`` with numpy outputs."""
+        not_best, feas))]`` with numpy outputs; stage seconds and
+        ``fused_em_applied`` go into the call's own ``stats``."""
         E = max(1, len(out_eps))
         n_sweeps = 1 if E == 1 else self.n_sweeps
 
@@ -980,7 +982,7 @@ class WeaverTorch:
         # equals the global refit only when one dispatch covers the solve
         use_fused = fused and len(plan) == 1
         if use_fused:
-            self.stats["fused_em_applied"] = 1.0
+            stats["fused_em_applied"] = 1.0
 
         results = []
         for wclass, m_est, per_chunk, n_chunks, chunk in plan:
@@ -994,7 +996,7 @@ class WeaverTorch:
                 ranges=ranges_all[[row_of[w] for w in chunk]],
                 skip_caps=skip_caps_all[[row_of[w] for w in chunk]],
                 in_cols=in_cols, out_cols=out_cols)
-            self._stat_add("pack_s", time.perf_counter() - t0)
+            _stat_add(stats, "pack_s", time.perf_counter() - t0)
             t0 = time.perf_counter()
             a = {k: torch.as_tensor(packed.arrays[k], device=self.device)
                  for k in ARG_ORDER}
@@ -1009,7 +1011,7 @@ class WeaverTorch:
                 sinkhorn_tol=self.sinkhorn_tol, max_preds=mp, max_succs=ms,
                 precision=self.precision, fused=self.fused_kernel)
             o = out.cpu().numpy()
-            self._stat_add("solve_s", time.perf_counter() - t0)
+            _stat_add(stats, "solve_s", time.perf_counter() - t0)
             ch = _layout.split_packed(o, topk=self.topk)
             results.append((packed, (ch["assign"], ch["topk_cols"],
                                      ch["not_best"], ch["feas"])))
@@ -1118,7 +1120,10 @@ class WeaverTorch:
         dists = plan["dists"]
         iterations = plan["iterations"]
 
-        self.stats = {}
+        # per-call state stays local until the call ends: the executor's
+        # thread pool calls one instance from several threads at once
+        stats: Dict[str, float] = {}
+        per_span_confidence: Dict = {}
         all_assignments = all_topk = None
         not_best_count = 0
         per_span_candidates: Dict = {}
@@ -1128,8 +1133,8 @@ class WeaverTorch:
             batches = self._solve_once(
                 in_spans, out_span_partitions, out_eps, dists, in_ep,
                 invocation_graph, plan["force_skip_ids"], parallel_mode,
-                fused=(iterations == 2 and it == 0))
-            if self.stats.get("fused_em_applied"):
+                stats, fused=(iterations == 2 and it == 0))
+            if stats.get("fused_em_applied"):
                 iterations = 1  # the fused dispatch already ran both passes
             t0 = time.perf_counter()
             all_assignments = {ep: {} for ep in out_eps}
@@ -1146,22 +1151,24 @@ class WeaverTorch:
                                                 topk_cols, conf_arrs)
             not_best_count = int(span_not_best.sum())
             per_span_candidates = {in_ids[i]: int(span_cands[i]) for i in range(n_in)}
-            self.per_span_confidence = (_quality.confidence_records(
+            per_span_confidence = (_quality.confidence_records(
                 in_ids, _quality.finish_confidence(conf_arrs))
                 if self.confidence else {})
             self._resolve_cross_window_duplicates(
                 all_assignments, all_topk, in_ids, skip_budget)
-            self._stat_add("decode_s", time.perf_counter() - t0)
+            _stat_add(stats, "decode_s", time.perf_counter() - t0)
             if it + 1 < iterations:
                 t0 = time.perf_counter()
                 dists = timing.refit_from_assignments(
                     in_span_partitions, out_span_partitions, invocation_graph,
                     all_assignments, self.all_spans, device=self.device)
-                self._stat_add("refit_s", time.perf_counter() - t0)
+                _stat_add(stats, "refit_s", time.perf_counter() - t0)
             it += 1
 
         cnt_unassigned = sum(
             1 for in_id in in_ids
             if any(all_assignments[ep][in_id] == NA for ep in out_eps))
+        self.stats = stats
+        self.per_span_confidence = per_span_confidence
         return (all_assignments, all_topk, not_best_count, n_in,
                 per_span_candidates, cnt_unassigned)

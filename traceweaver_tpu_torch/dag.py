@@ -8,7 +8,10 @@ few operations the solver path reads, with networkx's ordering rules:
 - :meth:`lexicographical_topological_sort` breaks ties by ``key`` and
   then by insertion order (``weaver_tpu.py _topo_out_eps``);
 - :meth:`all_simple_paths` with a ``cutoff`` (``timing.py
-  has_longer_path``).
+  has_longer_path``);
+- :meth:`complete`, :meth:`has_edge`, :meth:`remove_edge` and
+  :meth:`in_degree` for the invocation-DAG inference of
+  ``traceweaver_tpu_torch.ingest.order``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,13 @@ class DAG:
             g.add_edge(u, v)
         return g
 
+    @classmethod
+    def complete(cls, nodes: Iterable[Node]) -> "DAG":
+        """Every ordered pair of distinct nodes as an edge, in node order."""
+        nodes = list(nodes)
+        return cls.from_edges(nodes, ((a, b) for a in nodes for b in nodes
+                                      if a != b))
+
     def add_node(self, n: Node) -> None:
         if n not in self._succ:
             self._succ[n] = {}
@@ -49,6 +59,19 @@ class DAG:
         self.add_node(v)
         self._succ[u][v] = None
         self._pred[v][u] = None
+
+    def has_edge(self, u: Node, v: Node) -> bool:
+        return u in self._succ and v in self._succ[u]
+
+    def remove_edge(self, u: Node, v: Node) -> None:
+        del self._succ[u][v]
+        del self._pred[v][u]
+
+    def edges(self) -> List[Tuple[Node, Node]]:
+        return [(u, v) for u, succ in self._succ.items() for v in succ]
+
+    def in_degree(self, n: Node) -> int:
+        return len(self._pred[n])
 
     def __len__(self) -> int:
         return len(self._succ)
