@@ -7,6 +7,8 @@ these numbers (minus one point). Run on the CPU:
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config synth-fleet-8svc
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-exp5-15000
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-cg-8k
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-exp5-gtfree
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-cg-8k-gtfree
 
 ``synth-async-8k`` (the default) runs ``WeaverTPU.FindAssignments`` and
 prints one JSON line: accuracy, wall seconds and the solver's
@@ -24,6 +26,10 @@ each graph with exp5's arguments (fix 5, compress 15000, predictors
 predictors 2,8,9,10 at compress 1; ``alibaba-cg-8k`` is the first call
 graph of seed 10 at 8192 traces, compress 15000, predictor 10. Each
 prints one JSON line per run with the end-to-end accuracy per method.
+``alibaba-exp5-gtfree`` and ``alibaba-cg-8k-gtfree`` are exp5's top
+rung and ``alibaba-cg-8k`` with predictor 10 alone and ground-truth-free
+invocation-DAG discovery (``gt_free_dag``); their lines also give each
+service's discovered edges.
 """
 
 from __future__ import annotations
@@ -95,7 +101,7 @@ def run_fleet(probs, stats=None):
 
 
 def run_alibaba(graph_dir: str, replica_table, predictors, compress: float,
-                max_traces: int = 1000) -> dict:
+                max_traces: int = 1000, gt_free_dag: bool = False) -> dict:
     """JAX ``run_experiment`` on one call graph with exp5's arguments
     (``exps/common.sh run_executor``); returns the end-to-end accuracy
     per method (percent) and the wall seconds."""
@@ -105,28 +111,35 @@ def run_alibaba(graph_dir: str, replica_table, predictors, compress: float,
         data_path=graph_dir, results_directory="", fix=5, cache_rate=0.0,
         load_level=1, compress_factor=compress, repeat_factor=1,
         execute_parallel=False, predictor_indices=list(predictors),
-        max_traces=max_traces, service_to_replica=replica_table)
+        max_traces=max_traces, service_to_replica=replica_table,
+        gt_free_dag=gt_free_dag)
     t0 = time.perf_counter()
     res = run_experiment(cfg)
-    return dict(accuracy=res.accuracy_overall,
-                wall_s=time.perf_counter() - t0)
+    out = dict(accuracy=res.accuracy_overall, wall_s=time.perf_counter() - t0)
+    if gt_free_dag:
+        out["edges"] = {svc: [list(e) for e in g.edges()] for svc, g in
+                        sorted(res.store._gt_free_dag_cache.items())}
+    return out
 
 
 def alibaba_configs(config: str, out_root: str) -> None:
     from traceweaver_tpu.alibaba.synthesize import synthesize_corpus
     from traceweaver_tpu.runtime.executor import load_replica_table
 
-    big = config == "alibaba-cg-8k"
+    big = config.startswith("alibaba-cg-8k")
+    gt_free = config.endswith("-gtfree")
     n_graphs, traces = (1, 8192) if big else (15, 1000)
     dirs = synthesize_corpus(out_root, n_graphs=n_graphs,
                              traces_per_graph=traces, seed=10)
     table = load_replica_table(os.path.join(out_root, "misc",
                                             "service_to_replica_new.pickle"))
-    runs = [(d, (10,) if big else (3, 4, 7, 10), 15000.0) for d in dirs]
-    if not big:
+    runs = [(d, (10,) if big or gt_free else (3, 4, 7, 10), 15000.0)
+            for d in dirs]
+    if not big and not gt_free:
         runs.append((dirs[0], (2, 8, 9, 10), 1.0))
     for d, preds, compress in runs:
-        r = run_alibaba(d, table, preds, compress, max_traces=traces)
+        r = run_alibaba(d, table, preds, compress, max_traces=traces,
+                        gt_free_dag=gt_free)
         print(json.dumps(dict(config=config, graph=os.path.basename(d),
                               predictors=list(preds), compress=compress,
                               **r, backend=jax.default_backend())),
@@ -137,7 +150,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="synth-async-8k",
                     choices=("synth-async-8k", "synth-fleet-8svc",
-                             "alibaba-exp5-15000", "alibaba-cg-8k"))
+                             "alibaba-exp5-15000", "alibaba-cg-8k",
+                             "alibaba-exp5-gtfree", "alibaba-cg-8k-gtfree"))
     ap.add_argument("--traces", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,

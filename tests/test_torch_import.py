@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``traceweaver_tpu_torch``
 and not ``chip_smoke.py`` loads ``jax``, ``networkx`` or any
-``traceweaver_tpu`` module, and the solver refuses to run without a card
-unless asked for the CPU."""
+``traceweaver_tpu`` module, the port reads no ``TW_*`` environment
+variable, and the solver refuses to run without a card unless asked for
+the CPU."""
 
 import ast
 import json
@@ -69,6 +70,14 @@ MIRRORS = {
     "traceweaver_tpu_torch.alibaba.preprocess": "traceweaver_tpu/alibaba/preprocess.py",
     "traceweaver_tpu_torch.runtime.executor": "traceweaver_tpu/runtime/executor.py",
     "traceweaver_tpu_torch.runtime.cli": "traceweaver_tpu/runtime/cli.py",
+    "traceweaver_tpu_torch.native": "traceweaver_tpu/native/__init__.py",
+    "traceweaver_tpu_torch.obs.registry": "traceweaver_tpu/obs/registry.py",
+    "traceweaver_tpu_torch.obs.exposition": "traceweaver_tpu/obs/exposition.py",
+    "traceweaver_tpu_torch.obs.events": "traceweaver_tpu/obs/events.py",
+    "traceweaver_tpu_torch.obs.profile": "traceweaver_tpu/obs/profile.py",
+    "traceweaver_tpu_torch.query": "traceweaver_tpu/query",
+    "traceweaver_tpu_torch.query.delay_culprit": "traceweaver_tpu/query/delay_culprit.py",
+    "traceweaver_tpu_torch.metrics.scorecard": "traceweaver_tpu/metrics/scorecard.py",
 }
 
 
@@ -114,6 +123,25 @@ def test_no_jax_imports_in_source(path):
             else:
                 continue
             assert not [n for n in names if _forbidden(n)], (f, names)
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "traceweaver_tpu_torch"])
+def test_no_tw_environment_knobs(path):
+    """Every JAX knob is an argument or a flag in the port."""
+    full = os.path.join(REPO, path)
+    files = [full] if full.endswith(".py") else [
+        os.path.join(d, f) for d, _, fs in os.walk(full) for f in fs
+        if f.endswith(".py")]
+    for f in files:
+        tree = ast.parse(open(f).read(), f)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and getattr(node.func, "attr", "") in (
+                    "get", "getenv", "setdefault") and node.args and isinstance(
+                    node.args[0], ast.Constant) and str(node.args[0].value).startswith("TW_"):
+                raise AssertionError(f"{f}: reads {node.args[0].value}")
+            if isinstance(node, ast.Subscript) and isinstance(node.slice, ast.Constant) \
+                    and str(node.slice.value).startswith("TW_"):
+                raise AssertionError(f"{f}: reads {node.slice.value}")
 
 
 def test_weaver_torch_without_card_raises(monkeypatch):

@@ -54,8 +54,14 @@ channels to every dispatch.
 
 The JAX package's ``TW_*`` knobs are keyword arguments of
 :func:`solve_fleet` with the knobs' defaults. Not ported yet:
-device-resident columns, mesh sharding, AOT notes, tenancy, the
-self-trace and the metrics mirrors (none of them changes an output).
+device-resident columns, mesh sharding, AOT notes, tenancy and the
+self-trace (none of them changes an output).
+
+Every ``_Stats`` update also lands in the metrics registry
+(:mod:`traceweaver_tpu_torch.obs.registry`: ``tw_fleet_ledger_total``,
+``tw_fleet_gauge``, ``tw_fault_ladder_events_total``), each ladder rung
+in the installed event sink, and the dispatch stages run inside
+``tw:fleet:*`` profiler ranges (:mod:`traceweaver_tpu_torch.obs.profile`).
 """
 
 from __future__ import annotations
@@ -91,7 +97,10 @@ from traceweaver_tpu_torch.algorithms.weaver_torch import (
     solve_em_fleet,
     solve_windows_fleet,
 )
+from traceweaver_tpu_torch.obs import events as _events
+from traceweaver_tpu_torch.obs import profile as _profile
 from traceweaver_tpu_torch.obs import quality as _quality
+from traceweaver_tpu_torch.obs.registry import get_registry as _get_registry
 from traceweaver_tpu_torch.ops.precision import validate_precision
 from traceweaver_tpu_torch.runtime import faults as _faults
 from traceweaver_tpu_torch.spans import NA
@@ -131,28 +140,50 @@ class _Run:
     plan_cache: Optional[PlanCache]
 
 
+# registry mirrors of the stats ledger: every _Stats update also lands
+# here, with the dict's key as a label
+_OBS = _get_registry()
+_OBS_LEDGER = _OBS.counter(
+    "tw_fleet_ledger_total",
+    "fleet solve ledger mirror (one series per _Stats counter key)",
+    labels=("key",))
+_OBS_GAUGE = _OBS.gauge(
+    "tw_fleet_gauge",
+    "fleet high-water marks (_Stats.record_max mirror)",
+    labels=("key",))
+_OBS_LADDER = _OBS.counter(
+    "tw_fault_ladder_events_total",
+    "solve-supervisor degradation-ladder rungs walked",
+    labels=("key", "rung"))
+
+
 class _Stats:
     """Lock-guarded accumulator over the caller's stats dict (the
     per-service fallback pool and the solve thread update it together);
-    ``d is None`` makes every update a no-op."""
+    ``d is None`` makes every dict update a no-op. The registry mirror
+    and the event sink see every update either way."""
 
     def __init__(self, d: Optional[Dict[str, float]]):
         self.d = d
         self._lock = threading.Lock()
 
     def add(self, key: str, val: float = 1.0) -> None:
+        _OBS_LEDGER.inc(val, key=key)
         if self.d is None:
             return
         with self._lock:
             self.d[key] = self.d.get(key, 0.0) + val
 
     def record_max(self, key: str, val: float) -> None:
+        _OBS_GAUGE.set_max(val, key=key)
         if self.d is None:
             return
         with self._lock:
             self.d[key] = max(self.d.get(key, 0.0), val)
 
     def merge(self, other: Dict[str, float]) -> None:
+        for k, v in other.items():
+            _OBS_LEDGER.inc(v, key=k)
         if self.d is None:
             return
         with self._lock:
@@ -161,7 +192,10 @@ class _Stats:
 
     def note(self, key: str, event: str) -> None:
         """Append to the ordered event list under ``key`` (the
-        supervisor's ``fault_ladder``)."""
+        supervisor's ``fault_ladder``), count it in the ladder counter
+        and emit it to the installed event sink."""
+        _OBS_LADDER.inc(1.0, key=key, rung=event)
+        _events.emit(key, event)
         if self.d is None:
             return
         with self._lock:
@@ -813,23 +847,27 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
     flow_wait: List[float] = []
     refit_sink = [] if (run.plan_cache is not None and spec.n_passes == 2) else None
     t0 = time.perf_counter()
-    if use_compact:
-        out = _solve_group_compacted(
-            pg["batch"], pg["pidx"], pg["params"], pg["window_rows"],
-            pg["window_valid"], spec.n_passes, run.n_sweeps, run.sweep_warm,
-            hypers, st, dev, run.faults, flow_wait=flow_wait,
-            refit_sink=refit_sink)
-    else:
-        common = _place(pg["batch"], pg["pidx"], dev, st)
-        tables = _tables_on(pg["params"], dev)
-        if spec.n_passes == 2:
-            out, _ = solve_em_fleet(
-                *common, torch.as_tensor(pg["window_rows"], device=dev),
-                torch.as_tensor(pg["window_valid"], device=dev), *tables,
-                n_sweeps=run.n_sweeps, **hypers)
+    # the JAX package opens this range on the uncompacted branch only;
+    # here it spans the group's whole device solve, so the default
+    # (compacted) flow shows it too, its stages nested inside
+    with _profile.annotate("tw:fleet:dispatch"):
+        if use_compact:
+            out = _solve_group_compacted(
+                pg["batch"], pg["pidx"], pg["params"], pg["window_rows"],
+                pg["window_valid"], spec.n_passes, run.n_sweeps, run.sweep_warm,
+                hypers, st, dev, run.faults, flow_wait=flow_wait,
+                refit_sink=refit_sink)
         else:
-            out, _ = solve_windows_fleet(*common, *tables,
-                                         n_sweeps=run.n_sweeps, **hypers)
+            common = _place(pg["batch"], pg["pidx"], dev, st)
+            tables = _tables_on(pg["params"], dev)
+            if spec.n_passes == 2:
+                out, _ = solve_em_fleet(
+                    *common, torch.as_tensor(pg["window_rows"], device=dev),
+                    torch.as_tensor(pg["window_valid"], device=dev), *tables,
+                    n_sweeps=run.n_sweeps, **hypers)
+            else:
+                out, _ = solve_windows_fleet(*common, *tables,
+                                             n_sweeps=run.n_sweeps, **hypers)
     st.add("dispatch_s", time.perf_counter() - t0 - sum(flow_wait))
     if refit_sink:
         # the device already fitted the next round's plan: keep it
@@ -855,11 +893,13 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
     host numpy, ``tables`` numpy or tensors."""
     st = _as_stats(stats)
     tables = tuple(torch.as_tensor(t, device=device) for t in tables)
-    out_warm, flags = solve_windows_fleet(*_place(batch, pidx, device, st),
-                                          *tables, n_sweeps=warm, **hypers)
+    with _profile.annotate("tw:fleet:warm-dispatch"):
+        out_warm, flags = solve_windows_fleet(*_place(batch, pidx, device, st),
+                                              *tables, n_sweeps=warm, **hypers)
     st.add("d2h_flag_fetches", 1.0)
-    converged = _fetch(flags, st, faults, flag_fetch=True,
-                       flow_wait=flow_wait).astype(bool)
+    with _profile.annotate("tw:fleet:flag-fetch"):
+        converged = _fetch(flags, st, faults, flag_fetch=True,
+                           flow_wait=flow_wait).astype(bool)
     active = np.flatnonzero(~converged)
     st.add("compact_windows_total", float(converged.shape[0]))
     st.add("compact_windows_redispatched", float(active.size))
@@ -874,8 +914,9 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
                 for k in _BATCH_KEYS}
     pidx_active = np.concatenate([np.asarray(pidx)[active],
                                   np.zeros(pad, dtype=np.asarray(pidx).dtype)])
-    out_full, _ = solve_windows_fleet(*_place(gathered, pidx_active, device, st),
-                                      *tables, n_sweeps=n_sweeps, **hypers)
+    with _profile.annotate("tw:fleet:redispatch"):
+        out_full, _ = solve_windows_fleet(*_place(gathered, pidx_active, device, st),
+                                          *tables, n_sweeps=n_sweeps, **hypers)
     out = _fetch(out_warm, st, faults, flow_wait=flow_wait).copy()
     out[active] = _fetch(out_full, st, faults, flow_wait=flow_wait)[:active.size]
     return out

@@ -40,7 +40,9 @@ from traceweaver_tpu_torch.algorithms.skips import water_fill_skip_caps
 from traceweaver_tpu_torch.algorithms.timing import MAX_COMPONENTS, EdgeDist
 from traceweaver_tpu_torch.dag import DAG
 from traceweaver_tpu_torch.metrics.accuracy import get_out_eps_in_order
+from traceweaver_tpu_torch.obs import profile as _obs_profile
 from traceweaver_tpu_torch.obs import quality as _quality
+from traceweaver_tpu_torch.obs.registry import get_registry as _get_registry
 from traceweaver_tpu_torch.ops.cuda_sinkhorn import assign_topk
 from traceweaver_tpu_torch.ops.gmm import fit_gmm_in_graph
 from traceweaver_tpu_torch.ops.precision import validate_precision
@@ -859,7 +861,16 @@ def plan_find_assignments(
 # The plugin-facing solver class
 # ---------------------------------------------------------------------------
 
+# every accumulating update of a solve's stats also lands in the metrics
+# registry, so a scrape covers the per-service path too
+_OBS_SOLVER = _get_registry().counter(
+    "tw_solver_ledger_total",
+    "per-service WeaverTorch solve ledger mirror (stage seconds)",
+    labels=("key",))
+
+
 def _stat_add(stats: Dict[str, float], key: str, val: float) -> None:
+    _OBS_SOLVER.inc(val, key=key)
     stats[key] = stats.get(key, 0.0) + val
 
 
@@ -1004,12 +1015,13 @@ class WeaverTorch:
             mp = _bucket(max(1, int(pm_np.sum(axis=1).max(initial=0))), minimum=1)
             ms = _bucket(max(1, int(pm_np.sum(axis=0).max(initial=0))), minimum=1)
             solve_fn = solve_em_packed if use_fused else solve_windows_packed
-            out = solve_fn(
-                *(a[k] for k in ARG_ORDER),
-                epsilon=self.epsilon, n_sinkhorn=self.n_sinkhorn,
-                topk=self.topk, n_sweeps=n_sweeps,
-                sinkhorn_tol=self.sinkhorn_tol, max_preds=mp, max_succs=ms,
-                precision=self.precision, fused=self.fused_kernel)
+            with _obs_profile.annotate("tw:solve:dispatch"):
+                out = solve_fn(
+                    *(a[k] for k in ARG_ORDER),
+                    epsilon=self.epsilon, n_sinkhorn=self.n_sinkhorn,
+                    topk=self.topk, n_sweeps=n_sweeps,
+                    sinkhorn_tol=self.sinkhorn_tol, max_preds=mp, max_succs=ms,
+                    precision=self.precision, fused=self.fused_kernel)
             o = out.cpu().numpy()
             _stat_add(stats, "solve_s", time.perf_counter() - t0)
             ch = _layout.split_packed(o, topk=self.topk)

@@ -11,7 +11,10 @@ few operations the solver path reads, with networkx's ordering rules:
   has_longer_path``);
 - :meth:`complete`, :meth:`has_edge`, :meth:`remove_edge` and
   :meth:`in_degree` for the invocation-DAG inference of
-  ``traceweaver_tpu_torch.ingest.order``.
+  ``traceweaver_tpu_torch.ingest.order``;
+- :meth:`find_cycle` (``networkx.find_cycle``: the same start node,
+  successor order and edge order, so the ground-truth-free inference
+  breaks the same cycle) and :meth:`is_directed_acyclic_graph`.
 """
 
 from __future__ import annotations
@@ -20,6 +23,10 @@ import heapq
 from typing import Callable, Dict, Hashable, Iterable, Iterator, List, Optional, Tuple
 
 Node = Hashable
+
+
+class NoCycle(ValueError):
+    """:meth:`DAG.find_cycle` found no cycle (``networkx.NetworkXNoCycle``)."""
 
 
 class DAG:
@@ -72,6 +79,78 @@ class DAG:
 
     def in_degree(self, n: Node) -> int:
         return len(self._pred[n])
+
+    def number_of_edges(self) -> int:
+        return sum(len(succ) for succ in self._succ.values())
+
+    def find_cycle(self) -> List[Tuple[Node, Node]]:
+        """The edges of one directed cycle, as ``networkx.find_cycle(G)``
+        returns them: a depth-first edge walk from each unexplored node
+        in node order, successors in insertion order; the first edge
+        that closes on the active path ends it, and the edges before the
+        cycle's first node are dropped. Raises :class:`NoCycle`."""
+        explored = set()
+        for start in self._succ:
+            if start in explored:
+                continue
+            edges: List[Tuple[Node, Node]] = []
+            seen = {start}
+            active = {start}
+            previous_head = None
+            for tail, head in self._edge_dfs(start):
+                if head in explored:
+                    continue
+                if previous_head is not None and tail != previous_head:
+                    # backtracked: pop until the path ends at ``tail``
+                    while True:
+                        try:
+                            popped = edges.pop()
+                        except IndexError:
+                            edges = []
+                            active = {tail}
+                            break
+                        active.remove(popped[1])
+                        if edges and tail == edges[-1][1]:
+                            break
+                edges.append((tail, head))
+                if head in active:
+                    cycle = edges
+                    for i, (u, _) in enumerate(cycle):
+                        if u == head:
+                            return cycle[i:]
+                seen.add(head)
+                active.add(head)
+                previous_head = head
+            explored.update(seen)
+        raise NoCycle("No cycle found.")
+
+    def _edge_dfs(self, start: Node) -> Iterator[Tuple[Node, Node]]:
+        """Every edge reachable from ``start`` once, depth first, in
+        successor order (``networkx.edge_dfs``)."""
+        visited_edges = set()
+        visited_nodes = set()
+        iters: Dict[Node, Iterator[Node]] = {}
+        stack = [start]
+        while stack:
+            node = stack[-1]
+            if node not in visited_nodes:
+                iters[node] = iter(list(self._succ[node]))
+                visited_nodes.add(node)
+            nxt = next(iters[node], None)
+            if nxt is None:
+                stack.pop()
+                continue
+            if (node, nxt) not in visited_edges:
+                visited_edges.add((node, nxt))
+                stack.append(nxt)
+                yield node, nxt
+
+    def is_directed_acyclic_graph(self) -> bool:
+        try:
+            self.find_cycle()
+        except NoCycle:
+            return True
+        return False
 
     def __len__(self) -> int:
         return len(self._succ)

@@ -1,5 +1,4 @@
-"""Jaeger-JSON trace ingestion (mirrors ``traceweaver_tpu/ingest/jaeger.py``,
-its pure-Python front end).
+"""Jaeger-JSON trace ingestion (mirrors ``traceweaver_tpu/ingest/jaeger.py``).
 
 - per-file parsing of Jaeger's ``{"data": [{traceID, spans, processes}]}``
   into :class:`~traceweaver_tpu_torch.spans.Span` objects;
@@ -13,7 +12,13 @@ its pure-Python front end).
   file name, so either package reads the other's);
 - corpus assembly into a :class:`~traceweaver_tpu_torch.spans.TraceStore`.
 
-Malformed span records are skipped and counted unless ``strict``.
+Two parsing front ends feed one semantic core (:func:`_finish_trace`):
+the C++ loader (:mod:`traceweaver_tpu_torch.native`, the default), which
+parses files in parallel off the interpreter lock and hands back interned
+arrays, and the pure-Python ``json`` path (``native=False``). The
+repair shims and every step that draws from ``random`` stay in Python and
+run in the same order on both, so their stores are equal. Malformed span
+records are skipped and counted unless ``strict``, by either front end.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import string
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
+from traceweaver_tpu_torch import native as native_mod
 from traceweaver_tpu_torch.ingest import repair
 from traceweaver_tpu_torch.spans import Span, SpanId, TraceStore
 
@@ -62,7 +68,12 @@ class MalformedSpan(ValueError):
 # Directory listing, time-ordered (reference executor.py:287-339)
 # ---------------------------------------------------------------------------
 
-def _root_start_time(path: str) -> float:
+def _root_start_time(path: str, native: bool = True) -> float:
+    """The sort key of the time-ordered listing: the start time of the
+    first trace's root span, +inf without one or when the file does not
+    parse; from the C++ loader unless ``native`` is False."""
+    if native:
+        return native_mod.root_start_time(path)
     try:
         with open(path, "r") as f:
             data = json.load(f).get("data", [])
@@ -78,7 +89,8 @@ def _root_start_time(path: str) -> float:
 
 
 def time_ordered_trace_files(directory: str, clear_cache: bool = False,
-                             cache: bool = True) -> List[str]:
+                             cache: bool = True,
+                             native: bool = True) -> List[str]:
     """List ``*.json`` files in ``directory`` sorted by root-span start time.
 
     With ``cache=True`` an existing ``time_order_filenames.pickle`` alongside
@@ -86,8 +98,10 @@ def time_ordered_trace_files(directory: str, clear_cache: bool = False,
     file name as the reference, executor.py:320-339, so a cache the
     reference wrote is read here). ``clear_cache`` skips reading it. The
     port never writes the cache: loading does not mutate a dataset
-    directory.
+    directory. ``native`` picks the front end of the sort key, as in
+    :func:`load_corpus`; both give the same order.
     """
+    _check_native(native)
     cache_path = Path(directory) / "time_order_filenames.pickle"
     if cache and not clear_cache and cache_path.exists():
         try:
@@ -105,7 +119,7 @@ def time_ordered_trace_files(directory: str, clear_cache: bool = False,
         for f in os.listdir(directory)
         if f.endswith("json") and os.path.isfile(os.path.join(directory, f))
     )
-    files.sort(key=_root_start_time)
+    files.sort(key=lambda f: _root_start_time(f, native))
     return files
 
 
@@ -358,9 +372,7 @@ def parse_trace_payload(
             if strict:
                 raise MalformedSpan(
                     "trace object missing traceID/spans") from None
-            if counters is not None:
-                counters["malformed_traces"] = (
-                    counters.get("malformed_traces", 0) + 1)
+            _count(counters, "malformed_traces")
             results.append(None)
             continue
         records = []
@@ -370,33 +382,49 @@ def parse_trace_payload(
             except MalformedSpan:
                 if strict:
                     raise
-                if counters is not None:
-                    counters["malformed_spans"] = (
-                        counters.get("malformed_spans", 0) + 1)
+                _count(counters, "malformed_spans")
         raw_processes = {
             pid: entry["serviceName"]
             for pid, entry in trace_json.get("processes", {}).items()
         }
-        assembled = _assemble_trace(records, fix, self_loop_map,
-                                    service_loop_map, raw_processes)
-        if assembled is None:
-            # Alibaba-mode time-containment violation: the trace is
-            # dropped (counted separately from rootless traces — the
-            # file loader treats a drop as poisoning its whole file)
-            if counters is not None:
-                counters["dropped_traces"] = (
-                    counters.get("dropped_traces", 0) + 1)
-            results.append(None)
-            continue
-        spans, processes, has_root = assembled
-        if not has_root:
-            if counters is not None:
-                counters["rootless_traces"] = (
-                    counters.get("rootless_traces", 0) + 1)
-            results.append(None)
-            continue
-        results.append((trace_id, spans, processes))
+        results.append(_finish_trace(trace_id, records, raw_processes, fix,
+                                     self_loop_map, service_loop_map,
+                                     counters))
     return results
+
+
+def _count(counters: Optional[Dict[str, int]], key: str) -> None:
+    if counters is not None:
+        counters[key] = counters.get(key, 0) + 1
+
+
+def _finish_trace(trace_id, records, raw_processes, fix, self_loop_map,
+                  service_loop_map, counters):
+    """One trace's parsed records through :func:`_assemble_trace`:
+    ``(trace_id, spans, processes)``, or None for a dropped trace (an
+    Alibaba-mode time-containment violation, counted apart from rootless
+    traces: the file loader treats a drop as poisoning its whole file)
+    or a rootless one."""
+    assembled = _assemble_trace(records, fix, self_loop_map,
+                                service_loop_map, raw_processes)
+    if assembled is None:
+        _count(counters, "dropped_traces")
+        return None
+    spans, processes, has_root = assembled
+    if not has_root:
+        _count(counters, "rootless_traces")
+        return None
+    return trace_id, spans, processes
+
+
+def _file_result(parsed, counters, dropped_before: int, path: str):
+    """A file's one rooted trace, or None when one of its traces was
+    dropped (the reference's per-file semantics, executor.py:433-448)."""
+    if counters.get("dropped_traces", 0) > dropped_before:
+        return None
+    results = [p for p in parsed if p is not None]
+    assert len(results) == 1, f"expected exactly one rooted trace in {path}"
+    return results[0]
 
 
 def parse_trace_file(
@@ -423,13 +451,7 @@ def parse_trace_file(
     parsed = parse_trace_payload(payload, fix, self_loop_map,
                                  service_loop_map, strict=strict,
                                  counters=c)
-    if c.get("dropped_traces", 0) > dropped_before:
-        # a containment-dropped trace poisons its whole file (the
-        # reference's per-file semantics, executor.py:433-448)
-        return None
-    results = [p for p in parsed if p is not None]
-    assert len(results) == 1, f"expected exactly one rooted trace in {path}"
-    return results[0]
+    return _file_result(parsed, c, dropped_before, path)
 
 
 # ---------------------------------------------------------------------------
@@ -480,33 +502,138 @@ def ingest_trace(
     return 1
 
 
+#: files parsed per native batch: bounds the DOM and corpus memory while
+#: keeping the loader's thread pool busy
+_NATIVE_CHUNK = 512
+
+
+def _check_native(native: bool) -> None:
+    # a JAX-style "auto"/"never" string would read as true: refuse it
+    if not isinstance(native, bool):
+        raise ValueError(f"native={native!r}: expected True or False")
+
+
+def _native_file_traces(nc, paths, fix, self_loop_map, service_loop_map,
+                        strict, counters):
+    """Yield each file of a native corpus as :func:`parse_trace_file`
+    returns it: ``(trace_id, spans, processes)``, or None for a file
+    that lost a trace to a containment drop. Records the loader flagged
+    malformed are skipped and counted (or raise under ``strict``) where
+    the Python front end does, in the same order."""
+    strings = nc.strings
+    procs_by_trace = nc.processes_by_trace()
+    per_file: List[List[int]] = [[] for _ in range(nc.n_files)]
+    for t, f in enumerate(nc.trace_file.tolist()):
+        per_file[f].append(t)
+    # Python lists: one conversion, then plain indexing per span
+    start, duration = nc.start.tolist(), nc.duration.tolist()
+    trace, sid, process = nc.trace.tolist(), nc.sid.tolist(), nc.process.tolist()
+    op, kind = nc.op.tolist(), nc.kind.tolist()
+    caller, callee = nc.caller.tolist(), nc.callee.tolist()
+    bad_span, bad_trace = nc.span_malformed.tolist(), nc.trace_malformed.tolist()
+    offsets, trace_id = nc.trace_offsets.tolist(), nc.trace_id.tolist()
+    ref_offsets = nc.ref_offsets.tolist()
+    ref_pairs = [(strings[a], strings[b])
+                 for a, b in zip(nc.ref_trace.tolist(), nc.ref_sid.tolist())]
+
+    def opt(idx):
+        return strings[idx] if idx >= 0 else None
+
+    for file_idx, traces in enumerate(per_file):
+        dropped_before = counters.get("dropped_traces", 0)
+        parsed = []
+        for t in traces:
+            if bad_trace[t]:
+                if strict:
+                    raise MalformedSpan("trace object missing traceID/spans")
+                _count(counters, "malformed_traces")
+                parsed.append(None)
+                continue
+            records = []
+            for i in range(offsets[t], offsets[t + 1]):
+                if bad_span[i]:
+                    if strict:
+                        raise MalformedSpan(
+                            f"span record {i - offsets[t]} of trace "
+                            f"{strings[trace_id[t]]!r} in {paths[file_idx]}: "
+                            "missing or non-numeric required field")
+                    _count(counters, "malformed_spans")
+                    continue
+                records.append(RawSpan(
+                    trace_id=strings[trace[i]],
+                    sid=strings[sid[i]],
+                    start_mus=int(start[i]),
+                    duration_mus=int(duration[i]),
+                    op_name=opt(op[i]),
+                    refs=tuple(ref_pairs[ref_offsets[i]:ref_offsets[i + 1]]),
+                    process_id=strings[process[i]],
+                    span_kind=opt(kind[i]),
+                    caller=opt(caller[i]),
+                    callee=opt(callee[i]),
+                ))
+            parsed.append(_finish_trace(strings[trace_id[t]], records,
+                                        procs_by_trace.get(t, {}), fix,
+                                        self_loop_map, service_loop_map,
+                                        counters))
+        yield _file_result(parsed, counters, dropped_before, paths[file_idx])
+
+
+def _parsed_files(files, fix, self_loop_map, store, strict, use_native,
+                  budget):
+    """Each file's :func:`parse_trace_file` result, in order. The native
+    front end parses ``_NATIVE_CHUNK`` files at a time, and no more than
+    ``budget()`` (the traces still wanted) plus slack, so ``max_traces``
+    stops both front ends at the same trace."""
+    counters = store.ingest_counters
+    if not use_native:
+        for path in files:
+            yield parse_trace_file(path, fix, self_loop_map,
+                                   store.service_loop_map, strict=strict,
+                                   counters=counters)
+        return
+    start = 0
+    while start < len(files):
+        size = min(_NATIVE_CHUNK, max(budget() + 8, 16))
+        chunk = files[start:start + size]
+        start += size
+        yield from _native_file_traces(
+            native_mod.parse_files(chunk), chunk, fix, self_loop_map,
+            store.service_loop_map, strict, counters)
+
+
 def load_corpus(
     directory: str,
     fix: int,
     max_traces: int = 1000,
     clear_cache: bool = False,
     cache: bool = True,
+    native: bool = True,
     strict: bool = False,
 ) -> TraceStore:
     """Load a directory of Jaeger-JSON traces into a TraceStore and build
     its per-service columns.
 
     ``max_traces`` is the reference's cap (``if cnt > 1000: break``: up
-    to ``max_traces + 1`` traces ingested). ``strict``: malformed span
-    records raise (:class:`MalformedSpan`) instead of the default
-    skip-and-count; either way the count lands on
+    to ``max_traces + 1`` traces ingested). ``native``: True (the
+    default) parses with the C++ loader, False with Python's ``json``;
+    both give equal stores, and ``store.ingest_front_end`` ("native" or
+    "python") says which ran. The JAX package's ``"auto"`` falls back to
+    Python; this one never does: a loader that fails to build or to
+    parse raises :class:`~traceweaver_tpu_torch.native.NativeLoaderError`.
+    ``strict``: malformed span records raise (:class:`MalformedSpan`)
+    instead of the default skip-and-count; either way the count lands on
     ``store.ingest_malformed_spans``.
     """
+    _check_native(native)
     store = TraceStore()
-    counters = store.ingest_counters
+    store.ingest_front_end = "native" if native else "python"
     self_loop_map: Dict[str, List[str]] = {}
     files = time_ordered_trace_files(directory, clear_cache=clear_cache,
-                                     cache=cache)
+                                     cache=cache, native=native)
     cnt = 0
-    for path in files:
-        parsed = parse_trace_file(path, fix, self_loop_map,
-                                  store.service_loop_map,
-                                  strict=strict, counters=counters)
+    for parsed in _parsed_files(files, fix, self_loop_map, store, strict,
+                                native,
+                                budget=lambda: max_traces + 1 - cnt):
         if parsed is None:
             continue
         trace_id, spans, processes = parsed

@@ -7,12 +7,16 @@
   endpoint has SKIP as its correct prediction;
 - top-k variants, end-to-end accuracy (a trace counts only if every
   service got every hop right), accuracy in response-time percentile
-  bins, and the end-to-end trace lists of the ``e2e_*`` result pickles.
+  bins, and the end-to-end trace lists of the ``e2e_*`` result pickles;
+- the scorecard's regime features (:func:`overlap_fraction`,
+  :func:`service_regime`) and confidence calibration
+  (:func:`accuracy_by_confidence_decile`, :func:`calibration_monotone`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from traceweaver_tpu_torch.spans import NA, SKIP, Span, SpanId
 
@@ -224,3 +228,109 @@ def construct_end_to_end_traces(
         for tid in traces:
             traces[tid].sort(key=lambda s: float("inf") if s is None else s.start_mus)
     return true_traces, pred_traces
+
+
+# ---------------------------------------------------------------------------
+# regimes and confidence calibration (JAX module, lines 207-360)
+# ---------------------------------------------------------------------------
+
+#: fan-out at or above this is the "fanout" regime
+FANOUT_DEGREE = 4
+#: share of consecutive incoming spans that overlap at or above which a
+#: service below the fan-out bar is "async"
+ASYNC_OVERLAP_FRAC = 0.25
+
+
+def overlap_fraction(in_spans: List[Span]) -> float:
+    """The share of consecutive (by start time) incoming spans whose
+    ``[start, end)`` intervals overlap: 0.0 for strictly sequential
+    requests, near 1.0 for heavily interleaved ones."""
+    if len(in_spans) < 2:
+        return 0.0
+    ordered = sorted(in_spans, key=lambda s: (s.start_mus, s.end_mus))
+    n_overlap = sum(
+        1 for a, b in zip(ordered[:-1], ordered[1:])
+        if float(b.start_mus) < float(a.start_mus) + float(a.duration_mus)
+    )
+    return n_overlap / (len(ordered) - 1)
+
+
+def service_regime(in_span_partitions: Dict[str, List[Span]],
+                   out_span_partitions: Dict[str, List[Span]],
+                   fanout_degree: int = FANOUT_DEGREE,
+                   overlap_frac: float = ASYNC_OVERLAP_FRAC) -> Dict:
+    """``{"regime", "fan_out", "overlap_frac"}`` of one service:
+    ``"fanout"`` at ``fanout_degree`` or more endpoints, else
+    ``"async"`` when its incoming overlap fraction reaches
+    ``overlap_frac``, else ``"sequential"``."""
+    assert len(in_span_partitions) == 1
+    _, in_spans = next(iter(in_span_partitions.items()))
+    fan_out = len(out_span_partitions)
+    frac = overlap_fraction(in_spans)
+    if fan_out >= fanout_degree:
+        regime = "fanout"
+    elif frac >= overlap_frac:
+        regime = "async"
+    else:
+        regime = "sequential"
+    return dict(regime=regime, fan_out=fan_out, overlap_frac=round(frac, 4))
+
+
+def accuracy_by_confidence_decile(
+    confidence: Dict[SpanId, float],
+    correct: Dict[SpanId, bool],
+    nbins: int = 10,
+) -> List[Dict]:
+    """Exact-match accuracy bucketed by the solver's own confidence:
+    spans sorted by ``(confidence, repr(id))`` and split into ``nbins``
+    near-equal contiguous buckets (every bucket populated even though
+    confidence takes few values); each row gives the bucket's confidence
+    range, population and accuracy."""
+    sids = [sid for sid in confidence if sid in correct]
+    sids.sort(key=lambda sid: (confidence[sid], repr(sid)))
+    n = len(sids)
+    table: List[Dict] = []
+    if n == 0:
+        return table
+    for b in range(nbins):
+        lo = n * b // nbins
+        hi = n * (b + 1) // nbins
+        chunk = sids[lo:hi]
+        if not chunk:
+            continue
+        accs = [correct[sid] for sid in chunk]
+        table.append(dict(
+            decile=b + 1,
+            conf_lo=round(confidence[chunk[0]], 4),
+            conf_hi=round(confidence[chunk[-1]], 4),
+            n=len(chunk),
+            accuracy=round(sum(accs) / len(accs), 4),
+        ))
+    return table
+
+
+def calibration_monotone(table: Sequence[Dict],
+                         tol: float = 0.05) -> Tuple[bool, List[str]]:
+    """Is accuracy (tolerantly) non-decreasing over a decile table? Each
+    row must reach the running maximum of earlier rows less ``tol`` and
+    one binomial standard error of the difference (buckets hold n/10
+    spans each). Returns ``(ok, violations)``."""
+    ok = True
+    violations: List[str] = []
+    run_max: Optional[float] = None
+    run_row = 0
+    run_n = 1
+    for row in table:
+        acc, n = row["accuracy"], max(1, row["n"])
+        if run_max is not None:
+            noise = math.sqrt(run_max * (1.0 - run_max) / run_n
+                              + acc * (1.0 - acc) / n)
+            if acc < run_max - tol - noise:
+                ok = False
+                violations.append(
+                    "decile %d accuracy %.3f < decile %d accuracy %.3f "
+                    "- tol %.2f - noise %.3f"
+                    % (row["decile"], acc, run_row, run_max, tol, noise))
+        if run_max is None or acc > run_max:
+            run_max, run_row, run_n = acc, row["decile"], n
+    return ok, violations

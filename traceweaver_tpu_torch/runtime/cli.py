@@ -1,17 +1,26 @@
-"""The batch command line of the port (mirrors
-``traceweaver_tpu/runtime/cli.py``, its batch path).
+"""The command line of the port (mirrors ``traceweaver_tpu/runtime/cli.py``,
+its batch path and its ``events``, ``query`` and ``scorecard``
+subcommands).
 
 The JAX CLI's 17 batch flags, so the ``exps/exp*`` argument lists run
-unchanged, plus ``--device`` (default: the card; ``cpu`` runs slots 8-10
-on the CPU)::
+unchanged, plus the flags that stand for the JAX CLI's environment
+knobs (the port reads none): ``--device`` (default: the card; ``cpu``
+runs slots 8-10 on the CPU), ``--gt_free_dag`` (``TW_GT_FREE_DAG``),
+``--metrics_port`` (``TW_METRICS_PORT``: a ``/metrics`` exporter on
+loopback while the run lasts; 0 binds a free port) and ``--events``
+(``TW_EVENTS``: the JSONL event sink)::
 
     python -m traceweaver_tpu_torch.runtime.cli \
         --absolute_path DATA/call_graph_0 --fix 5 --cache_rate 0 \
         --compress_factor 15000 --results_directory out/ \
-        --predictor_indices 3,4,7,10 [--device cpu]
+        --predictor_indices 3,4,7,10 [--device cpu] [--gt_free_dag 1] \
+        [--metrics_port 0] [--events run.jsonl]
+    python -m traceweaver_tpu_torch.runtime.cli events run.jsonl
+    python -m traceweaver_tpu_torch.runtime.cli query out/e2e_....pickle
+    python -m traceweaver_tpu_torch.runtime.cli scorecard --traces 32
 
-With no card and no ``--device`` it exits non-zero before loading
-anything. The JAX CLI's subcommands are not part of the port yet.
+With no card and no ``--device`` the batch run exits non-zero before
+loading anything.
 """
 
 from __future__ import annotations
@@ -65,9 +74,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict", type=int, default=0, choices=[0, 1],
                    help="malformed span records raise instead of the "
                         "default skip-and-count dead-letter behavior")
+    p.add_argument("--gt_free_dag", type=int, default=0, choices=[0, 1],
+                   help="discover each service's invocation DAG without "
+                        "ground truth (the JAX CLI's TW_GT_FREE_DAG=1)")
     p.add_argument("--device", default=None,
                    help="device of predictors 8-10 (default: the CUDA card; "
                         "'cpu' runs their plain versions on the CPU)")
+    p.add_argument("--metrics_port", type=int, default=None,
+                   help="serve /metrics on 127.0.0.1 at this port while the "
+                        "run lasts (0: a free port; the JAX CLI's "
+                        "TW_METRICS_PORT)")
+    p.add_argument("--events", default=None,
+                   help="append fault-ladder and injected-fault records to "
+                        "this JSONL file (the JAX CLI's TW_EVENTS)")
     return p
 
 
@@ -89,7 +108,59 @@ def find_replica_table(data_path: str, root: str):
     return None
 
 
+def _obs_setup(metrics_port, events_path):
+    """The run's observability: a ``/metrics`` exporter on loopback
+    (``metrics_port``; 0 binds a free port, printed on stderr) and the
+    process-wide event sink (``events_path``). Returns ``(exporter,
+    event_log)`` for :func:`_obs_finish`."""
+    from traceweaver_tpu_torch.obs import events as obs_events
+
+    exporter = None
+    if metrics_port is not None:
+        from traceweaver_tpu_torch.obs import profile as obs_profile
+        from traceweaver_tpu_torch.obs.exposition import start_metrics_server
+
+        exporter = start_metrics_server(
+            metrics_port, extra_fn=obs_profile.device_memory_families)
+        print(f"[obs] /metrics on http://127.0.0.1:{exporter.port}",
+              file=sys.stderr)
+    log = None
+    if events_path:
+        log = obs_events.EventLog(events_path)
+        obs_events.install(log)
+    return exporter, log
+
+
+def _obs_finish(exporter, log) -> None:
+    """Stop what :func:`_obs_setup` started: the exporter serves until
+    the run's end, and the event sink is uninstalled and closed."""
+    from traceweaver_tpu_torch.obs import events as obs_events
+
+    if log is not None:
+        if obs_events.active() is log:
+            obs_events.install(None)
+        log.close()
+    if exporter is not None:
+        exporter.shutdown()
+        exporter.server_close()
+
+
+#: subcommand -> (module, function) run with the remaining arguments
+SUBCOMMANDS = {
+    "events": ("traceweaver_tpu_torch.obs.events", "tail_main"),
+    "query": ("traceweaver_tpu_torch.query.delay_culprit", "main"),
+    "scorecard": ("traceweaver_tpu_torch.metrics.scorecard", "main"),
+}
+
+
 def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] in SUBCOMMANDS:
+        import importlib
+
+        module, func = SUBCOMMANDS[argv[0]]
+        return getattr(importlib.import_module(module), func)(argv[1:])
     args = build_parser().parse_args(argv)
     if args.relative_path is None and args.absolute_path is None:
         print("At least one of --relative_path and --absolute_path is required",
@@ -137,8 +208,13 @@ def main(argv=None) -> int:
         strict_ingest=bool(args.strict),
         service_to_replica=find_replica_table(data_path, root),
         device=device,
+        gt_free_dag=bool(args.gt_free_dag),
     )
-    run_experiment(cfg)  # prints per-method accuracy as it goes
+    exporter, log = _obs_setup(args.metrics_port, args.events)
+    try:
+        run_experiment(cfg)  # prints per-method accuracy as it goes
+    finally:
+        _obs_finish(exporter, log)
     return 0
 
 

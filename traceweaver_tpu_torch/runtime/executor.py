@@ -13,9 +13,12 @@ The flagship (slot 10, ``MaxScoreBatchSubsetWithSkips``) solves all
 services of a corpus in one :func:`~traceweaver_tpu_torch.algorithms.fleet.solve_fleet`
 call; every other method solves service by service, on a thread pool
 when ``execute_parallel``. ``device`` is where slots 8-10 run: None
-means the card, and raises without one. The JAX executor's AOT warmup,
-mesh sharding and ground-truth-free DAG discovery are not part of the
-port yet.
+means the card, and raises without one. With ``gt_free_dag`` each
+service's invocation DAG is discovered from a ``WeaverTorch`` on that
+device (``ingest.discover_invocation_dag``, once per service, memoized on
+the store) instead of inferred from ground truth, which then only grades
+(lines 84-90 and 135-150 of the JAX executor). The JAX executor's AOT
+warmup and mesh sharding are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 from traceweaver_tpu_torch.algorithms import make_predictors
 from traceweaver_tpu_torch.ingest import (
     build_service_problem,
+    discover_invocation_dag,
     infer_invocation_dag,
     load_corpus,
 )
@@ -45,6 +49,7 @@ from traceweaver_tpu_torch.metrics import (
     topk_accuracy_end_to_end,
     topk_accuracy_for_service,
 )
+from traceweaver_tpu_torch.obs.profile import annotate
 from traceweaver_tpu_torch.spans import TraceStore
 from traceweaver_tpu_torch.synth import compress_spans, create_cache_hits
 
@@ -93,6 +98,8 @@ class ExecutorConfig:
     # replica table for compress-factor scaling (None: 1 replica each)
     service_to_replica: Optional[Dict[str, list]] = None
     device: Optional[str] = None
+    # discover each service's invocation DAG without ground truth
+    gt_free_dag: bool = False
 
     def replica_count(self, process: str, store: TraceStore) -> int:
         table = self.service_to_replica
@@ -118,34 +125,61 @@ def _prepare_service(cfg: ExecutorConfig, store: TraceStore, method: str,
                      process: str):
     """Problem, ground truth, invocation DAG and the load and cache-hit
     transforms of one service; None when the service is skipped."""
-    prob = build_service_problem(store, process)
-    if prob.skipped:
-        return None
+    with annotate("tw:executor:prepare"):
+        prob = build_service_problem(store, process)
+        if prob.skipped:
+            return None
 
-    true_assignments = get_ground_truth(
-        prob.in_span_partitions, prob.out_span_partitions
-    )
-    invocation_graph = infer_invocation_dag(
-        prob.in_span_partitions, prob.out_span_partitions,
-        true_assignments, store,
-    )
-
-    if cfg.compress_factor > 1:
-        replicas = cfg.replica_count(process, store)
-        load_factor = max(1, math.ceil(cfg.compress_factor / replicas))
-        compress_spans(prob.in_span_partitions, prob.out_span_partitions,
-                       cfg.repeat_factor, load_factor)
         true_assignments = get_ground_truth(
             prob.in_span_partitions, prob.out_span_partitions
         )
-
-    if process == "frontend" and method not in NO_CACHE_METHODS:
-        with _GLOBAL_RNG_LOCK:
-            true_assignments = create_cache_hits(
-                true_assignments, prob.in_span_partitions,
-                prob.out_span_partitions, cache_rate=cfg.cache_rate,
+        if cfg.gt_free_dag:
+            invocation_graph = _discovered_dag(cfg, store, prob, process)
+        else:
+            invocation_graph = infer_invocation_dag(
+                prob.in_span_partitions, prob.out_span_partitions,
+                true_assignments, store,
             )
-    return dict(prob=prob, true=true_assignments, dag=invocation_graph)
+
+        if cfg.compress_factor > 1:
+            replicas = cfg.replica_count(process, store)
+            load_factor = max(1, math.ceil(cfg.compress_factor / replicas))
+            compress_spans(prob.in_span_partitions, prob.out_span_partitions,
+                           cfg.repeat_factor, load_factor)
+            true_assignments = get_ground_truth(
+                prob.in_span_partitions, prob.out_span_partitions
+            )
+
+        if process == "frontend" and method not in NO_CACHE_METHODS:
+            with _GLOBAL_RNG_LOCK:
+                true_assignments = create_cache_hits(
+                    true_assignments, prob.in_span_partitions,
+                    prob.out_span_partitions, cache_rate=cfg.cache_rate,
+                )
+        return dict(prob=prob, true=true_assignments, dag=invocation_graph)
+
+
+def _discovered_dag(cfg: ExecutorConfig, store: TraceStore, prob, process: str):
+    """The service's ground-truth-free DAG, discovered on the first call
+    and kept on the store: discovery costs up to three solves and does
+    not depend on the method, so a sweep over several methods pays it
+    once. ``store.discovery_stats[process]`` gets its seconds."""
+    from traceweaver_tpu_torch.algorithms.weaver_torch import WeaverTorch
+
+    dag = store.discovered_dags.get(process)
+    if dag is None:
+        stats: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        with annotate("tw:executor:discovery"):
+            dag = discover_invocation_dag(
+                prob.in_span_partitions, prob.out_span_partitions, store,
+                WeaverTorch(store.all_spans, store.all_processes,
+                            device=cfg.device),
+                stats=stats)
+        stats["seconds"] = time.perf_counter() - t0
+        store.discovery_stats[process] = stats
+        store.discovered_dags[process] = dag
+    return dag
 
 
 def _finish_service(prep, process: str, out, elapsed: float):
@@ -329,9 +363,10 @@ def run_experiment(cfg: ExecutorConfig,
         t0 = time.perf_counter()
         if cfg.compressed:
             maybe_uncompress(cfg.data_path)
-        store = load_corpus(cfg.data_path, cfg.fix, max_traces=cfg.max_traces,
-                            clear_cache=cfg.clear_cache,
-                            strict=cfg.strict_ingest)
+        with annotate("tw:executor:ingest"):
+            store = load_corpus(cfg.data_path, cfg.fix, max_traces=cfg.max_traces,
+                                clear_cache=cfg.clear_cache,
+                                strict=cfg.strict_ingest)
         seconds["ingest"] = time.perf_counter() - t0
     malformed = store.ingest_malformed_spans
     if malformed:

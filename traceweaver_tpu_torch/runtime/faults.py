@@ -128,8 +128,14 @@ def parse_faults(spec: str, seed: int = 0) -> Optional[FaultPlan]:
 
 def maybe_fail(plan: Optional[FaultPlan], site: str) -> None:
     """Raise :class:`FaultError` if ``plan`` draws a failure for
-    ``site``; no-op without a plan."""
+    ``site``; no-op without a plan. Each injection also lands in the
+    installed event sink (:mod:`traceweaver_tpu_torch.obs.events`) as a
+    ``fault_injected`` record."""
     if plan is not None and plan.should_fail(site):
+        from traceweaver_tpu_torch.obs import events as _events
+
+        _events.emit("fault_injected", site, n=plan.injected[site],
+                     seed=plan.seed)
         raise FaultError(f"injected fault at site {site!r} "
                          f"(#{plan.injected[site]}, seed {plan.seed})")
 

@@ -202,6 +202,12 @@ class TraceStore:
         self.service_loop_map: Dict[str, str] = {}
         # ingest dead-letter counters (malformed spans, dropped traces)
         self.ingest_counters: Dict[str, int] = {}
+        # which parser load_corpus ran: "native" (the C++ loader) or "python"
+        self.ingest_front_end: Optional[str] = None
+        # ground-truth-free invocation DAGs, discovered once per service
+        # (process -> DAG), and each discovery's seconds and solves
+        self.discovered_dags: Dict[str, object] = {}
+        self.discovery_stats: Dict[str, Dict[str, float]] = {}
         # per service {"in": SpanArray, "out": SpanArray}, from build_columns
         self.columns: Dict[str, Dict[str, SpanArray]] = {}
 
