@@ -6,19 +6,25 @@ against their plain versions.
     python3 chip_smoke.py --slice-root DIR   # only the slice and fleet
                                              # phases, with the package
                                              # of checkout DIR
+    python3 chip_smoke.py --ladder OUT       # only exp5's whole ladder
+                                             # (180 CLI calls), pickles
+                                             # to OUT
 
 Phases, each of which raises on failure (non-zero exit):
 
 1. build the CUDA kernels from ``traceweaver_tpu_torch/ops/csrc`` with
-   nvcc, and beside it the C++ Jaeger loader from
-   ``traceweaver_tpu_torch/native/src`` with g++; print ptxas's register
-   and spill report;
+   nvcc (one process per source, all at once), and beside them the C++
+   Jaeger loader from ``traceweaver_tpu_torch/native/src`` with g++;
+   print ptxas's register and spill report;
 2. slice: config ``synth-async-8k`` (8192 requests, three chained
    endpoints) through ``WeaverTorch.FindAssignments`` on the card, once
    with the fused kernel and once with the plain Sinkhorn kernel, each
-   with its launch counter reset just before and read just after;
-   accuracy must reach ``ACCURACY_FLOOR``; a 256-request cut must give
-   the same assignments on the card as on the CPU;
+   with every launch counter reset just before and read just after (the
+   score-build kernel must launch too); accuracy must reach
+   ``ACCURACY_FLOOR``; a 256-request cut must give the same assignments
+   on the card as on the CPU; then the fused run again with the score
+   build's plain version (the build before the score-build kernel), for
+   its peak memory and wall beside the kernel's;
 3. fleet: on a 256-request cut of config ``synth-fleet-8svc`` (eight
    services), ``solve_fleet`` on the card must agree with
    ``solve_fleet`` on the CPU and with per-service ``FindAssignments``
@@ -37,7 +43,19 @@ Phases, each of which raises on failure (non-zero exit):
    services, run no two-pass EM (``fused_em_applied`` 0), keep every
    accuracy floor and agree with round 1 on >= 0.99 of the pairs of
    every service but ``cache`` (reported only: its assignments hang on
-   near ties);
+   near ties); then the pipelined K1 run with the score build's plain
+   version, for its peak memory;
+3b. precision: ``synth-async-8k`` at ``precision="bf16"`` with each
+   kernel and ``synth-fleet-8svc`` at bf16 (K1, pipelined), every
+   launch counter reset and read around each run, held to the JAX
+   package's readings at ``TW_PRECISION=bf16`` (``BF16_JAX_ACCURACY``,
+   ``FLEET_BF16_JAX_ACCURACY``), and ``synth-async-8k`` with
+   ``score_gemm`` against ``TW_SCORE_GEMM=1`` (``GEMM_JAX_ACCURACY``),
+   under :func:`check_accuracy`'s two-sided rule, but the bf16 fleet's
+   ``cache`` service within ``CACHE_BF16_MAX_PT`` of JAX either way and,
+   solved alone, K1 equal to the plain version on >= 99% of the rows of
+   the windows that meet their marginals (``cache-check``); peak memory
+   beside the f32 runs';
 4. observability: one ``solve_fleet`` of the full ``synth-fleet-8svc``
    under ``torch.profiler`` (every thread, profiling enabled): the
    device's idle share over the call, its ten longest operations and
@@ -87,12 +105,28 @@ Phases, each of which raises on failure (non-zero exit):
    10 at 8192 traces, predictor 10) against ``CG8K_JAX_ACCURACY``, then
    ground-truth-free against ``CG8K_GTFREE_JAX_ACCURACY``, then that
    call again under the profiler, whose trace must hold
-   ``tw:solve:dispatch`` and ``tw:fleet:dispatch``. Outside the exp5
+   ``tw:solve:dispatch`` and ``tw:fleet:dispatch``; ``alibaba-cg-8k``
+   at ``--precision bf16`` against ``CG8K_BF16_JAX_ACCURACY`` and at f32
+   with the score build's plain version (peak memory). Outside the exp5
    loops a method on the card reads JAX within half a point either way,
    or one point where its call met ill-posed windows. Then ``cli
    scorecard --traces 32`` on the card: its table and calibration
    verdict, K1 launched, the host baselines equal to the JAX package's
    table (``SCORECARD_JAX``) and the solver within one span per regime;
+5b. ladder: the runner ``traceweaver_tpu_torch.runtime.ladder`` over
+   exp5's five lower rungs (1 to 10000; the top rung is the executor
+   phase's loop) on graphs ``LADDER_GRAPHS`` (0, 4, 5 and 9, the graphs
+   whose top rung met ill-posed windows, and the clean graph 3), then
+   the messy corpus (``--messy``) on graph 9 at its four lower rungs
+   (``LADDER_HARD_GRAPHS``, ``LADDER_HARD_RUNGS``; compress 4000 meets
+   ill-posed windows): host baselines equal to JAX
+   (``EXP5_LADDER_JAX``, ``EXP5_LADDER_HARD_JAX``), the flagship within
+   half a point where the call met no ill-posed window, else held to a
+   CPU rerun under the exp5 loop's ill-posed rule, the CPU run equal to
+   JAX's reading, or where the port's CPU run is known to part from
+   JAX's in the last bits (``LADDER_PORT_CPU``), equal to that reading;
+   the figures are drawn where the machine has matplotlib. ``--ladder OUT`` runs the whole ladder of
+   both corpora (15 graphs x 6 rungs each) alone under the same rule;
 6. kernels: each kernel against its plain PyTorch version on the card,
    on random blocks (ragged, all-masked, padded rows, skip-heavy, tol 0
    and 1e-3; rows not a multiple of the cluster size, fewer rows than
@@ -109,9 +143,15 @@ Phases, each of which raises on failure (non-zero exit):
    from two host threads on two CUDA streams at once, on those two
    blocks and two small blocks of other shapes (so the threads' launches
    need different shared-memory limits), must equal their single-stream
-   launches bit for bit; then
-   each kernel's time, its plain version's time and its bound at both
-   blocks.
+   launches bit for bit; K1 and K2 on the bf16 blocks of the precision
+   phase ([8, 1025, 2049] and [32, 1025, 2049]) against their plain bf16
+   versions under the same rule; the score-build kernel against its
+   plain version on one sweep's score build at the slice's and the
+   fleet's blocks (``score-check`` lines: the entries that differ and
+   their largest difference, tolerance 1e-5 relative plus 1e-4
+   absolute); then each kernel's time, its plain version's time and its
+   bound at both blocks, f32 and bf16, and the score build's
+   (``score-build`` lines).
 
 ``--slice-root`` runs the slice and fleet phases alone against another
 checkout (one process per checkout, since both packages share a name),
@@ -155,8 +195,10 @@ between the kernel's and the plain column on rows where they differ
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -319,8 +361,270 @@ SCORECARD_JAX = {
                "weaver_exact": 0.0833, "weaver_tpu": 0.1875},
     "sequential": {"arrival_order": 1.0, "fcfs": 1.0, "vpath": 1.0, "wap5": 1.0,
                    "weaver_exact": 1.0, "weaver_tpu": 1.0}}
+# the same configs at TW_PRECISION=bf16 (the JAX package's bf16 score
+# path): ... synth-async-8k, ... --config synth-fleet-8svc, ... --config
+# alibaba-cg-8k, each with TW_PRECISION=bf16 in the environment
+BF16_JAX_ACCURACY = 0.9847412109375
+FLEET_BF16_JAX_ACCURACY = {
+    "chain0": 0.9847412109375, "chain1": 0.9864501953125,
+    "chain2": 0.9869384765625, "chain3": 0.985595703125,
+    "async": 0.513427734375, "fanout": 0.1553955078125, "seq": 1.0,
+    "cache": 0.354736328125}
+CG8K_BF16_JAX_ACCURACY = {"MaxScoreBatchSubsetWithSkips": 94.81201171875}
+# the bf16 fleet's `cache` service: the port on the CPU reads JAX's
+# 35.4736328125% exactly, the card 25.2808% (five H100 runs alike). About a
+# third of its K1 blocks are windows whose plan cannot meet its row
+# marginals (unmet_windows), where the plain version in f32 and in f64
+# part on most windows already; elsewhere K1 and the plain version assign
+# alike but where a plan holds a near tie (cache_check). The card is held
+# within this many points of JAX either way, set from those readings.
+CACHE_BF16_MAX_PT = 12.0
+# synth-async-8k with TW_SCORE_GEMM=1 (the GEMM score form)
+GEMM_JAX_ACCURACY = 0.9847412109375
 FLAGSHIP = "MaxScoreBatchSubsetWithSkips"
 HOST_BASELINES = ("WAP5", "FCFS", "vPath", "MaxScore")
+# ... --config alibaba-exp5-ladder and alibaba-exp5-ladder-hard (exp5's
+# ladder, clean and messy corpus): end-to-end accuracy per compress
+# factor and graph, in the order of LADDER_METHODS
+LADDER_METHODS = ("WAP5", "FCFS", "vPath", FLAGSHIP)
+EXP5_LADDER_JAX = {
+    1: {
+        "call_graph_0": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_1": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_2": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_3": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_4": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_5": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_6": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_7": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_8": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_9": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_10": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_11": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_12": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_13": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_14": [100.0, 100.0, 100.0, 100.0],
+    },
+    200: {
+        "call_graph_0": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_1": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_2": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_3": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_4": [100.0, 100.0, 77.7, 100.0],
+        "call_graph_5": [100.0, 100.0, 96.8, 100.0],
+        "call_graph_6": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_7": [100.0, 100.0, 71.5, 100.0],
+        "call_graph_8": [100.0, 100.0, 83.7, 100.0],
+        "call_graph_9": [100.0, 100.0, 80.2, 100.0],
+        "call_graph_10": [100.0, 100.0, 84.0, 100.0],
+        "call_graph_11": [100.0, 100.0, 97.6, 100.0],
+        "call_graph_12": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_13": [100.0, 100.0, 95.8, 100.0],
+        "call_graph_14": [100.0, 100.0, 100.0, 100.0],
+    },
+    1000: {
+        "call_graph_0": [75.0, 100.0, 52.7, 100.0],
+        "call_graph_1": [60.6, 100.0, 33.1, 100.0],
+        "call_graph_2": [27.900000000000002, 100.0, 21.7, 100.0],
+        "call_graph_3": [100.0, 100.0, 56.49999999999999, 100.0],
+        "call_graph_4": [1.0999999999999999, 99.6, 5.2, 100.0],
+        "call_graph_5": [89.5, 100.0, 42.4, 100.0],
+        "call_graph_6": [100.0, 100.0, 54.50000000000001, 100.0],
+        "call_graph_7": [5.4, 100.0, 0.6, 100.0],
+        "call_graph_8": [72.8, 100.0, 6.1, 100.0],
+        "call_graph_9": [17.1, 100.0, 10.0, 100.0],
+        "call_graph_10": [6.5, 100.0, 3.6999999999999997, 100.0],
+        "call_graph_11": [100.0, 100.0, 25.0, 100.0],
+        "call_graph_12": [100.0, 100.0, 51.300000000000004, 100.0],
+        "call_graph_13": [49.6, 100.0, 13.700000000000001, 100.0],
+        "call_graph_14": [100.0, 100.0, 100.0, 100.0],
+    },
+    4000: {
+        "call_graph_0": [0.0, 100.0, 0.0, 100.0],
+        "call_graph_1": [0.0, 97.8, 0.0, 99.8],
+        "call_graph_2": [0.0, 98.6, 0.1, 99.8],
+        "call_graph_3": [50.8, 100.0, 1.6, 100.0],
+        "call_graph_4": [0.0, 85.7, 0.0, 99.4],
+        "call_graph_5": [0.0, 98.8, 0.2, 99.8],
+        "call_graph_6": [5.1, 100.0, 0.1, 100.0],
+        "call_graph_7": [0.0, 97.0, 0.0, 99.6],
+        "call_graph_8": [0.0, 100.0, 0.0, 100.0],
+        "call_graph_9": [0.0, 88.2, 0.0, 99.6],
+        "call_graph_10": [0.0, 97.2, 0.0, 100.0],
+        "call_graph_11": [6.800000000000001, 100.0, 0.3, 100.0],
+        "call_graph_12": [65.60000000000001, 100.0, 0.7000000000000001, 100.0],
+        "call_graph_13": [0.0, 97.39999999999999, 0.0, 99.6],
+        "call_graph_14": [99.8, 100.0, 73.3, 100.0],
+    },
+    10000: {
+        "call_graph_0": [0.0, 92.2, 0.0, 98.6],
+        "call_graph_1": [0.0, 71.8, 0.0, 96.2],
+        "call_graph_2": [0.0, 79.4, 0.0, 97.0],
+        "call_graph_3": [0.0, 100.0, 0.0, 100.0],
+        "call_graph_4": [0.0, 35.8, 0.0, 89.8],
+        "call_graph_5": [0.0, 74.6, 0.0, 98.0],
+        "call_graph_6": [0.0, 81.39999999999999, 0.0, 99.2],
+        "call_graph_7": [0.0, 61.0, 0.0, 97.0],
+        "call_graph_8": [0.0, 91.4, 0.0, 100.0],
+        "call_graph_9": [0.0, 47.0, 0.0, 93.8],
+        "call_graph_10": [0.0, 62.4, 0.0, 96.39999999999999],
+        "call_graph_11": [0.0, 95.6, 0.0, 100.0],
+        "call_graph_12": [0.0, 100.0, 0.0, 100.0],
+        "call_graph_13": [0.0, 67.0, 0.0, 99.4],
+        "call_graph_14": [45.5, 100.0, 13.100000000000001, 100.0],
+    },
+    15000: {
+        "call_graph_0": [0.0, 77.10000000000001, 0.0, 98.8],
+        "call_graph_1": [0.0, 46.6, 0.0, 91.9],
+        "call_graph_2": [0.0, 62.1, 0.0, 97.6],
+        "call_graph_3": [0.0, 99.0, 0.0, 100.0],
+        "call_graph_4": [0.0, 17.599999999999998, 0.0, 80.10000000000001],
+        "call_graph_5": [0.0, 49.3, 0.0, 86.6],
+        "call_graph_6": [0.0, 61.199999999999996, 0.0, 92.5],
+        "call_graph_7": [0.0, 32.1, 0.0, 92.5],
+        "call_graph_8": [0.0, 76.4, 0.0, 99.6],
+        "call_graph_9": [0.0, 25.8, 0.0, 66.5],
+        "call_graph_10": [0.0, 35.5, 0.0, 93.7],
+        "call_graph_11": [0.0, 83.7, 0.0, 99.2],
+        "call_graph_12": [0.0, 98.6, 0.0, 100.0],
+        "call_graph_13": [0.0, 43.2, 0.0, 95.6],
+        "call_graph_14": [12.2, 99.2, 3.6999999999999997, 99.6],
+    },
+}
+EXP5_LADDER_HARD_JAX = {
+    1: {
+        "call_graph_0": [100.0, 0.11061946902654868, 0.0, 100.0],
+        "call_graph_1": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_2": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_3": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_4": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_5": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_6": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_7": [0.0, 0.0, 0.0, 0.0],
+        "call_graph_8": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_9": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_10": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_11": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_12": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_13": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_14": [100.0, 100.0, 100.0, 100.0],
+    },
+    200: {
+        "call_graph_0": [100.0, 0.11061946902654868, 0.0, 100.0],
+        "call_graph_1": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_2": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_3": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_4": [100.0, 100.0, 99.66666666666667, 100.0],
+        "call_graph_5": [81.89944134078212, 100.0, 87.70949720670392, 100.0],
+        "call_graph_6": [100.0, 100.0, 95.97765363128492, 100.0],
+        "call_graph_7": [0.0, 0.0, 0.0, 0.0],
+        "call_graph_8": [100.0, 100.0, 84.02234636871509, 100.0],
+        "call_graph_9": [0.5599104143337066, 100.0, 55.5431131019037, 100.0],
+        "call_graph_10": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_11": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_12": [100.0, 100.0, 93.56659142212189, 100.0],
+        "call_graph_13": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_14": [100.0, 100.0, 97.50566893424036, 100.0],
+    },
+    1000: {
+        "call_graph_0": [98.67256637168141, 0.11061946902654868, 1.2168141592920354, 100.0],
+        "call_graph_1": [96.89578713968959, 100.0, 32.70509977827051, 100.0],
+        "call_graph_2": [100.0, 100.0, 35.07214206437292, 100.0],
+        "call_graph_3": [100.0, 100.0, 99.44506104328525, 100.0],
+        "call_graph_4": [96.0, 100.0, 21.555555555555557, 100.0],
+        "call_graph_5": [0.0, 100.0, 6.145251396648044, 100.0],
+        "call_graph_6": [100.0, 100.0, 43.910614525139664, 100.0],
+        "call_graph_7": [0.0, 0.0, 0.0, 0.0],
+        "call_graph_8": [1.1173184357541899, 100.0, 13.40782122905028, 100.0],
+        "call_graph_9": [0.0, 94.40089585666294, 0.5599104143337066, 99.77603583426652],
+        "call_graph_10": [100.0, 100.0, 100.0, 100.0],
+        "call_graph_11": [63.85135135135135, 100.0, 28.265765765765767, 100.0],
+        "call_graph_12": [96.83972911963883, 100.0, 21.557562076749438, 100.0],
+        "call_graph_13": [97.29119638826185, 100.0, 44.01805869074492, 100.0],
+        "call_graph_14": [26.190476190476193, 100.0, 4.195011337868481, 100.0],
+    },
+    4000: {
+        "call_graph_0": [40.597345132743364, 0.22123893805309736, 7.964601769911504, 90.37610619469027],
+        "call_graph_1": [1.2195121951219512, 100.0, 0.0, 100.0],
+        "call_graph_2": [29.855715871254162, 100.0, 0.11098779134295228, 100.0],
+        "call_graph_3": [87.0144284128746, 100.0, 34.62819089900111, 100.0],
+        "call_graph_4": [0.8888888888888888, 100.0, 0.1111111111111111, 100.0],
+        "call_graph_5": [0.0, 88.71508379888267, 0.0, 97.98882681564245],
+        "call_graph_6": [4.916201117318435, 100.0, 0.11173184357541899, 100.0],
+        "call_graph_7": [0.0, 0.0, 0.0, 0.0],
+        "call_graph_8": [0.0, 85.2513966480447, 0.0, 97.6536312849162],
+        "call_graph_9": [0.0, 35.38633818589026, 0.0, 78.94736842105263],
+        "call_graph_10": [88.01791713325868, 100.0, 63.26987681970885, 100.0],
+        "call_graph_11": [0.11261261261261261, 98.1981981981982, 0.0, 100.0],
+        "call_graph_12": [1.0158013544018059, 100.0, 0.1128668171557562, 100.0],
+        "call_graph_13": [2.0316027088036117, 99.32279909706546, 0.4514672686230248, 2.2573363431151243],
+        "call_graph_14": [0.0, 90.702947845805, 0.0, 97.95918367346938],
+    },
+    10000: {
+        "call_graph_0": [0.33185840707964603, 0.4424778761061947, 3.0973451327433628, 61.283185840707965],
+        "call_graph_1": [0.0, 88.470066518847, 0.0, 98.66962305986696],
+        "call_graph_2": [0.11098779134295228, 98.00221975582686, 0.0, 100.0],
+        "call_graph_3": [15.09433962264151, 98.44617092119867, 3.662597114317425, 10.876803551609324],
+        "call_graph_4": [0.0, 97.55555555555556, 0.0, 100.0],
+        "call_graph_5": [0.0, 36.424581005586596, 0.0, 83.0167597765363],
+        "call_graph_6": [0.0, 95.41899441340782, 0.0, 98.65921787709497],
+        "call_graph_7": [0.0, 0.0, 0.0, 0.0],
+        "call_graph_8": [0.0, 37.988826815642454, 0.0, 78.99441340782123],
+        "call_graph_9": [0.0, 3.135498320268757, 0.0, 41.2094064949608],
+        "call_graph_10": [16.7973124300112, 98.88017917133259, 21.612541993281077, 100.0],
+        "call_graph_11": [0.0, 73.76126126126125, 0.0, 96.3963963963964],
+        "call_graph_12": [0.0, 92.55079006772009, 0.0, 100.0],
+        "call_graph_13": [0.0, 84.53724604966139, 0.0, 3.160270880361174],
+        "call_graph_14": [0.0, 51.70068027210885, 0.0, 84.4671201814059],
+    },
+    15000: {
+        "call_graph_0": [0.0, 0.7743362831858407, 0.8849557522123894, 43.584070796460175],
+        "call_graph_1": [0.0, 68.07095343680709, 0.0, 97.11751662971176],
+        "call_graph_2": [0.0, 91.56492785793563, 0.0, 100.0],
+        "call_graph_3": [0.6659267480577136, 94.6725860155383, 0.776914539400666, 5.438401775804662],
+        "call_graph_4": [0.0, 89.44444444444444, 0.0, 100.0],
+        "call_graph_5": [0.0, 13.184357541899441, 0.0, 50.83798882681564],
+        "call_graph_6": [0.0, 83.35195530726257, 0.0, 33.85474860335195],
+        "call_graph_7": [0.0, 0.0, 0.0, 0.0],
+        "call_graph_8": [0.0, 18.547486033519554, 0.0, 63.01675977653631],
+        "call_graph_9": [0.0, 0.7838745800671892, 0.0, 18.81298992161254],
+        "call_graph_10": [0.7838745800671892, 96.64053751399776, 8.3986562150056, 99.77603583426652],
+        "call_graph_11": [0.0, 50.0, 0.0, 88.51351351351352],
+        "call_graph_12": [0.0, 80.58690744920993, 0.0, 100.0],
+        "call_graph_13": [0.0, 67.15575620767494, 0.0, 1.0158013544018059],
+        "call_graph_14": [0.0, 28.2312925170068, 0.0, 65.75963718820861],
+    },
+}
+# the smoke's ladder: the five lower rungs (the executor phase's exp5
+# loop is the top one) on the graphs whose top rung met ill-posed windows
+# and one clean graph, and the messy corpus's graph 9 (LADDER_HARD_*)
+LADDER_RUNGS = (1, 200, 1000, 4000, 10000)
+LADDER_GRAPHS = (0, 3, 4, 5, 9)
+# the messy corpus's graph 9 at its four lower rungs: compress 4000 meets
+# ill-posed windows (29 of 5021 on the card) and is one of the calls where
+# the port's CPU run parts from JAX's (LADDER_PORT_CPU); its top two
+# rungs' CPU reruns take 456 and 607 s on the card's machine, so they and
+# the other 14 graphs are left to --ladder
+LADDER_HARD_GRAPHS = (9,)
+LADDER_HARD_RUNGS = (1, 200, 1000, 4000)
+# ladder calls where the port's CPU run reads another number than JAX's,
+# with the reading it gives (the same on a CPU-only host and on the
+# card's machine): the two compute the same f32 algorithm with other
+# reduction orders, and on these messy-corpus calls the last bits decide
+# assignments: at near-tied plan masses (graph 0 at 4000, pinned by
+# tests/test_torch_ladder.py), after the refit between the two passes,
+# whose parameters part by a few ulps from identical inputs (graph 9),
+# or in a solve whose windows are mostly ill-posed (graph 0 at 10000 and
+# 15000). A CPU rerun of such a call must equal this reading exactly
+# (ROADMAP C.1); every other call's must equal JAX's.
+LADDER_PORT_CPU = {
+    ("alibaba-exp5-ladder-hard", "call_graph_0", 4000): 90.2654867256637,
+    ("alibaba-exp5-ladder-hard", "call_graph_9", 4000): 78.49944008958568,
+    ("alibaba-exp5-ladder-hard", "call_graph_0", 10000): 59.40265486725663,
+    ("alibaba-exp5-ladder-hard", "call_graph_9", 10000): 41.097424412094064,
+    ("alibaba-exp5-ladder-hard", "call_graph_0", 15000): 42.92035398230089,
+    ("alibaba-exp5-ladder-hard", "call_graph_9", 15000): 19.148936170212767,
+}
 # an exp5 graph whose card run met ill-posed windows: the bounds on the
 # card's flagship, set from the H100 readings in PERF.md §5 (worst: graph
 # 5 reads 6.6 pt above JAX, graph 9 keeps 94% of one service's pairs)
@@ -525,9 +829,9 @@ def check_case(name, blk, tol, n_iters=40, early_exit=False, posed_only=False):
             mp = plan_n[b, i, a_p_n[b, i]] if a_p_n[b, i] >= 0 else 0.0
             err = max(err, abs(float(mk) - float(mp)))
     B, R, C = S.shape
-    line = dict(case=name, shape=[B, R, C], ill_posed_windows_left_out=n_ill,
-                tol=tol, n_iters=n_iters,
-                cluster=K.card_plan(B, R, C, S.device).cluster,
+    line = dict(case=name, shape=[B, R, C], dtype=str(S.dtype).split(".")[-1],
+                ill_posed_windows_left_out=n_ill, tol=tol, n_iters=n_iters,
+                cluster=K.card_plan(B, R, C, S.device, S.element_size()).cluster,
                 sinkhorn_iters=k2_iters.tolist() if B <= 8 else int(k2_iters.sum()),
                 plan_max_abs_err=plan_err,
                 k1_rows=rows, k1_assign_differ=st["differ"],
@@ -541,7 +845,7 @@ def check_case(name, blk, tol, n_iters=40, early_exit=False, posed_only=False):
     return dict(plan_err=plan_err, k1_err=err)
 
 
-def kernel_phase(real_block, fleet_block, executor_blocks):
+def kernel_phase(real_block, fleet_block, executor_blocks, bf16_blocks):
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -576,6 +880,13 @@ def kernel_phase(real_block, fleet_block, executor_blocks):
         r = check_case(name, blk, 1e-3)
         for k in worst:
             worst[k] = max(worst[k], r[k])
+    # the bf16 kernels on the bf16 path's blocks, against the plain bf16
+    # versions (the same values read, so the f32 rule holds)
+    worst_bf16 = dict(plan_err=0.0, k1_err=0.0)
+    for name, blk in bf16_blocks.items():
+        r = check_case(name, blk, 1e-3)
+        for k in worst_bf16:
+            worst_bf16[k] = max(worst_bf16[k], r[k])
     # the Alibaba corpus has windows where an incoming span has no
     # feasible child and no skip room: their plans are rounding noise
     for name, blk in executor_blocks.items():
@@ -583,7 +894,7 @@ def kernel_phase(real_block, fleet_block, executor_blocks):
         for k in worst:
             worst[k] = max(worst[k], r[k])
     two_streams_check(real_block, fleet_block)
-    return worst
+    return worst, worst_bf16
 
 
 def two_streams_check(slice_blk, fleet_blk):
@@ -671,7 +982,8 @@ def kernel_timing(blk, tol=1e-3, n_iters=40):
     _, _, stats = K.fused_assign_cuda(S, rm, cm, cap, W, topk=TOPK,
                                       min_topk_mass=MIN_MASS, return_stats=True, **kw)
     _, k2_iters = K.sinkhorn_cuda(S, rm, cm, return_iters=True, **kw)
-    plan = K.card_plan(B, R, C, S.device)
+    item = S.element_size()
+    plan = K.card_plan(B, R, C, S.device, item)
     iters = int(stats[:, 0].sum())
     k2_it = int(k2_iters.sum())
     rounds = int(stats[:, 1].sum())
@@ -690,7 +1002,7 @@ def kernel_timing(blk, tol=1e-3, n_iters=40):
     # element to form the plan once (the rounding can read that plan)
     k1_exps = 2.0 * iters * cells + B * cells
     k2_exps = 2.0 * k2_it * cells + B * cells
-    in_bytes = 4.0 * (B * cells + B * R + B * C)
+    in_bytes = item * B * cells + 4.0 * (B * R + B * C)
     k1_bytes = in_bytes + 4.0 * B + 4.0 * B * W * (1 + TOPK)
     k2_bytes = in_bytes + 4.0 * B * cells
     rate, mhz = exp_rate()
@@ -711,7 +1023,9 @@ def kernel_timing(blk, tol=1e-3, n_iters=40):
                                                    min_topk_mass=MIN_MASS, **kw), reps)
     k2_ms = cuda_ms(lambda: K.sinkhorn_cuda(S, rm, cm, **kw), reps)
     k2_plain = cuda_ms(lambda: sinkhorn_log(S, rm, cm, **kw), reps)
-    detail = dict(shape=[B, R, C], cluster=plan.cluster, rows_per_cta=plan.rows_per_cta,
+    detail = dict(shape=[B, R, C], dtype=str(S.dtype).split(".")[-1],
+                  cluster=plan.cluster, rows_per_cta=plan.rows_per_cta,
+                  tile_rows=plan.tile_rows,
                   smem_bytes=plan.smem_bytes, sinkhorn_iters=iters,
                   rounding_rounds=rounds, k2_sinkhorn_iters=k2_it,
                   exp_per_s=rate, sm_clock_mhz=mhz,
@@ -724,19 +1038,137 @@ def kernel_timing(blk, tol=1e-3, n_iters=40):
 
 
 # ---------------------------------------------------------------------------
+# the score build
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def score_capture(kept, rows, cols, min_windows, n_calls):
+    """The solver's ``score_block`` keeping the terms of its first
+    ``n_calls`` calls on one thread for [>= ``min_windows``, rows, cols]
+    blocks of one window count: one sweep of a chain of ``n_calls``
+    endpoints (``kept`` gets ``(root, preds, succs, ret)`` tuples)."""
+    import traceweaver_tpu_torch.algorithms.weaver_torch as wt
+
+    real, lock, owner = wt.score_block, threading.Lock(), []
+
+    def keep(root, preds, succs, ret, gemm=False):
+        B, n = root.row_t.shape
+        with lock:
+            if (len(kept) < n_calls and n == rows and root.col_t.shape[1] == cols
+                    and B >= min_windows and (not owner or owner[0] == (
+                        threading.get_ident(), B))):
+                owner[:] = [(threading.get_ident(), B)]
+                kept.append((root, list(preds), list(succs), ret))
+        return real(root, preds, succs, ret, gemm=gemm)
+
+    wt.score_block = keep
+    try:
+        yield kept
+    finally:
+        wt.score_block = real
+
+
+@contextlib.contextmanager
+def plain_score_build():
+    """The score build's plain version on the card too: the build the
+    port ran before the score-build kernel, for the peak-memory A/B."""
+    from traceweaver_tpu_torch.ops import scores as SC
+
+    real = SC.score_block_cuda
+    SC.score_block_cuda = SC.score_block_plain
+    try:
+        yield
+    finally:
+        SC.score_block_cuda = real
+
+
+def score_check(name, calls):
+    """The score-build kernel against its plain version on one sweep's
+    calls: every block within 1e-5 relative plus 1e-4 absolute; prints
+    the entries that differ and their largest difference."""
+    import torch
+
+    from traceweaver_tpu_torch.ops import scores as SC
+
+    differ = total = 0
+    err = 0.0
+    for terms in calls:
+        got, want = SC.score_block_cuda(*terms), SC.score_block_plain(*terms)
+        fin = torch.isfinite(want)
+        differ += int((got != want).sum())
+        total += got.numel()
+        if bool(fin.any()):
+            err = max(err, float((got - want)[fin].abs().max()))
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5,
+                                   msg=lambda m: f"{name}: score build: {m}")
+    B, N = calls[0][0].row_t.shape
+    line = dict(case=name, shape=[B, N, calls[0][0].col_t.shape[1]], calls=len(calls),
+                entries=total, entries_differ=differ, max_abs_diff=err,
+                tolerance="1e-5 relative + 1e-4 absolute")
+    print("score-check " + json.dumps(line), flush=True)
+    return err
+
+
+def score_timing(name, calls, card):
+    """CUDA-event ms of one sweep's score build (``calls``) with the
+    kernel and with the plain version, the launches, and the bound: the
+    larger of the bytes (one write of each endpoint's f32 block, each
+    term's inputs read once) at the HBM rate and K exponentials plus one
+    logarithm per pair of every term at the special-function rate,
+    counting the pairs these inputs' masks and weights leave (the kernel
+    skips inactive windows and rows and zero-weight components)."""
+    from traceweaver_tpu_torch.ops import scores as SC
+
+    nbytes = sfu = 0.0
+    launches = 0
+    for root, preds, succs, ret in calls:
+        B, N = root.row_t.shape
+        M = root.col_t.shape[1]
+        block_terms = (root, *preds, *succs, ret)
+        launches += -(-len(block_terms) // SC.MAX_KERNEL_TERMS)
+        nbytes += 4.0 * B * N * M
+        for t in block_terms:
+            K = t.wt.shape[1]
+            nbytes += B * (4.0 * (N + M + 3 * K) + 1.0 + (N if t.row_ok is not None else 0))
+            rows = (t.row_ok.sum(dim=1) if t.row_ok is not None
+                    else t.row_t.new_full((B,), N))
+            pairs = (rows * t.active).double() * M
+            k = (t.wt > 0).sum(dim=1).double()
+            sfu += float((pairs * (k + 1.0)).sum())
+    rate, mhz = exp_rate()
+    terms = dict(bytes=1e3 * nbytes / PEAK_BYTES_PER_S, sfu=1e3 * sfu / rate)
+    term = max(terms, key=terms.get)
+    reps = 5
+    ms = cuda_ms(lambda: [SC.score_block_cuda(*c) for c in calls], reps)
+    plain_ms = cuda_ms(lambda: [SC.score_block_plain(*c) for c in calls], reps)
+    B, N = calls[0][0].row_t.shape
+    line = dict(case=name, shape=[B, N, calls[0][0].col_t.shape[1]], endpoints=len(calls),
+                launches_per_sweep=launches, ms=ms, plain_ms=plain_ms,
+                bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
+                bound_terms_ms=terms, bytes=nbytes, sfu_ops=sfu, sm_clock_mhz=mhz,
+                card=card)
+    print("score-build " + json.dumps(line), flush=True)
+    return line
+
+
+# ---------------------------------------------------------------------------
 # slice
 # ---------------------------------------------------------------------------
 
-def run_slice(prob, fused: bool, device="cuda"):
+def run_slice(prob, fused: bool, device="cuda", **solver_kw):
+    """``FindAssignments`` of one service (``solver_kw``: more
+    ``WeaverTorch`` keywords, ``precision``, ``score_gemm``)."""
     import torch
 
     from traceweaver_tpu_torch.algorithms.weaver_torch import WeaverTorch
     from traceweaver_tpu_torch.metrics.accuracy import accuracy_for_service
 
-    algo = WeaverTorch({}, {}, fused_kernel=fused, device=device)
+    algo = WeaverTorch({}, {}, fused_kernel=fused, device=device, **solver_kw)
+    base = 0
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     out = algo.FindAssignments(
         "MaxScoreBatchSubsetWithSkips", prob["service"], prob["in_parts"],
@@ -751,7 +1183,7 @@ def run_slice(prob, fused: bool, device="cuda"):
             raise AssertionError(f"{ep}: {len(missing)} spans without an assignment "
                                  "or an over-long top-k list")
     acc = accuracy_for_service(out[0], prob["truth"], prob["in_parts"])
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    peak = torch.cuda.max_memory_allocated() - base if device == "cuda" else 0
     return out, acc, wall, peak, algo.stats
 
 
@@ -760,7 +1192,7 @@ KERNEL_OF = {True: ("fused_assign", "fused_assign_cuda"),
 
 
 def drive(run, fused: bool, captured=None, want=lambda S: True, largest=False,
-          ill=None):
+          ill=None, counts=None):
     """Call ``run()`` with the path's kernel wrapper timed by CUDA events
     around each launch (on the launching thread's current stream) and,
     when ``captured`` is a dict, ``assign_topk`` keeping the first block
@@ -770,7 +1202,9 @@ def drive(run, fused: bool, captured=None, want=lambda S: True, largest=False,
     and ill-posed windows (:func:`ill_posed_windows`) into it: the
     latter as a device sum per block, read once after ``run()``, so the
     count adds no host sync to the timed call. Every
-    launch counter is reset just before and read just after. Returns
+    launch counter is reset just before and read just after (all of
+    them, the score-build kernel's too, into ``counts`` when it is a
+    dict). Returns
     ``run()``'s result, the path kernel's launches, the other kernel's
     and the summed kernel device ms (summed over streams: under the
     pipelined fleet flow launches overlap)."""
@@ -778,6 +1212,7 @@ def drive(run, fused: bool, captured=None, want=lambda S: True, largest=False,
 
     import traceweaver_tpu_torch.algorithms.weaver_torch as wt
     from traceweaver_tpu_torch.ops import cuda_sinkhorn as K
+    from traceweaver_tpu_torch.ops import scores as SC
 
     key, wrapper = KERNEL_OF[fused]
     real_wrapper, real_assign_topk, events = getattr(K, wrapper), wt.assign_topk, []
@@ -814,12 +1249,15 @@ def drive(run, fused: bool, captured=None, want=lambda S: True, largest=False,
     setattr(K, wrapper, timed)
     try:
         K.reset_launches()
+        SC.reset_launches()
         out = run()
         if ill_sums:
             torch.cuda.synchronize()  # the sums lie on the workers' streams
             ill["ill_posed_windows"] = int(torch.stack(ill_sums).sum())
         launches = K.LAUNCHES[key]
         other = K.LAUNCHES[KERNEL_OF[not fused][0]]
+        if counts is not None:
+            counts.update(K.LAUNCHES, **SC.LAUNCHES)
     finally:
         wt.assign_topk = real_assign_topk
         setattr(K, wrapper, real_wrapper)
@@ -827,6 +1265,9 @@ def drive(run, fused: bool, captured=None, want=lambda S: True, largest=False,
 
 
 def slice_phase(card):
+    """The slice phase (see the module docstring). Returns the launches,
+    K1's block, one sweep's score build (captured, and A/B'd against the
+    plain build) and the fused run's peak memory."""
     import torch
 
     from traceweaver_tpu_torch.metrics.synth import synth_async_8k
@@ -841,24 +1282,44 @@ def slice_phase(card):
         raise AssertionError(f"card and CPU assignments agree on {same} < 0.99 of pairs")
 
     prob = synth_async_8k()
-    launches, captured = {}, {}
+    launches, captured, sweep, lines = {}, {}, [], {}
     for fused in (True, False):
         key = KERNEL_OF[fused][0]
-        (_, acc, wall, peak, stats), launches[key], other, kernel_ms = drive(
-            lambda: run_slice(prob, fused), fused, captured if fused else None)
+        counts = {}
+        capture = (score_capture(sweep, 1024, 2048, 8, 3) if fused
+                   else contextlib.nullcontext())
+        with capture:
+            (_, acc, wall, peak, stats), launches[key], other, kernel_ms = drive(
+                lambda: run_slice(prob, fused), fused, captured if fused else None,
+                counts=counts)
         line = dict(config="synth-async-8k", fused_kernel=fused, accuracy=acc,
                     wall_s=wall, kernel=key, kernel_ms=kernel_ms,
                     kernel_share=kernel_ms / 1e3 / wall,
                     peak_mem_bytes=peak, launches=launches[key],
                     other_kernel_launches=other,
+                    score_build_launches=counts["score_block"],
                     fused_em_applied=stats.get("fused_em_applied", 0.0), card=card)
         print("slice " + json.dumps(line), flush=True)
+        lines[fused] = line
         if launches[key] <= 0:
             raise AssertionError(f"main path (fused={fused}) launched no {key} kernel")
+        if counts["score_block"] <= 0:
+            raise AssertionError(f"main path (fused={fused}) launched no score-build kernel")
         if acc < ACCURACY_FLOOR:
             raise AssertionError(f"accuracy {acc} < {ACCURACY_FLOOR} (fused={fused})")
+    launches["score_block"] = lines[True]["score_build_launches"]
+    with plain_score_build():
+        (_, acc, wall, peak, _), _, _, _ = drive(lambda: run_slice(prob, True), True)
+    print("slice-score-build " + json.dumps(dict(
+        config="synth-async-8k", fused_kernel=True,
+        peak_mem_bytes={"kernel": lines[True]["peak_mem_bytes"], "plain": peak},
+        wall_s={"kernel": lines[True]["wall_s"], "plain": wall},
+        accuracy={"kernel": lines[True]["accuracy"], "plain": acc},
+        card=card)), flush=True)
+    if len(sweep) != 3:
+        raise AssertionError(f"kept {len(sweep)} score builds of the slice's sweep")
     torch.cuda.synchronize()
-    return launches, captured["block"]
+    return launches, captured["block"], sweep, lines[True]["peak_mem_bytes"]
 
 
 # ---------------------------------------------------------------------------
@@ -883,9 +1344,11 @@ def run_fleet(probs, fused: bool, device="cuda", **kw):
     items = [FleetItem(p["service"], p["in_parts"], p["out_parts"], p["truth"],
                        p["dag"]) for p in probs]
     stats, quarantined = {}, []
+    base = 0
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     out = solve_fleet(items, stats=stats, quarantined=quarantined, device=device,
                       fused_kernel=fused, **kw)
@@ -899,14 +1362,15 @@ def run_fleet(probs, fused: bool, device="cuda", **kw):
                 i not in amap for amap in res[0].values() for i in in_ids):
             raise AssertionError(f"{p['service']}: no complete FindAssignments result")
         acc[p["service"]] = accuracy_for_service(res[0], p["truth"], p["in_parts"])
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    peak = torch.cuda.max_memory_allocated() - base if device == "cuda" else 0
     return out, acc, wall, peak, stats, quarantined
 
 
 def fleet_phase(card):
     """The fleet phase (see the module docstring). Returns each kernel's
     launches on the full config, the first score block of the chain
-    group, the config's services and the wall of its pipelined K1 run."""
+    group, the config's services, the wall of its pipelined K1 run, one
+    sweep's score build of the chain group and that run's peak memory."""
     import torch
 
     from traceweaver_tpu_torch.metrics.synth import synth_fleet_8svc
@@ -928,16 +1392,22 @@ def fleet_phase(card):
 
     probs = synth_fleet_8svc()
     floors = {k: v - 0.01 for k, v in FLEET_JAX_ACCURACY.items()}
-    launches, captured, walls = {}, {}, {}
+    launches, captured, walls, sweep, peaks = {}, {}, {}, [], {}
     for fused in (True, False):
         key = KERNEL_OF[fused][0]
         runs = {}
         for pipeline in (True, False):
             confs = [None] * len(probs)
-            runs[pipeline], n, line = fleet_run(
-                "fleet", probs, fused, floors, card, captured if fused else None,
-                pipeline=pipeline, confidences=confs)
+            capture = (score_capture(sweep, 1024, 2048, 32, 3)
+                       if fused and pipeline else contextlib.nullcontext())
+            with capture:
+                runs[pipeline], n, line = fleet_run(
+                    "fleet", probs, fused, floors, card, captured if fused else None,
+                    pipeline=pipeline, confidences=confs)
             walls[(fused, pipeline)] = line["wall_s"]
+            if fused and pipeline:
+                peaks["kernel"] = line["peak_mem_bytes"]
+                launches["score_block"] = line["score_build_launches"]
             if pipeline:  # the default flow is the main path
                 launches[key] = n
                 confidence_line(probs, runs[pipeline][0], confs, fused, card)
@@ -953,27 +1423,46 @@ def fleet_phase(card):
     if "block" not in captured:
         raise AssertionError("no [>= 32, 1025, 2049] block in the fleet run")
     warm_rounds(probs, floors, card)
+    if len(sweep) != 3:
+        raise AssertionError(f"kept {len(sweep)} score builds of the chain group")
+    with plain_score_build():
+        _, _, line = fleet_run("fleet-plain-score-build", probs, True, floors, card,
+                               plain_build=True)
+    peaks["plain"] = line["peak_mem_bytes"]
+    print("fleet-score-build " + json.dumps(dict(
+        config="synth-fleet-8svc", fused_kernel=True, pipeline=True,
+        peak_mem_bytes=peaks, wall_s={"kernel": walls[(True, True)],
+                                      "plain": line["wall_s"]}, card=card)),
+          flush=True)
     torch.cuda.synchronize()
-    return launches, captured["block"], probs, walls[(True, True)]
+    return launches, captured["block"], probs, walls[(True, True)], sweep, peaks["kernel"]
 
 
-def fleet_run(tag, probs, fused, floors, card, captured=None, **kw):
+def fleet_run(tag, probs, fused, floors, card, captured=None, ill=None,
+              plain_build=False, **kw):
     """One full-size ``solve_fleet`` through :func:`drive`, its line
-    printed under ``tag``; fails on a missing launch, an accuracy below
-    its floor, a moved ``fault_*`` counter or a quarantine. Returns the
-    :func:`run_fleet` tuple, the path kernel's launches and the line."""
+    printed under ``tag``; fails on a missing launch (the score-build
+    kernel's too, unless ``score_gemm`` or the plain build, under
+    :func:`plain_score_build`, takes its place), an
+    accuracy below its floor, a moved ``fault_*`` counter or a
+    quarantine. ``ill`` (a dict) gets the ill-posed window counts.
+    Returns the :func:`run_fleet` tuple, the path kernel's launches and
+    the line."""
     key = KERNEL_OF[fused][0]
     n_spans = sum(len(next(iter(p["in_parts"].values()))) for p in probs)
+    counts = {}
     result, launches, other, kernel_ms = drive(
         lambda: run_fleet(probs, fused, **kw), fused, captured,
-        want=lambda S: S.shape[0] >= 32 and S.shape[1:] == (1025, 2049))
+        want=lambda S: S.shape[0] >= 32 and S.shape[1:] == (1025, 2049), ill=ill,
+        counts=counts)
     _, acc, wall, peak, stats, quarantined = result
     faults = {k: v for k, v in stats.items() if k.startswith("fault")}
     line = dict(
         config="synth-fleet-8svc", fused_kernel=fused,
-        pipeline=kw.get("pipeline", True), wall_s=wall,
-        spans_per_s=n_spans / wall, kernel=key, kernel_ms_summed=kernel_ms,
-        launches=launches, other_kernel_launches=other, peak_mem_bytes=peak,
+        pipeline=kw.get("pipeline", True), precision=kw.get("precision", "f32"),
+        wall_s=wall, spans_per_s=n_spans / wall, kernel=key, kernel_ms_summed=kernel_ms,
+        launches=launches, other_kernel_launches=other,
+        score_build_launches=counts["score_block"], peak_mem_bytes=peak,
         **{k: stats.get(k, 0.0) for k in (
             "pipeline_groups", "pipeline_depth", "fleet_dispatches",
             "fleet_services", "fused_em_applied", "fleet_dynamism_dispatches",
@@ -984,6 +1473,8 @@ def fleet_run(tag, probs, fused, floors, card, captured=None, **kw):
     print(f"{tag} " + json.dumps(line), flush=True)
     if launches <= 0:
         raise AssertionError(f"{tag} (fused={fused}) launched no {key} kernel")
+    if not (plain_build or kw.get("score_gemm")) and counts["score_block"] <= 0:
+        raise AssertionError(f"{tag} (fused={fused}) launched no score-build kernel")
     below = {k: v for k, v in acc.items() if v < floors[k]}
     if below:
         raise AssertionError(f"{tag} accuracy below the floor (fused={fused}): {below}")
@@ -1049,6 +1540,146 @@ def warm_rounds(probs, floors, card):
 
 
 # ---------------------------------------------------------------------------
+# precision: the bf16 score path and the GEMM score form
+# ---------------------------------------------------------------------------
+
+def precision_phase(card, probs, f32_peaks):
+    """The precision phase (see the module docstring): ``synth-async-8k``
+    at bf16 with each kernel and with ``score_gemm``, ``synth-fleet-8svc``
+    at bf16; each held to its JAX reading under :func:`check_accuracy`'s
+    rule. ``f32_peaks`` (config -> bytes) go on the lines beside the
+    bf16 peaks. Returns the bf16 runs' launches and their K1 blocks."""
+    from traceweaver_tpu_torch.metrics.synth import synth_async_8k
+
+    prob = synth_async_8k()
+    launches, captured = {}, {}
+    runs = [("bf16", fused, dict(precision="bf16")) for fused in (True, False)]
+    runs.append(("gemm", True, dict(score_gemm=True)))
+    for tag, fused, kw in runs:
+        key = KERNEL_OF[fused][0]
+        ill, counts = {}, {}
+        (_, acc, wall, peak, _), n, other, ms = drive(
+            lambda: run_slice(prob, fused, **kw), fused,
+            captured if tag == "bf16" and fused else None, ill=ill, counts=counts)
+        ref = BF16_JAX_ACCURACY if tag == "bf16" else GEMM_JAX_ACCURACY
+        print("precision " + json.dumps(dict(
+            config="synth-async-8k", run=tag, fused_kernel=fused, **kw, accuracy=acc,
+            accuracy_jax_cpu=ref, wall_s=wall, kernel=key, launches=n,
+            other_kernel_launches=other, score_build_launches=counts["score_block"],
+            kernel_ms=ms, peak_mem_bytes=peak,
+            peak_mem_bytes_f32=f32_peaks["synth-async-8k"], **ill, card=card)),
+            flush=True)
+        if n <= 0:
+            raise AssertionError(f"{tag} slice (fused={fused}) launched no {key} kernel")
+        if tag == "bf16":
+            launches[key] = n
+        check_accuracy(f"{tag} slice (fused={fused})", {"slice": 100.0 * acc},
+                       {"slice": 100.0 * ref}, ill)
+    # ``cache`` is held to CACHE_BF16_MAX_PT here and block by block in
+    # cache_check
+    ill, fleet_captured = {}, {}
+    floors = {k: v - (0.01 if k != "cache" else CACHE_BF16_MAX_PT / 100)
+              for k, v in FLEET_BF16_JAX_ACCURACY.items()}
+    (_, acc, _, peak, _, _), n, line = fleet_run(
+        "fleet-bf16", probs, True, floors, card, fleet_captured, ill=ill,
+        precision="bf16")
+    print("precision " + json.dumps(dict(
+        config="synth-fleet-8svc", run="bf16", accuracy=acc,
+        accuracy_jax_cpu=FLEET_BF16_JAX_ACCURACY, cache_max_pt=CACHE_BF16_MAX_PT,
+        launches=n, peak_mem_bytes=peak,
+        peak_mem_bytes_f32=f32_peaks["synth-fleet-8svc"], **ill, card=card)), flush=True)
+    check_accuracy("fleet bf16", {k: 100.0 * v for k, v in acc.items() if k != "cache"},
+                   {k: 100.0 * v for k, v in FLEET_BF16_JAX_ACCURACY.items()
+                    if k != "cache"}, ill)
+    gap = 100.0 * (acc["cache"] - FLEET_BF16_JAX_ACCURACY["cache"])
+    if abs(gap) > CACHE_BF16_MAX_PT:
+        raise AssertionError(f"fleet bf16 cache: {100.0 * acc['cache']} is not within "
+                             f"{CACHE_BF16_MAX_PT} pt of JAX")
+    cache_check(card, next(p for p in probs if p["service"] == "cache"), acc["cache"])
+    launches["fleet_fused_assign"] = n
+    blocks = {"slice-block-bf16": captured["block"]}
+    if "block" in fleet_captured:
+        blocks["fleet-block-bf16"] = fleet_captured["block"]
+    else:
+        raise AssertionError("no [>= 32, 1025, 2049] block in the bf16 fleet run")
+    return launches, blocks
+
+
+def unmet_windows(plan, row_marg):
+    """[B] bool: windows where the plain plan leaves a live row short of
+    its mass by half a unit or more, so no plan on the mask's support
+    meets the marginals. Their Sinkhorn potentials drift without bound
+    (to about 1e4 on the ``cache`` service), so the plan is f32 rounding
+    noise as in an ill-posed window (:func:`ill_posed_windows`, a case
+    of this one)."""
+    miss = (plan.sum(dim=2) - row_marg).abs() * (row_marg > 0)
+    return miss.amax(dim=1) >= 0.5
+
+
+def cache_check(card, prob, fleet_acc):
+    """The bf16 fleet's ``cache`` service solved alone on the card (it
+    must read what it read in the fleet), K1 held to the plain
+    composition on each of its blocks: at least 99% of the live rows of
+    the windows that meet their marginals assigned alike; the rows of
+    the windows that do not (:func:`unmet_windows`) are counted. Of the
+    windows that meet them and still differ, the line counts those whose
+    plain plan holds a near tie (a live row's two largest masses within
+    a relative 1e-5), which K1 may break otherwise. Prints a
+    ``cache-check`` line."""
+    import torch
+
+    import traceweaver_tpu_torch.algorithms.weaver_torch as wt
+    from traceweaver_tpu_torch.ops import cuda_sinkhorn as K
+    from traceweaver_tpu_torch.ops.sinkhorn import sinkhorn_log
+
+    blocks, real = [], wt.assign_topk
+
+    def keep(*args, **kw):
+        out = real(*args, **kw)
+        blocks.append((args, {k: v for k, v in kw.items() if k != "fused"}, out[0]))
+        return out
+
+    wt.assign_topk = keep
+    try:
+        _, acc, _, _, _, _ = run_fleet([prob], True, precision="bf16")
+    finally:
+        wt.assign_topk = real
+    n = dict(windows=0, unmet_windows=0, rows_met=0, rows_met_differ=0,
+             windows_met_differ=0, windows_met_differ_near_tie=0, rows_unmet=0,
+             rows_unmet_differ=0)
+    for (S, rm, cm, in_v, cv, cap, W), kw, got in blocks:
+        plan = sinkhorn_log(S, rm, cm, epsilon=kw["epsilon"], n_iters=kw["n_iters"],
+                            tol=kw["tol"])
+        bad = unmet_windows(plan, rm)
+        want = K.round_topk_plain(plan[:, :W].contiguous(), in_v, cv, cap,
+                                  topk=kw["topk"], min_topk_mass=kw["min_topk_mass"])[0]
+        live = in_v[:, :W]
+        d = (got != want) & live
+        top2 = plan[:, :W].topk(2, dim=2).values
+        tie = ((top2[..., 0] - top2[..., 1] <= 1e-5 * top2[..., 0]) & live).any(dim=1)
+        dw = d.any(dim=1) & ~bad
+        n["windows"] += S.shape[0]
+        n["unmet_windows"] += int(bad.sum())
+        n["rows_met"] += int(live[~bad].sum())
+        n["rows_met_differ"] += int(d[~bad].sum())
+        n["windows_met_differ"] += int(dw.sum())
+        n["windows_met_differ_near_tie"] += int((dw & tie).sum())
+        n["rows_unmet"] += int(live[bad].sum())
+        n["rows_unmet_differ"] += int(d[bad].sum())
+    agree = 1.0 - n["rows_met_differ"] / max(n["rows_met"], 1)
+    line = dict(service="cache", precision="bf16", accuracy=acc["cache"],
+                accuracy_in_fleet=fleet_acc, accuracy_jax_cpu=FLEET_BF16_JAX_ACCURACY["cache"],
+                k1_blocks=len(blocks), **n, met_rows_agree=agree, card=card)
+    print("cache-check " + json.dumps(line), flush=True)
+    if acc["cache"] != fleet_acc:
+        raise AssertionError(f"cache alone reads {acc['cache']}, in the fleet {fleet_acc}")
+    if agree < 0.99:
+        raise AssertionError(f"cache: K1 and the plain version agree on {agree} < 0.99 "
+                             "of the rows of windows that meet their marginals")
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
 # executor
 # ---------------------------------------------------------------------------
 
@@ -1087,27 +1718,32 @@ def _run_cli_captured(argv):
 
 def run_cli(argv):
     """:func:`_run_cli_captured` on the card: returns the results, peak
-    device bytes and wall seconds (after a synchronise)."""
+    device bytes (above what was allocated when the call began, like
+    every ``peak_mem_bytes`` here: the blocks the smoke keeps for its
+    kernel checks do not count) and wall seconds (after a synchronise)."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     res, _ = _run_cli_captured(argv)
     torch.cuda.synchronize()
-    return res, torch.cuda.max_memory_allocated(), time.perf_counter() - t0
+    return (res, torch.cuda.max_memory_allocated() - base,
+            time.perf_counter() - t0)
 
 
 def _cpu_worker_init() -> None:
-    """A CPU rerun process: two threads, so the workers share the cores."""
+    """A CPU rerun process: one thread, so the workers share the cores."""
     import torch
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
 
 
-def cpu_flagship(graph_dir, n, results, gt_free=False):
+def cpu_flagship(graph_dir, n, results, gt_free=False, compress=15000):
     """Worker: the flagship of one exp5 graph through the CLI on the CPU
-    (``--device cpu``, ``--gt_free_dag`` with ``gt_free``); returns its
+    (``--device cpu``, ``--gt_free_dag`` with ``gt_free``, at
+    ``compress``); returns its
     accuracy, per-service assignments, ill-posed windows and windows,
     discovered edges and wall seconds. Its printing is dropped."""
     import contextlib
@@ -1123,7 +1759,8 @@ def cpu_flagship(graph_dir, n, results, gt_free=False):
         windows[1] += args[0].shape[0]
         return real(*args, **kw)
 
-    argv = (exp5_argv(graph_dir, n, results, predictors="10") + ["--device", "cpu"]
+    argv = (exp5_argv(graph_dir, n, results, compress=compress, predictors="10")
+            + ["--device", "cpu"]
             + (["--gt_free_dag", "1"] if gt_free else []))
     wt.assign_topk = counting
     try:
@@ -1141,7 +1778,7 @@ class CpuReruns:
     started after the card phases so they do not slow the timed host
     work; :meth:`close` stops every process."""
 
-    def __init__(self, workers: int = 4):
+    def __init__(self, workers: int = 8):
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
 
@@ -1210,24 +1847,28 @@ def check_accuracy(tag, acc, jax_acc, ill):
                                  "windows)")
 
 
-def card_vs_cpu(tag, name, card_res, ill, ref, cpu, card, **extra):
+def card_vs_cpu(tag, name, card_res, ill, ref, cpu, card, config="alibaba-exp5-15000",
+                cpu_ref=None, **extra):
     """The two-sided flagship check of one exp5 graph against the port's
     own CPU run ``cpu`` (:func:`cpu_flagship`) and the JAX package's
     reading ``ref``: with no ill-posed window on the card, the card reads
     ``ref`` within half a point either way and assigns at least 99% of
     every service's pairs as the CPU run does; otherwise the CPU run must
-    equal ``ref`` exactly and the card is held to the looser two-sided
-    bounds ``ILL_POSED_MAX_PT`` and ``ILL_POSED_MIN_PAIRS``. Prints the
-    ``executor-card-vs-cpu`` line and returns what failed ("" when
-    nothing did)."""
+    equal ``ref`` exactly (``cpu_ref``, a ``LADDER_PORT_CPU`` reading,
+    where the port's CPU run is known to part from JAX's) and the card is
+    held to the looser two-sided bounds ``ILL_POSED_MAX_PT`` and
+    ``ILL_POSED_MIN_PAIRS``. Prints the ``executor-card-vs-cpu`` line and
+    returns what failed ("" when nothing did)."""
     got = card_res.accuracy_overall[FLAGSHIP]
     pairs = {p: agreement(card_res.flagship_pred[p], pred)
              for p, pred in cpu["pred"].items()}
     clean = ill["ill_posed_windows"] == 0
+    want_cpu = ref if cpu_ref is None else cpu_ref
     low = {p: v for p, v in pairs.items()
            if v < (0.99 if clean else ILL_POSED_MIN_PAIRS)}
-    line = dict(config="alibaba-exp5-15000", run=tag, graph=name,
+    line = dict(config=config, run=tag, graph=name,
                 flagship_card=got, flagship_cpu=cpu["accuracy"], flagship_jax_cpu=ref,
+                flagship_cpu_recorded=cpu_ref,
                 card_within_half_pt_of_jax=abs(got - ref) <= 0.5,
                 card_ill_posed_windows=ill["ill_posed_windows"],
                 card_windows=ill["windows"],
@@ -1235,14 +1876,16 @@ def card_vs_cpu(tag, name, card_res, ill, ref, cpu, card, **extra):
                 cpu_windows=cpu["windows"], cpu_wall_s=cpu["wall_s"],
                 card_vs_cpu_pairs=pairs,
                 rule="within 0.5 pt of JAX, >= 0.99 pairs" if clean
-                else (f"CPU equals JAX, card within {ILL_POSED_MAX_PT} pt of JAX, "
+                else (f"CPU equals {'JAX' if cpu_ref is None else 'the recorded port CPU'}, "
+                      f"card within {ILL_POSED_MAX_PT} pt of JAX, "
                       f">= {ILL_POSED_MIN_PAIRS} pairs"), card=card, **extra)
     print("executor-card-vs-cpu " + json.dumps(line), flush=True)
     if clean and (abs(got - ref) > 0.5 or low):
         return (f"{tag} {name}: card {got} vs JAX {ref}, pairs under 0.99 {low}, "
                 "with no ill-posed window")
-    if not clean and cpu["accuracy"] != ref:
-        return f"{tag} {name}: the port on the CPU reads {cpu['accuracy']}, JAX {ref}"
+    if not clean and cpu["accuracy"] != want_cpu:
+        return (f"{tag} {name}: the port on the CPU reads {cpu['accuracy']}, "
+                f"not {want_cpu} (JAX {ref})")
     if not clean and (abs(got - ref) > ILL_POSED_MAX_PT or low):
         return (f"{tag} {name}: card {got} vs JAX {ref}, pairs under "
                 f"{ILL_POSED_MIN_PAIRS} {low}, with {ill['ill_posed_windows']} "
@@ -1677,6 +2320,28 @@ def executor_phase(card, root):
     if k1 <= 0:
         raise AssertionError("cg-8k: no fused_assign launch")
     gt_flag = res.accuracy_overall[FLAGSHIP]
+    # the same call at bf16, and at f32 with the score build's plain
+    # version (the build before the score-build kernel): peak memory
+    peak_f32, wall_f32 = peak, wall
+    bf16_launches = {"fused_assign": 0, "sinkhorn": 0}
+    res, peak, wall, k1, ms, ill = driven(exp5_argv(
+        d, 0, os.path.join(root, "results-8k-bf16"), predictors="10", max_traces=8192)
+        + ["--precision", "bf16"], tally=bf16_launches)
+    line = executor_line("executor", res, peak, wall, k1, ms, ill, card,
+                         config="alibaba-cg-8k", precision="bf16",
+                         peak_mem_bytes_f32=peak_f32)
+    check_accuracy("cg-8k bf16", line["accuracy"], CG8K_BF16_JAX_ACCURACY, ill)
+    if k1 <= 0:
+        raise AssertionError("cg-8k bf16: no fused_assign launch")
+    with plain_score_build():
+        res, peak, wall, _, _, _ = driven(exp5_argv(
+            d, 0, os.path.join(root, "results-8k-plain"), predictors="10",
+            max_traces=8192), tally={"fused_assign": 0, "sinkhorn": 0})
+    print("executor-score-build " + json.dumps(dict(
+        config="alibaba-cg-8k", peak_mem_bytes={"kernel": peak_f32, "plain": peak},
+        wall_s={"kernel": wall_f32, "plain": wall},
+        accuracy={"kernel": gt_flag, "plain": res.accuracy_overall[FLAGSHIP]},
+        card=card)), flush=True)
     argv = exp5_argv(d, 0, os.path.join(root, "results-8k-gtfree"), predictors="10",
                      max_traces=8192) + ["--gt_free_dag", "1"]
     res, peak, wall, k1, ms, ill = driven(argv, blocks["executor-gtfree-block"],
@@ -1703,21 +2368,24 @@ def executor_phase(card, root):
           f"launches {json.dumps(launches)}, ground-truth-free launches "
           f"{json.dumps(gtfree_launches)}, K1 blocks kept {json.dumps(shapes)}",
           flush=True)
+    launches["bf16_fused_assign"] = bf16_launches["fused_assign"]
     return (launches, gtfree_launches, {k: v["block"] for k, v in blocks.items()},
             (dirs, gt_runs, gtfree_runs, own_rerun))
 
 
-def rerun_checks(card, root, dirs, gt_runs, gtfree_runs, own_rerun):
+def rerun_checks(card, root, dirs, gt_runs, gtfree_runs, own_rerun, ladder=()):
     """The flagship of every exp5 graph on the CPU (:class:`CpuReruns`),
     ground-truth-free too where ``own_rerun`` names the graph, then the
     two-sided flagship checks of both exp5 loops against those runs, and
     the ground-truth-free flagship within one point of the
-    ground-truth-DAG one on every graph with no ill-posed window."""
+    ground-truth-DAG one on every graph with no ill-posed window; and
+    :func:`ladder_verdict` of every ladder call in ``ladder``."""
     t0 = time.perf_counter()
     names = [os.path.basename(d) for d in dirs]
     reruns = CpuReruns()
     ok = False
     try:
+        ladder_futs = [ladder_submit(reruns, root, r) for r in ladder]
         cpu_gtfree = {name: reruns.submit(d, n, os.path.join(root, "cpu-gtfree", name),
                                           gt_free=True)
                       for n, (name, d) in enumerate(zip(names, dirs)) if name in own_rerun}
@@ -1725,10 +2393,11 @@ def rerun_checks(card, root, dirs, gt_runs, gtfree_runs, own_rerun):
                   for n, (name, d) in enumerate(zip(names, dirs))}
         cpu_gt = {name: fut.result() for name, fut in cpu_gt.items()}
         cpu_gtfree = {name: fut.result() for name, fut in cpu_gtfree.items()}
+        ladder_cpu = [f.result() for f in ladder_futs]
         ok = True
     finally:
         reruns.close(cancel=not ok)
-    failed = []
+    failed = [ladder_verdict(card, r, c) for r, c in zip(ladder, ladder_cpu)]
     for name in names:
         failed.append(card_vs_cpu("gt-dag", name, gt_runs[name][0], gt_runs[name][1],
                                   EXP5_JAX_ACCURACY[name][FLAGSHIP],
@@ -1754,8 +2423,150 @@ def rerun_checks(card, root, dirs, gt_runs, gtfree_runs, own_rerun):
         if ill["ill_posed_windows"] == 0 and not near_gt:
             failed.append(f"gt-free {name}: {got} is not within 1 pt of the "
                           f"ground-truth-DAG flagship {gt_flag}")
-    print(f"executor-cpu-reruns: {len(cpu_gt) + len(cpu_gtfree)} runs in "
+    print(f"executor-cpu-reruns: {len(cpu_gt) + len(cpu_gtfree) + len(ladder_cpu)} runs in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    failed = [f for f in failed if f]
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+# ---------------------------------------------------------------------------
+# exp5's ladder
+# ---------------------------------------------------------------------------
+
+def ladder_run(card, data, out, messy, graphs, rungs, table, reruns, keep=None):
+    """The ladder runner (``traceweaver_tpu_torch.runtime.ladder``) on the
+    card over ``graphs`` x ``rungs`` of the corpus in ``data`` (clean, or
+    messy), each call through :func:`drive`: a ``ladder`` line a call;
+    host baselines must equal ``table`` (JAX's readings) and the
+    flagship read it within half a point where the call met no
+    ill-posed window; the others go to ``reruns`` for the two-sided rule
+    against a CPU run. Calls of a graph ``table`` lacks are reported
+    only. Figures are drawn when this machine has matplotlib; ``keep``
+    (a directory) receives the pickles the figures read. Returns the
+    records and the K1 launches."""
+    import importlib.util
+
+    from traceweaver_tpu_torch.runtime import ladder as L
+
+    corpus = "alibaba-exp5-ladder-hard" if messy else "alibaba-exp5-ladder"
+    k1_total, failed = [0], []
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+
+    def call(argv):
+        a = dict(zip(argv[0::2], argv[1::2]))
+        name = os.path.basename(a["--absolute_path"])
+        compress = int(a["--compress_factor"])
+        ill = {}
+        (res, peak, wall), k1, _, ms = drive(lambda: run_cli(argv), True, ill=ill)
+        k1_total[0] += k1
+        ref = (table or {}).get(compress, {}).get(name)
+        acc = {k: v for k, v in res.accuracy_overall.items() if not k.endswith("TopK")}
+        jax_acc = dict(zip(LADDER_METHODS, ref)) if ref else None
+        print("ladder " + json.dumps(dict(
+            config=corpus, graph=name, compress=compress, wall_s=wall, accuracy=acc,
+            accuracy_jax_cpu=jax_acc, fused_assign_launches=k1, fused_assign_ms_summed=ms,
+            ill_posed_windows=ill["ill_posed_windows"], windows=ill["windows"],
+            peak_mem_bytes=peak, card=card)), flush=True)
+        if k1 <= 0:
+            failed.append(f"{corpus} {name} {compress}: no fused_assign launch")
+        if jax_acc is None:
+            return
+        for m in LADDER_METHODS[:3]:
+            if acc[m] != jax_acc[m]:
+                failed.append(f"{corpus} {name} {compress} {m}: {acc[m]} != JAX {jax_acc[m]}")
+        if ill["ill_posed_windows"] == 0:
+            if abs(acc[FLAGSHIP] - jax_acc[FLAGSHIP]) > 0.5:
+                failed.append(f"{corpus} {name} {compress}: flagship {acc[FLAGSHIP]} vs "
+                              f"JAX {jax_acc[FLAGSHIP]} with no ill-posed window")
+        else:
+            reruns.append(dict(corpus=corpus, name=name, dir=a["--absolute_path"],
+                               n=int(name.rsplit("_", 1)[1]), compress=compress,
+                               res=res, ill=ill, ref=jax_acc[FLAGSHIP]))
+
+    t0 = time.perf_counter()
+    records = L.run_ladder(data, out, messy=messy, graphs=graphs, rungs=rungs,
+                           call=call, draw=have_mpl)
+    print(f"ladder-phase {corpus}: {len(records)} calls in "
+          f"{time.perf_counter() - t0:.3f} s, K1 launches {k1_total[0]}, figures "
+          f"{'drawn' if have_mpl else 'not drawn: no matplotlib on this machine'}",
+          flush=True)
+    if keep:
+        os.makedirs(keep, exist_ok=True)
+        for f in os.listdir(out):
+            if f.startswith(("accuracy_", "confidence_scores_", "ladder.json", "fig6")):
+                shutil.copy(os.path.join(out, f), keep)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return records, k1_total[0]
+
+
+def ladder_phase(card, root):
+    """The smoke's ladder (see the module docstring): the five lower
+    rungs of the clean corpus the executor phase wrote, on
+    ``LADDER_GRAPHS``, then the messy corpus's ``LADDER_HARD_RUNGS`` on
+    ``LADDER_HARD_GRAPHS``. Returns the K1 launches and the calls that
+    need a CPU rerun."""
+    reruns = []
+    _, k1 = ladder_run(card, os.path.join(root, "exp5"), os.path.join(root, "ladder"),
+                       False, LADDER_GRAPHS, LADDER_RUNGS, EXP5_LADDER_JAX, reruns)
+    _, k1_hard = ladder_run(card, os.path.join(root, "exp5-hard"),
+                            os.path.join(root, "ladder-hard"), True, LADDER_HARD_GRAPHS,
+                            LADDER_HARD_RUNGS, EXP5_LADDER_HARD_JAX, reruns)
+    return k1 + k1_hard, reruns
+
+
+def ladder_submit(pool, root, r):
+    """A ladder call's flagship on the CPU (:func:`cpu_flagship`)."""
+    return pool.submit(r["dir"], r["n"],
+                       os.path.join(root, "cpu-ladder", f"{r['corpus']}-{r['compress']}"),
+                       compress=r["compress"])
+
+
+def ladder_verdict(card, r, cpu):
+    """A ladder call that met ill-posed windows: the flagship on the CPU
+    must read JAX's number exactly (or the ``LADDER_PORT_CPU`` reading)
+    and the card read JAX's within ``ILL_POSED_MAX_PT`` with
+    ``ILL_POSED_MIN_PAIRS`` of every service's pairs equal to the CPU
+    run's (:func:`card_vs_cpu`)."""
+    return card_vs_cpu("ladder", r["name"], r["res"], r["ill"], r["ref"], cpu, card,
+                       config=r["corpus"], compress=r["compress"],
+                       cpu_ref=LADDER_PORT_CPU.get((r["corpus"], r["name"], r["compress"])))
+
+
+def ladder_reruns(card, root, reruns):
+    """:func:`ladder_verdict` of every call in ``reruns``; returns what
+    failed."""
+    pool, ok = CpuReruns(), False
+    try:
+        futs = [ladder_submit(pool, root, r) for r in reruns]
+        cpu = [f.result() for f in futs]
+        ok = True
+    finally:
+        pool.close(cancel=not ok)
+    return [ladder_verdict(card, r, c) for r, c in zip(reruns, cpu)]
+
+
+def ladder_main(card, out) -> None:
+    """``--ladder OUT``: exp5's whole ladder, both corpora (15 graphs x 6
+    rungs each, 180 calls), under :func:`ladder_run`'s rule, with the CPU
+    reruns after; the pickles the figures read go to ``OUT/clean`` and
+    ``OUT/hard``."""
+    from traceweaver_tpu_torch.runtime.ladder import RUNGS
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        reruns, failed = [], []
+        for messy, table in ((False, EXP5_LADDER_JAX), (True, EXP5_LADDER_HARD_JAX)):
+            sub = "hard" if messy else "clean"
+            try:
+                ladder_run(card, os.path.join(tmp, f"data-{sub}"), os.path.join(tmp, sub),
+                           messy, None, RUNGS, table, reruns, keep=os.path.join(out, sub))
+            except AssertionError as e:
+                failed.append(str(e))
+        failed += ladder_reruns(card, tmp, reruns)
+    print(f"ladder-main: {time.perf_counter() - t0:.3f} s, {len(reruns)} CPU reruns",
+          flush=True)
     failed = [f for f in failed if f]
     if failed:
         raise AssertionError("; ".join(failed))
@@ -1765,6 +2576,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--slice-root", help="run only the slice and fleet phases, "
                     "importing traceweaver_tpu_torch from this checkout")
+    ap.add_argument("--ladder", metavar="OUT", help="run only exp5's whole ladder of "
+                    "both corpora; the pickles the figures read go to OUT")
     args = ap.parse_args()
 
     import torch
@@ -1780,21 +2593,22 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    if args.slice_root:
-        report = K.build(verbose=True)
-    else:
-        from concurrent.futures import ThreadPoolExecutor
+    from concurrent.futures import ThreadPoolExecutor
 
-        from traceweaver_tpu_torch import native
+    from traceweaver_tpu_torch.ops import scores as SC
 
-        # g++ builds the C++ loader while nvcc builds the kernels
-        with ThreadPoolExecutor(1) as pool:
+    # one nvcc per source and g++ for the C++ loader, all at once
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(K.build, True), pool.submit(SC.build, True)]
+        if not args.slice_root:
+            from traceweaver_tpu_torch import native
+
             loader = pool.submit(native.build)
-            report = K.build(verbose=True)
             print(f"loader: {os.path.basename(loader.result())}", flush=True)
+        reports = [b.result() for b in builds]
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for ln in report.splitlines():
-        if "registers" in ln or "spill" in ln:
+    for ln in "\n".join(reports).splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("ptxas " + ln.strip(), flush=True)
 
     if args.slice_root:
@@ -1802,22 +2616,43 @@ def main() -> int:
         slice_phase(card)
         fleet_phase(card)
         return 0
-    launches, real_block = slice_phase(card)
-    fleet_launches, fleet_block, probs, fleet_wall = fleet_phase(card)
+    if args.ladder:
+        ladder_main(card, os.path.abspath(args.ladder))
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    t_smoke = time.perf_counter()
+    launches, real_block, slice_sweep, slice_peak = slice_phase(card)
+    fleet_launches, fleet_block, probs, fleet_wall, fleet_sweep, fleet_peak = \
+        fleet_phase(card)
+    bf16_launches, bf16_blocks = precision_phase(
+        card, probs, {"synth-async-8k": slice_peak, "synth-fleet-8svc": fleet_peak})
     with tempfile.TemporaryDirectory() as tmp:
         fleet_profile(probs, fleet_wall, card)
         del probs
         fault_run(tmp, card)
         executor_launches, gtfree_launches, executor_blocks, rerun_state = \
             executor_phase(card, tmp)
+        ladder_launches, ladder_reruns_needed = ladder_phase(card, tmp)
         scorecard_launches = scorecard_phase(card)
         K.reset_launches()
-        worst = kernel_phase(real_block, fleet_block, executor_blocks)
+        worst, worst_bf16 = kernel_phase(real_block, fleet_block, executor_blocks,
+                                         bf16_blocks)
+        score_err = max(score_check("slice-score-build", slice_sweep),
+                        score_check("fleet-score-build", fleet_sweep))
         checks = dict(K.LAUNCHES)
         timing = kernel_timing(real_block)
         fleet_timing = kernel_timing(fleet_block)
+        bf16_timing = kernel_timing(bf16_blocks["slice-block-bf16"])
+        bf16_fleet_timing = kernel_timing(bf16_blocks["fleet-block-bf16"])
+        score_time = score_timing("slice-score-build", slice_sweep, card)
+        fleet_score_time = score_timing("fleet-score-build", fleet_sweep, card)
+        del slice_sweep, fleet_sweep, bf16_blocks
         # the CPU work last, so that no timed phase shares the host with it
-        rerun_checks(card, tmp, *rerun_state)
+        rerun_checks(card, tmp, *rerun_state, ladder=ladder_reruns_needed)
+    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s after the build", flush=True)
     print("kernels: " + json.dumps({
         "fused_assign": launches["fused_assign"],
         "sinkhorn": launches["sinkhorn"],
@@ -1828,6 +2663,13 @@ def main() -> int:
         "gtfree_fused_assign": gtfree_launches["fused_assign"],
         "gtfree_sinkhorn": gtfree_launches["sinkhorn"],
         "scorecard_fused_assign": scorecard_launches,
+        "ladder_fused_assign": ladder_launches,
+        "bf16_fused_assign": bf16_launches["fused_assign"],
+        "bf16_sinkhorn": bf16_launches["sinkhorn"],
+        "bf16_fleet_fused_assign": bf16_launches["fleet_fused_assign"],
+        "bf16_executor_fused_assign": executor_launches["bf16_fused_assign"],
+        "score_block": launches["score_block"],
+        "fleet_score_block": fleet_launches["score_block"],
         "round_topk": checks["round_topk"]}), flush=True)
     src = "traceweaver_tpu_torch/ops/csrc/sinkhorn.cu"
     fleet_shape = list(fleet_block["S"].shape)
@@ -1835,7 +2677,7 @@ def main() -> int:
     def row(name, replaces, body, call, err):
         fleet = {f"fleet_{k}": v for k, v in fleet_timing[name].items()}
         return dict(name=name, route="cuda", source=src, replaces=replaces,
-                    tpu_kernel_body=body, pallas_call=call,
+                    tpu_kernel_body=body, pallas_call=call, score_dtype="float32",
                     launches=launches[name], max_abs_err=worst[err],
                     library_ms=None, **timing[name],
                     fleet_launches=fleet_launches[name], fleet_shape=fleet_shape,
@@ -1846,11 +2688,40 @@ def main() -> int:
                                      for k, v in executor_blocks.items()},
                     **fleet)
 
+    def bf16_row(name, replaces, body, call, err):
+        fleet = {f"fleet_{k}": v for k, v in bf16_fleet_timing[name].items()}
+        return dict(name=f"{name}_bf16", route="cuda", source=src, replaces=replaces,
+                    tpu_kernel_body=body, pallas_call=call, score_dtype="bfloat16",
+                    launches=bf16_launches[name], max_abs_err=worst_bf16[err],
+                    library_ms=None, **bf16_timing[name],
+                    fleet_launches=(bf16_launches["fleet_fused_assign"]
+                                    if name == "fused_assign" else 0),
+                    executor_launches=(executor_launches["bf16_fused_assign"]
+                                       if name == "fused_assign" else 0),
+                    **fleet)
+
+    def score_row():
+        return dict(name="score_block", route="cuda",
+                    source="traceweaver_tpu_torch/ops/csrc/scores.cu",
+                    replaces="traceweaver_tpu/algorithms/weaver_tpu.py:224",
+                    tpu_kernel_body=None, pallas_call=None,
+                    note="no TPU kernel: XLA fuses the score build there",
+                    launches=launches["score_block"], max_abs_err=score_err,
+                    ms=score_time["ms"], plain_ms=score_time["plain_ms"],
+                    bound_ms=score_time["bound_ms"], bound_by=score_time["bound_by"],
+                    library_ms=None, shape=score_time["shape"],
+                    launches_per_sweep=score_time["launches_per_sweep"],
+                    fleet_launches=fleet_launches["score_block"],
+                    **{f"fleet_{k}": fleet_score_time[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "shape",
+                        "launches_per_sweep")})
+
     pallas = "traceweaver_tpu/ops/pallas_sinkhorn.py"
-    table = [row("fused_assign", f"{pallas}:308", f"{pallas}:219 _fused_kernel",
-                 f"{pallas}:357", "k1_err"),
-             row("sinkhorn", f"{pallas}:140", f"{pallas}:80 _kernel",
-                 f"{pallas}:184", "plan_err")]
+    k1 = ("fused_assign", f"{pallas}:308", f"{pallas}:219 _fused_kernel",
+          f"{pallas}:357", "k1_err")
+    k2 = ("sinkhorn", f"{pallas}:140", f"{pallas}:80 _kernel", f"{pallas}:184",
+          "plan_err")
+    table = [row(*k1), bf16_row(*k1), row(*k2), bf16_row(*k2), score_row()]
     print(json.dumps({"kernels": table}), flush=True)
     torch.cuda.synchronize()
     print(card, flush=True)

@@ -9,6 +9,11 @@ these numbers (minus one point). Run on the CPU:
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-cg-8k
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-exp5-gtfree
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-cg-8k-gtfree
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-exp5-ladder
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-exp5-ladder-hard
+
+``TW_PRECISION=bf16`` and ``TW_SCORE_GEMM=1`` in the environment give the
+JAX package's bf16 and GEMM score paths on any config.
 
 ``synth-async-8k`` (the default) runs ``WeaverTPU.FindAssignments`` and
 prints one JSON line: accuracy, wall seconds and the solver's
@@ -30,6 +35,14 @@ prints one JSON line per run with the end-to-end accuracy per method.
 rung and ``alibaba-cg-8k`` with predictor 10 alone and ground-truth-free
 invocation-DAG discovery (``gt_free_dag``); their lines also give each
 service's discovered edges.
+
+``alibaba-exp5-ladder`` is exp5's whole ladder
+(``exps/exp5/run_experiment.sh``): compress 1, 200, 1000, 4000, 10000 and
+15000 over the 15 graphs, predictors 3,4,7,10, one JSON line per rung
+and graph; ``alibaba-exp5-ladder-hard`` the same over the messy corpus
+(``run_experiment_hard.sh``: ``synthesize_corpus(messy=MESSY_DEFAULT)``).
+``--graphs 0,4`` and ``--rungs 10000,15000`` limit either ladder to
+those graphs and compress factors.
 """
 
 from __future__ import annotations
@@ -122,6 +135,30 @@ def run_alibaba(graph_dir: str, replica_table, predictors, compress: float,
     return out
 
 
+LADDER_RUNGS = (1.0, 200.0, 1000.0, 4000.0, 10000.0, 15000.0)
+
+
+def ladder_config(config: str, out_root: str, graphs=None, rungs=LADDER_RUNGS) -> None:
+    """exp5's ladder (clean, or messy with ``-hard``): every rung of every
+    graph, rung by rung as the shell script runs them."""
+    from traceweaver_tpu.alibaba.synthesize import MESSY_DEFAULT, synthesize_corpus
+    from traceweaver_tpu.runtime.executor import load_replica_table
+
+    messy = MESSY_DEFAULT if config.endswith("-hard") else None
+    dirs = synthesize_corpus(out_root, n_graphs=15, traces_per_graph=1000,
+                             seed=10, messy=messy)
+    table = load_replica_table(os.path.join(out_root, "misc",
+                                            "service_to_replica_new.pickle"))
+    for compress in rungs:
+        for n, d in enumerate(dirs):
+            if graphs is not None and n not in graphs:
+                continue
+            r = run_alibaba(d, table, (3, 4, 7, 10), compress)
+            print(json.dumps(dict(config=config, graph=os.path.basename(d),
+                                  compress=compress, **r,
+                                  backend=jax.default_backend())), flush=True)
+
+
 def alibaba_configs(config: str, out_root: str) -> None:
     from traceweaver_tpu.alibaba.synthesize import synthesize_corpus
     from traceweaver_tpu.runtime.executor import load_replica_table
@@ -151,18 +188,30 @@ def main() -> None:
     ap.add_argument("--config", default="synth-async-8k",
                     choices=("synth-async-8k", "synth-fleet-8svc",
                              "alibaba-exp5-15000", "alibaba-cg-8k",
-                             "alibaba-exp5-gtfree", "alibaba-cg-8k-gtfree"))
+                             "alibaba-exp5-gtfree", "alibaba-cg-8k-gtfree",
+                             "alibaba-exp5-ladder", "alibaba-exp5-ladder-hard"))
     ap.add_argument("--traces", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="corpus directory of the alibaba configs "
                          "(default: a temporary one)")
+    ap.add_argument("--graphs", default=None,
+                    help="comma-separated graph numbers of a ladder config")
+    ap.add_argument("--rungs", default=None,
+                    help="comma-separated compress factors of a ladder config")
     args = ap.parse_args()
     if args.config.startswith("alibaba"):
         import tempfile
 
         with tempfile.TemporaryDirectory() as tmp:
-            alibaba_configs(args.config, args.out or tmp)
+            if "-ladder" in args.config:
+                graphs = (None if args.graphs is None
+                          else {int(g) for g in args.graphs.split(",")})
+                rungs = (LADDER_RUNGS if args.rungs is None
+                         else tuple(float(r) for r in args.rungs.split(",")))
+                ladder_config(args.config, args.out or tmp, graphs, rungs)
+            else:
+                alibaba_configs(args.config, args.out or tmp)
         return
     if args.config == "synth-fleet-8svc":
         probs = synth_fleet_services(args.traces, args.seed)

@@ -440,8 +440,9 @@ def test_solve_fleet_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tf.solve_fleet(_items(synth_fleet_8svc(8)[:1]))
-    with pytest.raises(NotImplementedError):
-        tf.solve_fleet(_items(synth_fleet_8svc(8)[:1]), device="cpu", precision="bf16")
+    # bf16 is a precision of the port now; a misspelt one still raises
+    with pytest.raises(ValueError):
+        tf.solve_fleet(_items(synth_fleet_8svc(8)[:1]), device="cpu", precision="bf61")
 
 
 # ---------------------------------------------------------------------------

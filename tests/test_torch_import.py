@@ -78,6 +78,10 @@ MIRRORS = {
     "traceweaver_tpu_torch.query": "traceweaver_tpu/query",
     "traceweaver_tpu_torch.query.delay_culprit": "traceweaver_tpu/query/delay_culprit.py",
     "traceweaver_tpu_torch.metrics.scorecard": "traceweaver_tpu/metrics/scorecard.py",
+    "traceweaver_tpu_torch.ops.scores": "traceweaver_tpu/ops/scores.py",
+    "traceweaver_tpu_torch.ops.precision": "traceweaver_tpu/ops/precision.py",
+    "traceweaver_tpu_torch.ops.sinkhorn": "traceweaver_tpu/ops/sinkhorn.py",
+    "traceweaver_tpu_torch.runtime.ladder": "exps/exp5/run_experiment.sh",
 }
 
 
@@ -185,10 +189,11 @@ def test_chip_smoke_refuses_without_card():
 
 
 def test_bf16_refused():
+    """Only a misspelt precision is refused; bf16 is a precision of the
+    port (it was refused until the bf16 score path came)."""
     from traceweaver_tpu_torch.ops.precision import validate_precision
 
     assert validate_precision("float32") == "f32"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        validate_precision("bf16")
+    assert validate_precision("bf16") == "bf16"
     with pytest.raises(ValueError):
         validate_precision("bf61")

@@ -15,7 +15,8 @@ from traceweaver_tpu_torch.algorithms.wap5 import WAP5  # noqa: F401
 from traceweaver_tpu_torch.algorithms.weaver_exact import WeaverExact  # noqa: F401
 
 
-def make_predictors(all_spans, all_processes, device=None):
+def make_predictors(all_spans, all_processes, device=None, precision: str = "f32",
+                    score_gemm: bool = False):
     """The ordered ``(method_name, instance)`` registry, index-compatible
     with the JAX package's (0..10):
 
@@ -28,9 +29,15 @@ def make_predictors(all_spans, all_processes, device=None):
     10 MaxScoreBatchSubsetWithSkips (WeaverTorch)
 
     Slots 0-7 run on the host; slots 8-10 on ``device`` (None: the card,
-    raising without one).
+    raising without one), with the score precision ``precision`` and the
+    GEMM score form when ``score_gemm`` (the JAX package's
+    ``TW_PRECISION`` and ``TW_SCORE_GEMM``, which its slots 8-10 read).
     """
     from traceweaver_tpu_torch.algorithms.weaver_torch import WeaverTorch
+
+    def weaver():
+        return WeaverTorch(all_spans, all_processes, device=device,
+                           precision=precision, score_gemm=score_gemm)
 
     return [
         ("MaxScoreBatch", WeaverExact(all_spans, all_processes)),
@@ -41,10 +48,7 @@ def make_predictors(all_spans, all_processes, device=None):
         ("ArrivalOrder", ArrivalOrder(all_spans, all_processes)),
         ("vPathOld", VPathOld(all_spans, all_processes)),
         ("vPath", VPath(all_spans, all_processes)),
-        ("MaxScoreBatchParallelWithoutIterations",
-         WeaverTorch(all_spans, all_processes, device=device)),
-        ("MaxScoreBatchParallel",
-         WeaverTorch(all_spans, all_processes, device=device)),
-        ("MaxScoreBatchSubsetWithSkips",
-         WeaverTorch(all_spans, all_processes, device=device)),
+        ("MaxScoreBatchParallelWithoutIterations", weaver()),
+        ("MaxScoreBatchParallel", weaver()),
+        ("MaxScoreBatchSubsetWithSkips", weaver()),
     ]

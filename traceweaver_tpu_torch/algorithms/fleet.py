@@ -101,12 +101,14 @@ from traceweaver_tpu_torch.obs import events as _events
 from traceweaver_tpu_torch.obs import profile as _profile
 from traceweaver_tpu_torch.obs import quality as _quality
 from traceweaver_tpu_torch.obs.registry import get_registry as _get_registry
-from traceweaver_tpu_torch.ops.precision import validate_precision
+from traceweaver_tpu_torch.ops.precision import score_itemsize, validate_precision
 from traceweaver_tpu_torch.runtime import faults as _faults
 from traceweaver_tpu_torch.spans import NA
 
 #: ``TW_FLEET_BUDGET``: f32 elements of one group's live blocks (score
-#: block plus refit samples); a group past it solves per service
+#: block plus refit samples); a group past it solves per service. Group
+#: costs are bytes, the score blocks at the score precision's item size
+#: (bf16: 2), so a bf16 solve fits about twice the windows under it
 FLEET_BUDGET_ELEMS = 1 << 28
 #: ``TW_FLEET_MERGE`` by device when not given: padded cells are real
 #: core-seconds on the CPU (merge conservatively, as the JAX package does
@@ -381,6 +383,7 @@ def solve_fleet(
     conf_device: bool = False,
     device=None,
     fused_kernel: bool = True,
+    score_gemm: bool = False,
 ) -> List[Tuple]:
     """Solve every item, fusing eligible ones into one dispatch per
     shape class. Returns one FindAssignments 6-tuple per item, in input
@@ -389,7 +392,10 @@ def solve_fleet(
 
     ``device=None`` means the card and raises without one; tests pass
     ``device="cpu"``. ``fused_kernel`` picks K1 (else K2 and the plain
-    rounding) on the card. ``precision`` accepts ``"f32"`` only.
+    rounding) on the card. ``precision`` is the score blocks' storage
+    precision (``"f32"`` or ``"bf16"``, ``TW_PRECISION``) and
+    ``score_gemm`` builds the scores in the GEMM form
+    (``TW_SCORE_GEMM``).
 
     The keyword-only knobs are the JAX package's: ``fleet_budget_elems``
     (``TW_FLEET_BUDGET``), ``merge_budget`` (``TW_FLEET_MERGE``; None
@@ -426,7 +432,8 @@ def solve_fleet(
     solver_kwargs = dict(max_window=max_window, epsilon=epsilon,
                          n_sinkhorn=n_sinkhorn, n_sweeps=n_sweeps,
                          sinkhorn_tol=sinkhorn_tol, precision=precision,
-                         fused_kernel=fused_kernel, device=dev)
+                         fused_kernel=fused_kernel, device=dev,
+                         score_gemm=score_gemm)
     results: List[Optional[Tuple]] = [None] * len(items)
     st = _as_stats(stats)
 
@@ -509,7 +516,7 @@ def solve_fleet(
     run = _Run(hypers=dict(epsilon=epsilon, n_sinkhorn=n_sinkhorn,
                            sinkhorn_tol=sinkhorn_tol, precision=precision,
                            topk=DEFAULT_TOPK, fused=fused_kernel,
-                           confidence=conf_device),
+                           confidence=conf_device, score_gemm=score_gemm),
                n_sweeps=n_sweeps, device=dev, compaction=compaction,
                sweep_warm=sweep_warm, retry_max=retry_max,
                retry_backoff_s=retry_backoff_s,
@@ -520,8 +527,9 @@ def solve_fleet(
                quarantined=quarantined if quarantined is not None else [],
                confidences=confidences)
     specs: List[_GroupSpec] = []
+    itemsize = score_itemsize(precision)
     for group in groups:
-        spec = _make_spec(group)
+        spec = _make_spec(group, itemsize)
         if spec.cost > run.budget_bytes:
             # the padded group would stress device memory: per service
             _run_fallback([(p[0], p[1]) for p in group], results, all_spans,
@@ -555,10 +563,11 @@ class _GroupSpec:
         self.cost = cost
 
 
-def _make_spec(group: List) -> _GroupSpec:
-    """Padded geometry and f32 byte cost (score block plus the gathered
-    ``[P*Ne, Bmax*W]`` refit samples of two-pass groups) of one group;
-    shared by the grouping and the supervisor's bisection."""
+def _make_spec(group: List, itemsize: int) -> _GroupSpec:
+    """Padded geometry and byte cost of one group: the score blocks at
+    ``itemsize`` bytes an element plus the gathered ``[P*Ne, Bmax*W]``
+    f32 refit samples of two-pass groups; shared by the grouping and the
+    supervisor's bisection."""
     W_pad = max(p[6] for p in group)
     M_pad = max(p[7] for p in group)
     E_pad = max(len(p[2]["out_eps"]) for p in group)
@@ -568,7 +577,7 @@ def _make_spec(group: List) -> _GroupSpec:
     score_elems = sum(len(p[3]) for p in group) * E_pad * W_pad * M_pad
     refit_elems = len(group) * Ne * bmax * W_pad if n_passes == 2 else 0
     return _GroupSpec(group, W_pad, M_pad, E_pad, bmax, n_passes,
-                      4 * (score_elems + refit_elems))
+                      itemsize * score_elems + 4 * refit_elems)
 
 
 # ---------------------------------------------------------------------------
@@ -624,7 +633,7 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
         st.note("fault_ladder", "bisect")
         mid = len(spec.group) // 2
         for half in (spec.group[:mid], spec.group[mid:]):
-            half_spec = _make_spec(half)
+            half_spec = _make_spec(half, score_itemsize(run.hypers["precision"]))
             half_pg = _pack_group(half_spec, st)
             try:
                 _attempt_group(half_pg, half_spec, results, st, run, ctx)

@@ -45,8 +45,8 @@ from traceweaver_tpu_torch.obs import quality as _quality
 from traceweaver_tpu_torch.obs.registry import get_registry as _get_registry
 from traceweaver_tpu_torch.ops.cuda_sinkhorn import assign_topk
 from traceweaver_tpu_torch.ops.gmm import fit_gmm_in_graph
-from traceweaver_tpu_torch.ops.precision import validate_precision
-from traceweaver_tpu_torch.ops.scores import mixture_logpdf, pair_scores
+from traceweaver_tpu_torch.ops.precision import score_itemsize, validate_precision
+from traceweaver_tpu_torch.ops.scores import MixtureTerm, score_block
 from traceweaver_tpu_torch.runtime.bucketing import pow2_bucket
 from traceweaver_tpu_torch.spans import NA, SKIP, Span, SpanArray
 
@@ -104,6 +104,7 @@ def _solve_windows_impl(
     precision: str = "f32",
     fused: bool = True,
     confidence: bool = False,
+    score_gemm: bool = False,
 ):
     """Shared body of :func:`solve_windows` and the packed entry points.
 
@@ -118,8 +119,18 @@ def _solve_windows_impl(
     and the entropy of its ``softmax(S / epsilon)`` over feasible
     columns, both x ``CONF_SCALE``. They are plain tensor operations on
     the block, outside the kernels.
+
+    The score block of an endpoint is built in f32 by
+    :func:`~traceweaver_tpu_torch.ops.scores.score_block` (on the card
+    the score-build kernel; ``score_gemm`` the GEMM form, the JAX
+    package's ``TW_SCORE_GEMM``, at every term as under its per-window
+    ``vmap``). Under ``precision="bf16"`` each row of the assembled
+    block is centred at its best feasible score and the block is stored
+    in bf16 (JAX ``weaver_tpu.py:278-296``); the kernels, ``not_best``'s
+    argmax and the confidence margins read that block, and the
+    marginals and everything that accumulates stay f32.
     """
-    validate_precision(precision)
+    precision = validate_precision(precision)
     B, E, M = out_start.shape
     W = in_start.shape[1]
     dev = in_start.device
@@ -147,9 +158,6 @@ def _solve_windows_impl(
     def box(x):          # [B] -> [B, 1, 1]
         return x[:, None, None]
 
-    def params(t, *ix):  # gather a [B, ...] table row per window -> [B, 1, 1, K]
-        return t[(bidx,) + ix][:, None, None, :]
-
     def ep_step(e: int, chosen_end, chosen_start, backward: bool):
         pmask = pred_mask[:, e, :]                       # [B, E]
         smask = pred_mask[:, :, e]
@@ -159,32 +167,26 @@ def _solve_windows_impl(
         o_s, o_e, o_v = out_start[:, e], out_end[:, e], out_valid[:, e]
 
         # --- score block --------------------------------------------------
-        S = torch.where(box(root_mask[:, e]),
-                        pair_scores(in_s, o_s, in_wt[:, e], in_mu[:, e],
-                                    in_sd[:, e]), zero)
-        terms = []
+        root = MixtureTerm(in_s, o_s, in_wt[:, e], in_mu[:, e], in_sd[:, e],
+                           root_mask[:, e])
+        preds = []
         for j in range(n_pred):
             p = pred_idx[:, e, j]
-            sc = pair_scores(chosen_end[bidx, p], o_s, edge_wt[bidx, e, p],
-                             edge_mu[bidx, e, p], edge_sd[bidx, e, p])
-            terms.append(torch.where(box(pred_ok[:, e, j]), sc, zero))
-        S = S + torch.stack(terms).sum(dim=0)
-        terms = []
+            preds.append(MixtureTerm(chosen_end[bidx, p], o_s, edge_wt[bidx, e, p],
+                                     edge_mu[bidx, e, p], edge_sd[bidx, e, p],
+                                     pred_ok[:, e, j]))
+        succs = []
         for j in range(n_succ):
             # edge (e -> u): delay succ_start_u - out_end_e
             u = succ_idx[:, e, j]
             cs = chosen_start[bidx, u]                   # [B, W]
-            delta = cs[:, :, None] - o_e[:, None, :]
-            sc = mixture_logpdf(delta, params(edge_wt, u, e),
-                                params(edge_mu, u, e), params(edge_sd, u, e))
-            active = box(succ_ok[:, e, j] & backward) & (cs < POS / 2)[:, :, None]
-            terms.append(torch.where(active, sc, zero))
-        S = S + torch.stack(terms).sum(dim=0)
-        ret_delta = in_e[:, :, None] - o_e[:, None, :]
-        S = S + torch.where(
-            box(is_last[:, e]),
-            mixture_logpdf(ret_delta, params(ret_wt, e), params(ret_mu, e),
-                           params(ret_sd, e)), zero)
+            succs.append(MixtureTerm(cs, o_e, edge_wt[bidx, u, e], edge_mu[bidx, u, e],
+                                     edge_sd[bidx, u, e], succ_ok[:, e, j] & backward,
+                                     row_ok=cs < POS / 2, flip=True))
+        ret = MixtureTerm(in_e, o_e, ret_wt[:, e], ret_mu[:, e], ret_sd[:, e],
+                          is_last[:, e], flip=True)
+        with _obs_profile.annotate("tw:solve:score"):
+            S = score_block(root, preds, succs, ret, gemm=score_gemm)
 
         # --- feasibility --------------------------------------------------
         feas = (in_v[:, :, None] & o_v[:, None, :]
@@ -203,6 +205,16 @@ def _solve_windows_impl(
         skip_score = torch.where(force_skip[:, e], zero, skip_score)
         skip_score = torch.where(in_v, skip_score, neg)
         Sfull = torch.cat([S, skip_score[:, :, None]], dim=2)     # [B, W, M+1]
+        if precision == "bf16":
+            # entropic OT is invariant to a constant per row: centred at
+            # its best feasible score, a row keeps its margins in bf16's
+            # 8 mantissa bits; masked entries stay NEG (in place on the
+            # fresh f32 block: no second f32 copy)
+            row_ref = torch.where(row_best > NEG / 2, row_best, zero)
+            masked = Sfull <= NEG / 2
+            Sfull = Sfull.sub_(row_ref[:, :, None]).masked_fill_(masked, NEG).to(
+                torch.bfloat16)
+            del masked
 
         # --- marginals (dummy row absorbs surplus columns) ------------------
         n_rows = in_v.sum(dim=1).to(S.dtype)
@@ -212,8 +224,8 @@ def _solve_windows_impl(
             [in_v.to(S.dtype), torch.clamp(n_cols + cap_e - n_rows, min=0.0)[:, None]],
             dim=1)
         col_marg = torch.cat([o_v.to(S.dtype), cap_e[:, None]], dim=1)
-        S_ot = torch.cat([Sfull, torch.zeros(B, 1, M + 1, dtype=S.dtype, device=dev)],
-                         dim=1)
+        S_ot = torch.cat([Sfull, torch.zeros(B, 1, M + 1, dtype=Sfull.dtype,
+                                             device=dev)], dim=1)
         col_valid = torch.cat([o_v, (cap_e > 0)[:, None]], dim=1)
         assign, tk = assign_topk(
             S_ot, row_marg, col_marg, in_v, col_valid, cap_e, W,
@@ -230,9 +242,10 @@ def _solve_windows_impl(
             return assign, tk, not_best, feas_count
         # the row conditional softmax(S / eps) is the Sinkhorn plan row
         # without the column potentials: its entropy is 0 for a one-hot row
-        top2 = torch.topk(Sfull, 2, dim=2).values
+        Sf = Sfull.to(torch.float32)
+        top2 = torch.topk(Sf, 2, dim=2).values
         margin = torch.clamp(top2[..., 0] - top2[..., 1], min=0.0)
-        p = torch.softmax(torch.where(Sfull > NEG / 2, Sfull / epsilon, neg), dim=2)
+        p = torch.softmax(torch.where(Sf > NEG / 2, Sf / epsilon, neg), dim=2)
         ent = -torch.where(p > 0.0, p * torch.log(p + 1e-30), zero).sum(dim=2)
         scale = _layout.CONF_SCALE
         margin_q = (torch.clamp(margin, max=2.0e6) * scale).to(torch.int32)
@@ -283,7 +296,8 @@ def solve_windows(in_start, in_end, in_valid, out_start, out_end, out_valid,
                   n_sinkhorn: int = 40, topk: int = DEFAULT_TOPK,
                   n_sweeps: int = 5, sinkhorn_tol: float = 0.0,
                   max_preds: int = 0, max_succs: int = 0,
-                  precision: str = "f32", fused: bool = True):
+                  precision: str = "f32", fused: bool = True,
+                  score_gemm: bool = False):
     """Solve every window of one problem by Gauss-Seidel sweeps.
 
     Returns assign [B, E, W] int32 (M = skip, -1 = unassigned), topk
@@ -298,7 +312,7 @@ def solve_windows(in_start, in_end, in_valid, out_start, out_end, out_valid,
                   in_wt, in_mu, in_sd, ret_wt, ret_mu, ret_sd)),
         epsilon=epsilon, n_sinkhorn=n_sinkhorn, topk=topk, n_sweeps=n_sweeps,
         sinkhorn_tol=sinkhorn_tol, max_preds=max_preds, max_succs=max_succs,
-        precision=precision, fused=fused)
+        precision=precision, fused=fused, score_gemm=score_gemm)
     return outs[:4]
 
 
@@ -325,7 +339,7 @@ def solve_windows_fleet(in_start, in_end, in_valid, out_start, out_end,
                         n_sweeps: int = 5, sinkhorn_tol: float = 0.0,
                         max_preds: int = 0, max_succs: int = 0,
                         precision: str = "f32", fused: bool = True,
-                        confidence: bool = False):
+                        confidence: bool = False, score_gemm: bool = False):
     """Multi-service solve: ``param_idx[b]`` picks window b's row of the
     stacked ``[P, ...]`` tables, so windows of every service of a fleet
     share one batch (endpoint axes padded to the fleet's widest; padded
@@ -342,7 +356,8 @@ def solve_windows_fleet(in_start, in_end, in_valid, out_start, out_end,
         in_wts, in_mus, in_sds, ret_wts, ret_mus, ret_sds,
         epsilon=epsilon, n_sinkhorn=n_sinkhorn, topk=topk, n_sweeps=n_sweeps,
         sinkhorn_tol=sinkhorn_tol, max_preds=max_preds, max_succs=max_succs,
-        precision=precision, fused=fused, confidence=confidence)
+        precision=precision, fused=fused, confidence=confidence,
+        score_gemm=score_gemm)
     return _pack_solver_outputs(*outs[:-1]), outs[-1]
 
 
@@ -892,10 +907,11 @@ class WeaverTorch:
     ``device=None`` means the card (``cuda``), and raises when there is
     none; tests pass ``device="cpu"``. The JAX package's ``TW_*`` knobs
     are constructor arguments here with the knobs' defaults;
-    ``fused_kernel`` is the counterpart of ``TW_PALLAS_FUSED`` and
-    ``confidence`` of ``TW_CONFIDENCE``: with it, every
-    ``FindAssignments`` leaves its per-span records
-    (:mod:`traceweaver_tpu_torch.obs.quality`) in
+    ``fused_kernel`` is the counterpart of ``TW_PALLAS_FUSED``,
+    ``precision`` (``"f32"`` or ``"bf16"``) of ``TW_PRECISION``,
+    ``score_gemm`` of ``TW_SCORE_GEMM`` and ``confidence`` of
+    ``TW_CONFIDENCE``: with it, every ``FindAssignments`` leaves its
+    per-span records (:mod:`traceweaver_tpu_torch.obs.quality`) in
     :attr:`per_span_confidence`.
     """
 
@@ -905,7 +921,7 @@ class WeaverTorch:
                  sinkhorn_tol: float = 1e-3,
                  precision: str = "f32", topk: int = DEFAULT_TOPK,
                  fused_kernel: bool = True, device=None,
-                 confidence: bool = True):
+                 confidence: bool = True, score_gemm: bool = False):
         self.device = resolve_device(device)
         self.all_spans = all_spans
         self.all_processes = all_processes
@@ -918,6 +934,7 @@ class WeaverTorch:
         self.topk = topk
         self.fused_kernel = fused_kernel
         self.confidence = confidence
+        self.score_gemm = score_gemm
         # per-solve stage seconds, populated by FindAssignments
         self.stats: Dict[str, float] = {}
         # {in span id: confidence record} of the last solve ({} when off)
@@ -979,8 +996,8 @@ class WeaverTorch:
             batches_spec.append((c, wins))
             carry = []
 
-        # per-dispatch byte budget of f32 score blocks
-        itemsize = 4
+        # per-dispatch byte budget of score blocks at the score precision
+        itemsize = score_itemsize(self.precision)
         chunk_bytes = CHUNK_ELEMS * 4
         plan = []
         for wclass, wins in batches_spec:
@@ -1021,7 +1038,8 @@ class WeaverTorch:
                     epsilon=self.epsilon, n_sinkhorn=self.n_sinkhorn,
                     topk=self.topk, n_sweeps=n_sweeps,
                     sinkhorn_tol=self.sinkhorn_tol, max_preds=mp, max_succs=ms,
-                    precision=self.precision, fused=self.fused_kernel)
+                    precision=self.precision, fused=self.fused_kernel,
+                    score_gemm=self.score_gemm)
             o = out.cpu().numpy()
             _stat_add(stats, "solve_s", time.perf_counter() - t0)
             ch = _layout.split_packed(o, topk=self.topk)

@@ -10,6 +10,13 @@
 // plan given in device memory, so that stage can be held bit for bit
 // against the plain PyTorch rounding.
 //
+// Each kernel that reads scores is a template on the score type: float, or
+// __nv_bfloat16 for the bf16 score path (Pallas bodies :88-94 and :237-241
+// keep a bf16 block at storage precision and upcast it on each use). The
+// tile ring carries the stored type, so a bf16 block streams half the
+// bytes; every use upcasts to f32 and scales by log2(e)/eps, and the
+// potentials, column partials, plan and rounding state stay f32.
+//
 // What bounds it on this card: the work is one [R, C] f32 score block per
 // window (R = W + 1 rows with the dummy row, C = M + 1 columns with the
 // skip column; 8.4 MB at 1025 x 2049). Each Sinkhorn half-iteration does
@@ -56,7 +63,6 @@
 // SFU, and HBM is not the limit either; overlapping the two phases in
 // separate warp groups, more chains per lane and tree reductions did not
 // change the time per element, so the cause is still to be measured.
-// bf16 storage is the next step on the bytes.
 //
 // Plan entries are formed with __fmul_rn/__fadd_rn (never contracted into
 // an FMA) from phi and psi2 * ln2, and K1, K2 and round_topk run one
@@ -64,6 +70,7 @@
 // equals the plan the plain Sinkhorn kernel writes, bit for bit.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -93,6 +100,10 @@ __device__ __forceinline__ float plan_val(float s, float inv_eps, float phi,
   float x = __fadd_rn(__fadd_rn(__fmul_rn(s, inv_eps), phi), psi);
   return expf(fminf(fmaxf(x, -80.f), 80.f));
 }
+
+// a stored score as f32 (the bf16 upcast is exact)
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 static const float kLog2e = 1.4426950408889634f;
 static const float kLn2 = 0.6931471805599453f;
@@ -201,28 +212,31 @@ __device__ inline Geo geometry(cg::cluster_group cl, int R, int C) {
 // of the Sinkhorn loop and, as pv/pi, the partial column argmaxes of the
 // rounding.
 struct Smem {
-  float *ring, *psi2, *pm, *ps, *log_c, *phi, *log_r, *skip_all;
+  unsigned char *ring;  // tiles of the stored score type; the peel's cache
+  float *psi2, *pm, *ps, *log_c, *phi, *log_r, *skip_all;
   int *assign, *row_arg;
   uint8_t *flags, *row_ok, *col_ok, *col_taken, *wanted;
 };
 
-// floats of one ring slot: TR rows rounded up to 16 bytes, plus 16 bytes of
-// slack for the tile's alignment shift
-__host__ __device__ inline size_t slot_floats(int TR, int C) {
-  return (((size_t)TR * C + 3) & ~(size_t)3) + 4;
+// elements of one ring slot holding `item`-byte scores: TR rows rounded up
+// to 16 bytes, plus 16 bytes of slack for the tile's alignment shift
+__host__ __device__ inline size_t slot_elems(int TR, int C, int item) {
+  const size_t v = 16 / item;
+  return (((size_t)TR * C + v - 1) & ~(v - 1)) + v;
 }
 
 // same layout as smem_bytes() in ops/cuda_sinkhorn.py, which checks the limit
-static inline size_t smem_bytes(int R, int C, int G, int TR) {
+static inline size_t smem_bytes(int R, int C, int G, int TR, int item) {
   const size_t rs = (size_t)((R + G - 1) / G), cs = (size_t)((C + G - 1) / G);
-  return 8 * slot_floats(TR, C) + 15 * (size_t)C + 4 * cs + 4 * (size_t)R + 18 * rs;
+  return 2 * item * slot_elems(TR, C, item) + 15 * (size_t)C + 4 * cs + 4 * (size_t)R +
+         18 * rs;
 }
 
-__device__ inline Smem carve(void *base, int R, int C, int G, int TR) {
+__device__ inline Smem carve(void *base, int R, int C, int G, int TR, int item) {
   const int rs = (R + G - 1) / G;
   Smem s;
-  s.ring = (float *)base;
-  s.psi2 = s.ring + 2 * slot_floats(TR, C);
+  s.ring = (unsigned char *)base;
+  s.psi2 = (float *)(s.ring + 2 * item * slot_elems(TR, C, item));
   s.pm = s.psi2 + C;
   s.ps = s.pm + C;
   s.log_c = s.ps + C;
@@ -272,44 +286,59 @@ __device__ __forceinline__ void mbar_wait(uint64_t *bar, unsigned parity) {
       : "memory");
 }
 
-// A ring slot (slot_floats) holds a tile plus 4 floats of slack: tile t of
-// the stripe starts at float (src mod 4) of its slot, so that source and
-// destination share their alignment and the body moves as one bulk copy.
-__device__ __forceinline__ int tile_shift(const float *src) {
-  return (int)(((uintptr_t)src >> 2) & 3);
+// A ring slot (slot_elems) holds a tile plus 16 bytes of slack: tile t of
+// the stripe starts at element (src mod 16 bytes) of its slot, so that
+// source and destination share their alignment and the body moves as one
+// bulk copy.
+template <typename T>
+__device__ __forceinline__ int tile_shift(const T *src) {
+  return (int)(((uintptr_t)src / sizeof(T)) & (16 / sizeof(T) - 1));
+}
+
+// one unaligned head or tail element: cp.async for a float, a plain copy
+// for a bf16 (cp.async moves 4, 8 or 16 bytes); both are visible after the
+// barrier that follows the tile's mbarrier wait
+__device__ __forceinline__ void copy_elem(float *dst, const float *src) {
+  cp_async4(dst, src);
+}
+__device__ __forceinline__ void copy_elem(__nv_bfloat16 *dst, const __nv_bfloat16 *src) {
+  *dst = *src;
 }
 
 // Start copying tile t (rows [t*TR, t*TR + TR) of the stripe) into its
 // slot: one thread of the second-to-last warp hands the 16-byte-aligned
 // body to the bulk-copy engine (completion on the slot's mbarrier), and up
-// to 6 lanes of warp 1 copy the unaligned head and tail floats with
-// cp.async. The last warp, which takes the leftover columns, does neither.
-__device__ __forceinline__ void fetch_tile(float *slot, uint64_t *bar, const float *Sr,
-                                           int C, int nloc, int TR, int t) {
+// to 14 lanes of warp 1 copy the unaligned head and tail elements. The
+// last warp, which takes the leftover columns, does neither.
+template <typename T>
+__device__ __forceinline__ void fetch_tile(T *slot, uint64_t *bar, const T *Sr, int C,
+                                           int nloc, int TR, int t) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16 bytes
   const int n = min(TR, nloc - t * TR) * C;
-  const float *src = Sr + (size_t)t * TR * C;
-  float *dst = slot + tile_shift(src);
-  const int head = min((4 - tile_shift(src)) & 3, n);
-  const int body = ((n - head) >> 2) << 2;
+  const T *src = Sr + (size_t)t * TR * C;
+  T *dst = slot + tile_shift(src);
+  const int head = min((V - tile_shift(src)) & (V - 1), n);
+  const int body = (n - head) / V * V;
   const int tail = n - head - body;
   const int tid = threadIdx.x;
+  const int nbytes = (int)sizeof(T) * body;
   if (tid == TW_THREADS - 64) {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                      smem_addr(bar)),
-                 "r"(4 * body)
+                 "r"(nbytes)
                  : "memory");
     if (body > 0)
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], "
           "%2, [%3];\n" ::"r"(smem_addr(dst + head)),
-          "l"(src + head), "r"(4 * body), "r"(smem_addr(bar))
+          "l"(src + head), "r"(nbytes), "r"(smem_addr(bar))
           : "memory");
   } else if (tid >= 32 && tid < 32 + head) {
-    cp_async4(dst + tid - 32, src + tid - 32);
+    copy_elem(dst + tid - 32, src + tid - 32);
   } else if (tid >= 40 && tid < 40 + tail) {
     const int e = n - tail + (tid - 40);
-    cp_async4(dst + e, src + e);
+    copy_elem(dst + e, src + e);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -333,8 +362,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // last one is the next iteration's first. The sums run in base 2 on
 // x = S * log2(e)/eps + pot * log2(e); phi is kept in natural units, psi
 // in base 2 (psi2).
+template <typename T>
 __device__ int sinkhorn_cluster(cg::cluster_group cl,
-                                const float *__restrict__ S, int R, int C,
+                                const T *__restrict__ S, int R, int C,
                                 const Geo &g, int TR, int n_iters, float inv_eps,
                                 float tol_phi, const Smem &sm) {
   __shared__ float s_delta[2];
@@ -347,7 +377,8 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
   const int wpr = TW_WARPS / TR;
   const int seg = max(32 * TW_BATCH, C / wpr / (32 * TW_BATCH) * (32 * TW_BATCH));
   const float a2 = inv_eps * kLog2e;
-  const float *Sr = S + (size_t)g.r0 * C;
+  const T *Sr = S + (size_t)g.r0 * C;
+  T *ring = (T *)sm.ring;
   for (int i = tid; i < nloc; i += TW_THREADS) sm.phi[i] = 0.f;
   for (int j = tid; j < C; j += TW_THREADS) sm.psi2[j] = 0.f;
   if (tid < TW_BATCH) s_done[tid] = 0;
@@ -360,9 +391,9 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
     s_delta[0] = 0.f;
     s_delta[1] = 0.f;
   }
-  const size_t slot = slot_floats(TR, C);
+  const size_t slot = slot_elems(TR, C, sizeof(T));
   const bool streams = ntiles > 0 && n_iters > 0;
-  if (streams) fetch_tile(sm.ring, &s_bar[0], Sr, C, nloc, TR, 0);
+  if (streams) fetch_tile(ring, &s_bar[0], Sr, C, nloc, TR, 0);
   __syncthreads();
   int it = 0, k = 0;  // k counts tiles over all iterations (ring slot k & 1)
   while (it < n_iters) {
@@ -374,12 +405,12 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
       sm.ps[j] = 0.f;
     }
     for (int t = 0; t < ntiles; ++t, ++k) {
-      const float *tile = sm.ring + (k & 1) * slot + tile_shift(Sr + (size_t)t * TR * C);
+      const T *tile = ring + (k & 1) * slot + tile_shift(Sr + (size_t)t * TR * C);
       const int rows = min(TR, nloc - t * TR), l0 = t * TR;
       mbar_wait(&s_bar[k & 1], (k >> 1) & 1);
       cp_async_wait_all();
       __syncthreads();  // tile k landed; every thread is done with slot k+1
-      fetch_tile(sm.ring + ((k + 1) & 1) * slot, &s_bar[(k + 1) & 1], Sr, C, nloc, TR,
+      fetch_tile(ring + ((k + 1) & 1) * slot, &s_bar[(k + 1) & 1], Sr, C, nloc, TR,
                  t + 1 < ntiles ? t + 1 : 0);
       // row partials: warp -> (tile row q, column segment); full batches
       // of 8 per lane, then the ragged end one element at a time
@@ -387,7 +418,7 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
       if (q < rows) {
         const int sgi = warp % wpr, jlo = min(C, sgi * seg);
         const int jhi = sgi == wpr - 1 ? C : min(C, jlo + seg);
-        const float *row = tile + (size_t)q * C;
+        const T *row = tile + (size_t)q * C;
         // two independent accumulators for instruction-level parallelism
         float m = -INFINITY, s = 0.f, m2 = -INFINITY, s2 = 0.f;
         int j0 = jlo + lane;
@@ -396,8 +427,8 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
 #pragma unroll
           for (int u = 0; u < TW_BATCH; ++u) {
             const int ja = j0 + 32 * u, jb = ja + 32 * TW_BATCH;
-            x[u] = __fmaf_rn(row[ja], a2, sm.psi2[ja]);
-            y[u] = __fmaf_rn(row[jb], a2, sm.psi2[jb]);
+            x[u] = __fmaf_rn(to_f32(row[ja]), a2, sm.psi2[ja]);
+            y[u] = __fmaf_rn(to_f32(row[jb]), a2, sm.psi2[jb]);
           }
           lse_batch(m, s, x);
           lse_batch(m2, s2, y);
@@ -406,11 +437,12 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
           float x[TW_BATCH];
 #pragma unroll
           for (int u = 0; u < TW_BATCH; ++u)
-            x[u] = __fmaf_rn(row[j0 + 32 * u], a2, sm.psi2[j0 + 32 * u]);
+            x[u] = __fmaf_rn(to_f32(row[j0 + 32 * u]), a2, sm.psi2[j0 + 32 * u]);
           lse_batch(m, s, x);
           j0 += 32 * TW_BATCH;
         }
-        for (; j0 < jhi; j0 += 32) lse_push(m2, s2, __fmaf_rn(row[j0], a2, sm.psi2[j0]));
+        for (; j0 < jhi; j0 += 32)
+          lse_push(m2, s2, __fmaf_rn(to_f32(row[j0]), a2, sm.psi2[j0]));
         lse_merge(m, s, m2, s2);
         group_lse(m, s, 32);
         int last = 0;
@@ -456,9 +488,9 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
         float x[TW_BATCH], y[TW_BATCH];
 #pragma unroll
         for (int u = 0; u < TW_BATCH; ++u) {
-          const float *r = tile + (size_t)min(u, TR - 1) * C;
-          x[u] = u < rows ? __fmaf_rn(r[j], a2, ph[u]) : -INFINITY;
-          y[u] = u < rows ? __fmaf_rn(r[jb], a2, ph[u]) : -INFINITY;
+          const T *r = tile + (size_t)min(u, TR - 1) * C;
+          x[u] = u < rows ? __fmaf_rn(to_f32(r[j]), a2, ph[u]) : -INFINITY;
+          y[u] = u < rows ? __fmaf_rn(to_f32(r[jb]), a2, ph[u]) : -INFINITY;
         }
         float m = sm.pm[j], s = sm.ps[j], m2 = sm.pm[jb], s2 = sm.ps[jb];
         lse_batch(m, s, x);
@@ -505,13 +537,14 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
 }
 
 // plan entry accessors for the rounding code (row i is a block row)
+template <typename T>
 struct PlanFromScores {
-  const float *S;
+  const T *S;
   int C, r0;
   float inv_eps;
   const float *phi, *psi2;  // phi of the stripe starting at row r0
   __device__ float operator()(int i, int j) const {
-    return plan_val(S[(size_t)i * C + j], inv_eps, phi[i - r0], psi2[j] * kLn2);
+    return plan_val(to_f32(S[(size_t)i * C + j]), inv_eps, phi[i - r0], psi2[j] * kLn2);
   }
 };
 
@@ -532,7 +565,8 @@ struct PlanFromTensor {
 // invalid or taken, or it is the skip column after the capacity ran out.
 template <class Plan>
 __device__ int round_and_peel(cg::cluster_group cl, const Plan &P,
-                              int n_rows, int C, const Geo &g, int TR, int cap, int topk,
+                              int n_rows, int C, const Geo &g, int TR, int item, int cap,
+                              int topk,
                               float min_mass, const Smem &sm, int *assign_out,
                               int *topk_out) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -694,10 +728,11 @@ __device__ int round_and_peel(cg::cluster_group cl, const Plan &P,
   // of argmax + mask; a pass whose best unpicked value is -inf takes the
   // first unpicked index. The first pass keeps the row's masked plan in
   // a row of the (now idle) tile ring, so the later passes read shared
-  // memory; a warp per row, as many warps as the ring has rows.
+  // memory; a warp per row, as many warps as the ring has f32 rows
+  // (2 x TR x item / 4, item the stored score's bytes).
   int *pk = s_pk[warp];
-  const int n_peel = min(TW_WARPS, 2 * TR);
-  float *cache = sm.ring + (size_t)warp * C;
+  const int n_peel = min(TW_WARPS, 2 * TR * item / 4);
+  float *cache = (float *)sm.ring + (size_t)warp * C;
   for (int li = warp; li < nloc && warp < n_peel; li += n_peel) {
     const int i = lo + li;
     for (int step = 0; step < topk; ++step) {
@@ -756,8 +791,9 @@ __device__ inline void load_marginals(const float *row_marg, const float *col_ma
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(TW_THREADS, 1)
-fused_assign_kernel(const float *__restrict__ S, const float *__restrict__ row_marg,
+fused_assign_kernel(const T *__restrict__ S, const float *__restrict__ row_marg,
                     const float *__restrict__ col_marg, const float *__restrict__ cap,
                     int R, int C, int TR, int n_rows, int n_iters, float inv_eps,
                     float tol_phi, int topk, float min_mass, int *assign_out,
@@ -766,16 +802,16 @@ fused_assign_kernel(const float *__restrict__ S, const float *__restrict__ row_m
   cg::cluster_group cl = cg::this_cluster();
   const Geo g = geometry(cl, R, C);
   const int b = blockIdx.x / g.G;
-  Smem sm = carve(tw_smem, R, C, g.G, TR);
-  const float *Sb = S + (size_t)b * R * C;
+  Smem sm = carve(tw_smem, R, C, g.G, TR, sizeof(T));
+  const T *Sb = S + (size_t)b * R * C;
   load_marginals(row_marg + (size_t)b * R, col_marg + (size_t)b * C, C, g, sm);
   for (int li = threadIdx.x; li < g.r1 - g.r0; li += TW_THREADS)
     sm.row_ok[li] = sm.log_r[li] > 0.5f * kNeg;
   __syncthreads();
   const int iters = sinkhorn_cluster(cl, Sb, R, C, g, TR, n_iters, inv_eps, tol_phi, sm);
-  PlanFromScores P{Sb, C, g.r0, inv_eps, sm.phi, sm.psi2};
-  const int rounds = round_and_peel(cl, P, n_rows, C, g, TR, (int)cap[b], topk, min_mass,
-                                    sm, assign_out + (size_t)b * n_rows,
+  PlanFromScores<T> P{Sb, C, g.r0, inv_eps, sm.phi, sm.psi2};
+  const int rounds = round_and_peel(cl, P, n_rows, C, g, TR, sizeof(T), (int)cap[b], topk,
+                                    min_mass, sm, assign_out + (size_t)b * n_rows,
                                     topk_out + (size_t)b * n_rows * topk);
   if (threadIdx.x == 0 && g.rank == 0) {
     stats_out[2 * b] = iters;
@@ -783,8 +819,9 @@ fused_assign_kernel(const float *__restrict__ S, const float *__restrict__ row_m
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(TW_THREADS, 1)
-sinkhorn_plan_kernel(const float *__restrict__ S, const float *__restrict__ row_marg,
+sinkhorn_plan_kernel(const T *__restrict__ S, const float *__restrict__ row_marg,
                      const float *__restrict__ col_marg, int R, int C, int TR,
                      int n_iters, float inv_eps, float tol_phi, float *plan_out,
                      int *iters_out) {
@@ -792,8 +829,8 @@ sinkhorn_plan_kernel(const float *__restrict__ S, const float *__restrict__ row_
   cg::cluster_group cl = cg::this_cluster();
   const Geo g = geometry(cl, R, C);
   const int b = blockIdx.x / g.G;
-  Smem sm = carve(tw_smem, R, C, g.G, TR);
-  const float *Sb = S + (size_t)b * R * C;
+  Smem sm = carve(tw_smem, R, C, g.G, TR, sizeof(T));
+  const T *Sb = S + (size_t)b * R * C;
   load_marginals(row_marg + (size_t)b * R, col_marg + (size_t)b * C, C, g, sm);
   __syncthreads();
   const int iters = sinkhorn_cluster(cl, Sb, R, C, g, TR, n_iters, inv_eps, tol_phi, sm);
@@ -803,7 +840,7 @@ sinkhorn_plan_kernel(const float *__restrict__ S, const float *__restrict__ row_
   for (int li = warp; li < g.r1 - g.r0; li += TW_WARPS) {
     const size_t off = (size_t)b * R * C + (size_t)(g.r0 + li) * C;
     for (int j = lane; j < C; j += 32)
-      plan_out[off + j] = plan_val(S[off + j], inv_eps, sm.phi[li], sm.psi2[j] * kLn2);
+      plan_out[off + j] = plan_val(to_f32(S[off + j]), inv_eps, sm.phi[li], sm.psi2[j] * kLn2);
   }
   if (threadIdx.x == 0 && g.rank == 0) iters_out[b] = iters;
 }
@@ -817,13 +854,13 @@ round_topk_kernel(const float *__restrict__ plan, const uint8_t *__restrict__ ro
   cg::cluster_group cl = cg::this_cluster();
   const Geo g = geometry(cl, N, C);
   const int b = blockIdx.x / g.G, tid = threadIdx.x;
-  Smem sm = carve(tw_smem, N, C, g.G, TR);
+  Smem sm = carve(tw_smem, N, C, g.G, TR, sizeof(float));
   for (int li = tid; li < g.r1 - g.r0; li += TW_THREADS)
     sm.row_ok[li] = row_valid[(size_t)b * N + g.r0 + li] != 0;
   for (int j = tid; j < C; j += TW_THREADS) sm.col_ok[j] = col_valid[(size_t)b * C + j] != 0;
   __syncthreads();
   PlanFromTensor P{plan + (size_t)b * N * C, C};
-  round_and_peel(cl, P, N, C, g, TR, (int)cap[b], topk, min_mass, sm,
+  round_and_peel(cl, P, N, C, g, TR, sizeof(float), (int)cap[b], topk, min_mass, sm,
                  assign_out + (size_t)b * N, topk_out + (size_t)b * N * topk);
 }
 
@@ -853,54 +890,83 @@ static cudaLaunchConfig_t cluster_config(int B, int G, size_t smem, void *stream
   return cfg;
 }
 
-extern "C" {
-
-// How many G-CTA clusters of the kernels (the same threads and shared
-// memory for all three) the card runs at once; 0 when none fits.
-int tw_max_active_clusters(int G, int R, int C, int TR, int *out) {
-  const size_t smem = smem_bytes(R, C, G, TR);
-  cudaError_t err = prepare(fused_assign_kernel, smem);
+template <typename T>
+static int max_active_clusters(int G, int R, int C, int TR, int *out) {
+  const size_t smem = smem_bytes(R, C, G, TR, sizeof(T));
+  cudaError_t err = prepare(fused_assign_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(1, G, smem, nullptr, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(out, fused_assign_kernel, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, fused_assign_kernel<T>, &cfg);
 }
 
-int tw_fused_assign(const float *S, const float *row_marg, const float *col_marg,
+template <typename T>
+static int launch_fused_assign(const void *S, const float *row_marg, const float *col_marg,
+                               const float *cap, int B, int R, int C, int n_rows,
+                               int n_iters, float inv_eps, float tol_phi, int topk,
+                               float min_mass, int *assign_out, int *topk_out,
+                               int *stats_out, int G, int TR, void *stream) {
+  const size_t smem = smem_bytes(R, C, G, TR, sizeof(T));
+  cudaError_t err = prepare(fused_assign_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(B, G, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, fused_assign_kernel<T>, (const T *)S, row_marg, col_marg,
+                           cap, R, C, TR, n_rows, n_iters, inv_eps, tol_phi, topk,
+                           min_mass, assign_out, topk_out, stats_out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_sinkhorn(const void *S, const float *row_marg, const float *col_marg,
+                           int B, int R, int C, int n_iters, float inv_eps, float tol_phi,
+                           float *plan_out, int *iters_out, int G, int TR, void *stream) {
+  const size_t smem = smem_bytes(R, C, G, TR, sizeof(T));
+  cudaError_t err = prepare(sinkhorn_plan_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(B, G, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, sinkhorn_plan_kernel<T>, (const T *)S, row_marg,
+                           col_marg, R, C, TR, n_iters, inv_eps, tol_phi, plan_out,
+                           iters_out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// How many G-CTA clusters of the kernels (the same threads and shared
+// memory for all three) the card runs at once at `item`-byte scores; 0
+// when none fits.
+int tw_max_active_clusters(int G, int R, int C, int TR, int item, int *out) {
+  return item == 2 ? max_active_clusters<__nv_bfloat16>(G, R, C, TR, out)
+                   : max_active_clusters<float>(G, R, C, TR, out);
+}
+
+// S holds f32 scores (item 4) or bf16 ones (item 2)
+int tw_fused_assign(const void *S, const float *row_marg, const float *col_marg,
                     const float *cap, int B, int R, int C, int n_rows, int n_iters,
                     float inv_eps, float tol_phi, int topk, float min_mass,
                     int *assign_out, int *topk_out, int *stats_out, int G, int TR,
-                    void *stream) {
-  const size_t smem = smem_bytes(R, C, G, TR);
-  cudaError_t err = prepare(fused_assign_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(B, G, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, fused_assign_kernel, S, row_marg, col_marg, cap, R,
-                           C, TR, n_rows, n_iters, inv_eps, tol_phi, topk, min_mass,
-                           assign_out, topk_out, stats_out);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+                    int item, void *stream) {
+  return (item == 2 ? launch_fused_assign<__nv_bfloat16> : launch_fused_assign<float>)(
+      S, row_marg, col_marg, cap, B, R, C, n_rows, n_iters, inv_eps, tol_phi, topk,
+      min_mass, assign_out, topk_out, stats_out, G, TR, stream);
 }
 
-int tw_sinkhorn(const float *S, const float *row_marg, const float *col_marg, int B,
+int tw_sinkhorn(const void *S, const float *row_marg, const float *col_marg, int B,
                 int R, int C, int n_iters, float inv_eps, float tol_phi,
-                float *plan_out, int *iters_out, int G, int TR, void *stream) {
-  const size_t smem = smem_bytes(R, C, G, TR);
-  cudaError_t err = prepare(sinkhorn_plan_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(B, G, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, sinkhorn_plan_kernel, S, row_marg, col_marg, R, C,
-                           TR, n_iters, inv_eps, tol_phi, plan_out, iters_out);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+                float *plan_out, int *iters_out, int G, int TR, int item, void *stream) {
+  return (item == 2 ? launch_sinkhorn<__nv_bfloat16> : launch_sinkhorn<float>)(
+      S, row_marg, col_marg, B, R, C, n_iters, inv_eps, tol_phi, plan_out, iters_out, G,
+      TR, stream);
 }
 
 int tw_round_topk(const float *plan, const uint8_t *row_valid, const uint8_t *col_valid,
                   const float *cap, int B, int N, int C, int topk, float min_mass,
                   int *assign_out, int *topk_out, int G, int TR, void *stream) {
-  const size_t smem = smem_bytes(N, C, G, TR);
+  const size_t smem = smem_bytes(N, C, G, TR, sizeof(float));
   cudaError_t err = prepare(round_topk_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;

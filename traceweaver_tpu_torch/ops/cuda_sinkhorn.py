@@ -1,7 +1,8 @@
 """Hopper kernels for the Sinkhorn solve and their plain versions (mirrors
 ``traceweaver_tpu/ops/pallas_sinkhorn.py``).
 
-Two TPU kernels become two CUDA kernels in ``csrc/sinkhorn.cu``:
+Two TPU kernels become two CUDA kernels in ``csrc/sinkhorn.cu``, each a
+template on the score type (f32, or bf16 for the bf16 score path):
 
 - :func:`fused_assign_cuda` (K1, replaces ``fused_assign_pallas``):
   Sinkhorn, greedy rounding and the top-k peel in one kernel;
@@ -31,9 +32,17 @@ kernel or raise: there is no fallback, and a cluster that the card cannot
 schedule raises. Each kernel wrapper counts its launches in
 :data:`LAUNCHES`.
 
+Under bf16 the kernels and their plain versions follow the Pallas
+kernels (``pallas_sinkhorn.py:88-94``, ``:237-241``): the block stays
+bf16 and each use upcasts it to f32 and scales it by ``1/epsilon``; the
+potentials, plan and rounding state are f32. (The XLA ``sinkhorn_log``
+of the JAX package stores ``bf16(f32(S) / epsilon)`` instead; at the
+solver's ``epsilon = 1`` the two are the same numbers.)
+
 The kernels are built by ``nvcc`` for ``sm_90a`` from the sources in
-``csrc/`` at first use, into ``traceweaver_tpu_torch/_build/``, and
-bound through a plain C interface with ``ctypes``.
+``csrc/`` at first use, into ``traceweaver_tpu_torch/_build/``
+(:mod:`~traceweaver_tpu_torch.ops.cuda_build`), and bound through a
+plain C interface with ``ctypes``.
 
 Every launch first sets the kernel's dynamic shared-memory limit to the
 size this block shape needs (``cudaFuncSetAttribute``), an attribute of
@@ -47,16 +56,13 @@ the launch fails with CUDA error 1 (invalid value).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from traceweaver_tpu_torch.ops import cuda_build
 from traceweaver_tpu_torch.ops.rounding import (
     MAX_PEEL_K,
     NEG,
@@ -77,19 +83,15 @@ MAX_SMEM_BYTES = 232448 - 4096
 CLUSTER_LARGE, CLUSTER_SMALL = 16, 8
 #: threads of one CTA (TW_THREADS in ``csrc/sinkhorn.cu``)
 THREADS_PER_CTA = 512
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "ops", "csrc", "sinkhorn.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+#: score types the kernels read, and their bytes
+SCORE_DTYPES = {torch.float32: 4, torch.bfloat16: 2}
 
 _lock = threading.Lock()
 #: held around each C entry point, which sets a per-function attribute
 #: and then launches (or queries occupancy) with it
 _launch_lock = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
-_ACTIVE_CLUSTERS: Dict[Tuple[int, int, int, int], int] = {}
+_ACTIVE_CLUSTERS: Dict[Tuple[int, int, int, int, int], int] = {}
 
 
 def reset_launches() -> None:
@@ -105,32 +107,11 @@ def _count_launch(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels build on the card's "
-                           "machine (CUDA toolkit under /usr/local/cuda)")
-    return path
-
-
 def build(verbose: bool = False) -> str:
     """Compile ``csrc/sinkhorn.cu`` (once per source content) and return
     the shared library's path. ``verbose`` adds ``-Xptxas -v`` and
     returns nvcc's report instead of the path."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = os.path.join(BUILD_DIR, f"libtw_sinkhorn_{digest}.so")
-    if os.path.exists(lib) and not verbose:
-        return lib
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, _SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return proc.stderr if verbose else lib
+    return cuda_build.build("sinkhorn.cu", "tw_sinkhorn", verbose)
 
 
 def _lib() -> ctypes.CDLL:
@@ -139,12 +120,12 @@ def _lib() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(build())
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.tw_max_active_clusters.argtypes = [i, i, i, i, p]
+            lib.tw_max_active_clusters.argtypes = [i, i, i, i, i, p]
             lib.tw_max_active_clusters.restype = i
             lib.tw_fused_assign.argtypes = [p, p, p, p, i, i, i, i, i, f, f, i,
-                                            f, p, p, p, i, i, p]
+                                            f, p, p, p, i, i, i, p]
             lib.tw_fused_assign.restype = i
-            lib.tw_sinkhorn.argtypes = [p, p, p, i, i, i, i, f, f, p, p, i, i, p]
+            lib.tw_sinkhorn.argtypes = [p, p, p, i, i, i, i, f, f, p, p, i, i, i, p]
             lib.tw_sinkhorn.restype = i
             lib.tw_round_topk.argtypes = [p, p, p, p, i, i, i, i, f, p, p, i, i,
                                           p]
@@ -157,16 +138,19 @@ def _lib() -> ctypes.CDLL:
 TILE_ROWS = (8, 4, 2, 1)
 
 
-def smem_bytes(rows: int, cols: int, cluster: int, tile_rows: int) -> int:
+def smem_bytes(rows: int, cols: int, cluster: int, tile_rows: int,
+               itemsize: int = 4) -> int:
     """Dynamic shared memory of one CTA of a ``cluster``-CTA cluster for
-    an [rows, cols] block (the layout of ``csrc/sinkhorn.cu``: a ring of
-    two ``tile_rows``-row tiles, a full psi, the column partials and
-    flags, the log column marginals of the CTA's merge slice, the
-    stripe's potentials and rounding state, every row's skip mass; never
-    the whole block)."""
+    an [rows, cols] block of ``itemsize``-byte scores (the layout of
+    ``csrc/sinkhorn.cu``: a ring of two ``tile_rows``-row tiles of the
+    stored type, a full psi, the column partials and flags, the log
+    column marginals of the CTA's merge slice, the stripe's potentials
+    and rounding state, every row's skip mass; never the whole block)."""
     stripe, cslice = -(-rows // cluster), -(-cols // cluster)
-    slot = -(-tile_rows * cols // 4) * 4 + 4
-    return 8 * slot + 15 * cols + 4 * cslice + 4 * rows + 18 * stripe
+    per16 = 16 // itemsize
+    slot = -(-tile_rows * cols // per16) * per16 + per16
+    return (2 * itemsize * slot + 15 * cols + 4 * cslice + 4 * rows
+            + 18 * stripe)
 
 
 @dataclass(frozen=True)
@@ -189,22 +173,25 @@ class LaunchPlan:
                 for r in range(self.cluster)]
 
 
-def launch_plan(B: int, rows: int, cols: int, large_clusters: int) -> LaunchPlan:
-    """The plan for B blocks of [rows, cols], given how many
-    ``CLUSTER_LARGE`` clusters the card runs at once: the large size
-    when all B fit together, else ``CLUSTER_SMALL``; the largest tile
-    that fits in shared memory. K1, K2 and ``round_topk`` take the same
-    plan for the same (B, rows, cols)."""
+def launch_plan(B: int, rows: int, cols: int, large_clusters: int,
+                itemsize: int = 4) -> LaunchPlan:
+    """The plan for B blocks of [rows, cols] of ``itemsize``-byte
+    scores, given how many ``CLUSTER_LARGE`` clusters the card runs at
+    once: the large size when all B fit together, else
+    ``CLUSTER_SMALL``; the largest tile that fits in shared memory. K1,
+    K2 and ``round_topk`` take the same plan for the same (B, rows,
+    cols, itemsize)."""
     cluster = CLUSTER_LARGE if large_clusters >= B else CLUSTER_SMALL
-    _check_block(rows, cols, cluster)
+    _check_block(rows, cols, cluster, itemsize)
     tile = next(t for t in TILE_ROWS
-                if smem_bytes(rows, cols, cluster, t) <= MAX_SMEM_BYTES)
+                if smem_bytes(rows, cols, cluster, t, itemsize) <= MAX_SMEM_BYTES)
     return LaunchPlan(cluster, -(-rows // cluster), tile,
-                      smem_bytes(rows, cols, cluster, tile))
+                      smem_bytes(rows, cols, cluster, tile, itemsize))
 
 
-def _check_block(rows: int, cols: int, cluster: int = CLUSTER_SMALL) -> None:
-    need = smem_bytes(rows, cols, cluster, TILE_ROWS[-1])
+def _check_block(rows: int, cols: int, cluster: int = CLUSTER_SMALL,
+                 itemsize: int = 4) -> None:
+    need = smem_bytes(rows, cols, cluster, TILE_ROWS[-1], itemsize)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f"block [{rows}, {cols}] needs {need} bytes of shared memory per CTA "
@@ -212,32 +199,37 @@ def _check_block(rows: int, cols: int, cluster: int = CLUSTER_SMALL) -> None:
             "bytes per CTA")
 
 
-def _active_clusters(cluster: int, rows: int, cols: int, dev: torch.device) -> int:
+def _active_clusters(cluster: int, rows: int, cols: int, dev: torch.device,
+                     itemsize: int = 4) -> int:
     """How many ``cluster``-CTA clusters of the kernels the card runs at
-    once at the plan's shared memory (cached per card and shape)."""
+    once at the plan's shared memory (cached per card, shape and score
+    type)."""
     key = (dev.index if dev.index is not None else torch.cuda.current_device(),
-           cluster, rows, cols)
+           cluster, rows, cols, itemsize)
     if key not in _ACTIVE_CLUSTERS:
         try:
-            plan = launch_plan(1, rows, cols, 1 if cluster == CLUSTER_LARGE else 0)
+            plan = launch_plan(1, rows, cols, 1 if cluster == CLUSTER_LARGE else 0,
+                               itemsize)
         except ValueError:
             _ACTIVE_CLUSTERS[key] = 0
             return 0
         n, lib = ctypes.c_int(0), _lib()
         with torch.cuda.device(dev), _launch_lock:
             err = lib.tw_max_active_clusters(cluster, rows, cols, plan.tile_rows,
-                                             ctypes.addressof(n))
+                                             itemsize, ctypes.addressof(n))
         _raise_on(err, f"occupancy query for a cluster of {cluster}")
         _ACTIVE_CLUSTERS[key] = n.value
     return _ACTIVE_CLUSTERS[key]
 
 
-def card_plan(B: int, rows: int, cols: int, dev: torch.device) -> LaunchPlan:
+def card_plan(B: int, rows: int, cols: int, dev: torch.device,
+              itemsize: int = 4) -> LaunchPlan:
     """:func:`launch_plan` on this card; raises when the card cannot run
     even one cluster of the chosen size."""
     plan = launch_plan(B, rows, cols,
-                       _active_clusters(CLUSTER_LARGE, rows, cols, dev))
-    if _active_clusters(plan.cluster, rows, cols, dev) < 1:
+                       _active_clusters(CLUSTER_LARGE, rows, cols, dev, itemsize),
+                       itemsize)
+    if _active_clusters(plan.cluster, rows, cols, dev, itemsize) < 1:
         raise RuntimeError(
             f"a cluster of {plan.cluster} CTAs of {THREADS_PER_CTA} threads with "
             f"{plan.smem_bytes} bytes of shared memory each cannot be scheduled "
@@ -245,10 +237,11 @@ def card_plan(B: int, rows: int, cols: int, dev: torch.device) -> LaunchPlan:
     return plan
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
+def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
+    """``dtype``: one type, or a tuple of the types the kernel takes."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
@@ -275,34 +268,35 @@ def fused_assign_cuda(scores, row_marg, col_marg, skip_cap, n_rows: int, *,
     half-iteration), and its block streams from L2/HBM twice per
     iteration; the cluster spreads both over 8 or 16 SMs per block.
 
-    scores [B, R, C] f32 (dummy row and skip column included, column
-    C - 1 is the skip column), row_marg [B, R], col_marg [B, C], skip_cap
-    [B] f32. Returns assign [B, n_rows] int32 (C - 1 = skip, -1 = none)
+    scores [B, R, C] f32 or bf16 (dummy row and skip column included,
+    column C - 1 is the skip column), row_marg [B, R], col_marg [B, C],
+    skip_cap [B] f32. Returns assign [B, n_rows] int32 (C - 1 = skip, -1 = none)
     and topk [B, n_rows, topk] int32 (-1 at plan mass <= min_topk_mass);
     with ``return_stats`` also [B, 2] int32 (Sinkhorn iterations run,
     rounding rounds)."""
     B, R, C = scores.shape
-    _check("scores", scores, torch.float32, (B, R, C))
+    _check("scores", scores, tuple(SCORE_DTYPES), (B, R, C))
     _check("row_marg", row_marg, torch.float32, (B, R))
     _check("col_marg", col_marg, torch.float32, (B, C))
     _check("skip_cap", skip_cap, torch.float32, (B,))
     if not 0 <= n_rows <= R or not 1 <= topk <= min(MAX_PEEL_K, C):
         raise ValueError(f"n_rows={n_rows} (R={R}) or topk={topk} (C={C}) out of range")
-    _check_block(R, C)
+    item = SCORE_DTYPES[scores.dtype]
+    _check_block(R, C, itemsize=item)
     dev = scores.device
     assign = torch.empty((B, n_rows), dtype=torch.int32, device=dev)
     tk = torch.empty((B, n_rows, topk), dtype=torch.int32, device=dev)
     stats = torch.empty((B, 2), dtype=torch.int32, device=dev)
     if B == 0:
         return (assign, tk, stats) if return_stats else (assign, tk)
-    lib, plan = _lib(), card_plan(B, R, C, dev)
+    lib, plan = _lib(), card_plan(B, R, C, dev, item)
     with torch.cuda.device(dev), _launch_lock:
         err = lib.tw_fused_assign(
             scores.data_ptr(), row_marg.data_ptr(), col_marg.data_ptr(),
             skip_cap.data_ptr(), B, R, C, n_rows, n_iters, 1.0 / epsilon,
             tol / epsilon, topk, min_topk_mass, assign.data_ptr(),
             tk.data_ptr(), stats.data_ptr(), plan.cluster, plan.tile_rows,
-            _stream(scores))
+            item, _stream(scores))
     _raise_on(err, "fused_assign launch")
     _count_launch("fused_assign")
     return (assign, tk, stats) if return_stats else (assign, tk)
@@ -310,26 +304,27 @@ def fused_assign_cuda(scores, row_marg, col_marg, skip_cap, n_rows: int, *,
 
 def sinkhorn_cuda(scores, row_marg, col_marg, *, epsilon: float, n_iters: int,
                   tol: float = 0.0, return_iters: bool = False):
-    """K2: the Sinkhorn plan [B, N, M] f32 of scores [B, N, M] under
-    marginals [B, N] / [B, M]; ``return_iters`` adds the iterations run
-    per block ([B] int32). The same cluster design and bound as K1, plus
-    one write of the plan."""
+    """K2: the Sinkhorn plan [B, N, M] f32 of scores [B, N, M] (f32 or
+    bf16) under marginals [B, N] / [B, M]; ``return_iters`` adds the
+    iterations run per block ([B] int32). The same cluster design and
+    bound as K1, plus one write of the plan."""
     B, N, M = scores.shape
-    _check("scores", scores, torch.float32, (B, N, M))
+    _check("scores", scores, tuple(SCORE_DTYPES), (B, N, M))
     _check("row_marg", row_marg, torch.float32, (B, N))
     _check("col_marg", col_marg, torch.float32, (B, M))
-    _check_block(N, M)
+    item = SCORE_DTYPES[scores.dtype]
+    _check_block(N, M, itemsize=item)
     dev = scores.device
     plan = torch.empty((B, N, M), dtype=torch.float32, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return (plan, iters) if return_iters else plan
-    lib, lp = _lib(), card_plan(B, N, M, dev)
+    lib, lp = _lib(), card_plan(B, N, M, dev, item)
     with torch.cuda.device(dev), _launch_lock:
         err = lib.tw_sinkhorn(
             scores.data_ptr(), row_marg.data_ptr(), col_marg.data_ptr(), B, N,
             M, n_iters, 1.0 / epsilon, tol / epsilon, plan.data_ptr(),
-            iters.data_ptr(), lp.cluster, lp.tile_rows, _stream(scores))
+            iters.data_ptr(), lp.cluster, lp.tile_rows, item, _stream(scores))
     _raise_on(err, "sinkhorn launch")
     _count_launch("sinkhorn")
     return (plan, iters) if return_iters else plan

@@ -5,6 +5,12 @@ axis: scores ``[B, N, M]`` (``NEG`` = masked), row/column marginals
 ``[B, N]``/``[B, M]`` (0 disables a row or column). This is the plain
 version the CUDA kernels of :mod:`traceweaver_tpu_torch.ops.cuda_sinkhorn`
 are held against, and what their wrappers run on CPU tensors.
+
+bf16 scores follow the Pallas kernels (``pallas_sinkhorn.py:88-94``):
+the block is upcast to f32 and scaled by ``1/epsilon`` on use, and the
+potentials and the plan are f32. The JAX package's XLA ``sinkhorn_log``
+(its CPU route) stores ``bf16(f32(S) / epsilon)`` instead; at
+``epsilon = 1``, the solver's, the two give the same numbers.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ def log_marginals(marg: torch.Tensor) -> torch.Tensor:
 
 
 def sinkhorn_log(
-    scores: torch.Tensor,         # [B, N, M] f32 log-likelihoods
+    scores: torch.Tensor,         # [B, N, M] f32 or bf16 log-likelihoods
     row_marginals: torch.Tensor,  # [B, N]
     col_marginals: torch.Tensor,  # [B, M]
     epsilon: float = 1.0,
@@ -41,7 +47,10 @@ def sinkhorn_log(
     col_marginals = col_marginals.to(torch.float32)
     log_r = log_marginals(row_marginals)
     log_c = log_marginals(col_marginals)
-    logK = scores / epsilon
+    if scores.dtype == torch.bfloat16:
+        logK = scores.to(torch.float32) * (1.0 / epsilon)
+    else:
+        logK = scores / epsilon
     neg_r = torch.full_like(log_r, NEG)
     neg_c = torch.full_like(log_c, NEG)
     row_live = row_marginals > 0

@@ -5,7 +5,9 @@ subcommands).
 The JAX CLI's 17 batch flags, so the ``exps/exp*`` argument lists run
 unchanged, plus the flags that stand for the JAX CLI's environment
 knobs (the port reads none): ``--device`` (default: the card; ``cpu``
-runs slots 8-10 on the CPU), ``--gt_free_dag`` (``TW_GT_FREE_DAG``),
+runs slots 8-10 on the CPU), ``--precision`` (``TW_PRECISION``: ``f32``
+or ``bf16`` score blocks), ``--score_gemm`` (``TW_SCORE_GEMM``: the GEMM
+score form), ``--gt_free_dag`` (``TW_GT_FREE_DAG``),
 ``--metrics_port`` (``TW_METRICS_PORT``: a ``/metrics`` exporter on
 loopback while the run lasts; 0 binds a free port) and ``--events``
 (``TW_EVENTS``: the JSONL event sink)::
@@ -14,7 +16,8 @@ loopback while the run lasts; 0 binds a free port) and ``--events``
         --absolute_path DATA/call_graph_0 --fix 5 --cache_rate 0 \
         --compress_factor 15000 --results_directory out/ \
         --predictor_indices 3,4,7,10 [--device cpu] [--gt_free_dag 1] \
-        [--metrics_port 0] [--events run.jsonl]
+        [--precision bf16] [--score_gemm 1] [--metrics_port 0] \
+        [--events run.jsonl]
     python -m traceweaver_tpu_torch.runtime.cli events run.jsonl
     python -m traceweaver_tpu_torch.runtime.cli query out/e2e_....pickle
     python -m traceweaver_tpu_torch.runtime.cli scorecard --traces 32
@@ -77,6 +80,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gt_free_dag", type=int, default=0, choices=[0, 1],
                    help="discover each service's invocation DAG without "
                         "ground truth (the JAX CLI's TW_GT_FREE_DAG=1)")
+    p.add_argument("--precision", default="f32",
+                   help="score-block precision of predictors 8-10: f32 or bf16 "
+                        "(the JAX CLI's TW_PRECISION)")
+    p.add_argument("--score_gemm", type=int, default=0, choices=[0, 1],
+                   help="build the scores in the GEMM form (the JAX CLI's "
+                        "TW_SCORE_GEMM=1)")
     p.add_argument("--device", default=None,
                    help="device of predictors 8-10 (default: the CUDA card; "
                         "'cpu' runs their plain versions on the CPU)")
@@ -168,8 +177,14 @@ def main(argv=None) -> int:
         return 2
 
     from traceweaver_tpu_torch.algorithms.weaver_torch import resolve_device
+    from traceweaver_tpu_torch.ops.precision import validate_precision
     from traceweaver_tpu_torch.runtime.executor import ExecutorConfig, run_experiment
 
+    try:
+        precision = validate_precision(args.precision)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     try:
         device = str(resolve_device(args.device))
     except RuntimeError as e:
@@ -209,6 +224,8 @@ def main(argv=None) -> int:
         service_to_replica=find_replica_table(data_path, root),
         device=device,
         gt_free_dag=bool(args.gt_free_dag),
+        precision=precision,
+        score_gemm=bool(args.score_gemm),
     )
     exporter, log = _obs_setup(args.metrics_port, args.events)
     try:

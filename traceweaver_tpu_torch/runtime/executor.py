@@ -17,8 +17,12 @@ means the card, and raises without one. With ``gt_free_dag`` each
 service's invocation DAG is discovered from a ``WeaverTorch`` on that
 device (``ingest.discover_invocation_dag``, once per service, memoized on
 the store) instead of inferred from ground truth, which then only grades
-(lines 84-90 and 135-150 of the JAX executor). The JAX executor's AOT
-warmup and mesh sharding are not part of the port yet.
+(lines 84-90 and 135-150 of the JAX executor). ``precision`` and
+``score_gemm`` (the JAX executor's ``TW_PRECISION`` and
+``TW_SCORE_GEMM``) go to every ``WeaverTorch`` of the run, discovery's
+too; a run at ``bf16`` says so in its log, as the JAX executor does
+(its lines 276-284). The JAX executor's AOT warmup and mesh sharding
+are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from traceweaver_tpu_torch.metrics import (
     topk_accuracy_for_service,
 )
 from traceweaver_tpu_torch.obs.profile import annotate
+from traceweaver_tpu_torch.ops.precision import score_itemsize
 from traceweaver_tpu_torch.spans import TraceStore
 from traceweaver_tpu_torch.synth import compress_spans, create_cache_hits
 
@@ -100,6 +105,9 @@ class ExecutorConfig:
     device: Optional[str] = None
     # discover each service's invocation DAG without ground truth
     gt_free_dag: bool = False
+    # score-block precision ("f32" or "bf16") and the GEMM score form
+    precision: str = "f32"
+    score_gemm: bool = False
 
     def replica_count(self, process: str, store: TraceStore) -> int:
         table = self.service_to_replica
@@ -174,7 +182,8 @@ def _discovered_dag(cfg: ExecutorConfig, store: TraceStore, prob, process: str):
             dag = discover_invocation_dag(
                 prob.in_span_partitions, prob.out_span_partitions, store,
                 WeaverTorch(store.all_spans, store.all_processes,
-                            device=cfg.device),
+                            device=cfg.device, precision=cfg.precision,
+                            score_gemm=cfg.score_gemm),
                 stats=stats)
         stats["seconds"] = time.perf_counter() - t0
         store.discovery_stats[process] = stats
@@ -268,8 +277,14 @@ def _solve_fleet_method(cfg: ExecutorConfig, store: TraceStore, method: str,
         sinkhorn_tol=predictor.sinkhorn_tol, item_cells=cells,
         stats=fleet_stats, precision=predictor.precision,
         device=predictor.device, fused_kernel=predictor.fused_kernel,
+        score_gemm=predictor.score_gemm,
     )
     elapsed = time.time() - start
+    if predictor.precision != "f32":
+        # a reduced-precision run must be unmistakable in the log
+        print("[fleet] %s: score-path precision=%s (--precision; byte "
+              "ledger accounts at %d B/elem)"
+              % (method, predictor.precision, score_itemsize(predictor.precision)))
     print("[fleet] %s: %d dispatches for %d services"
           % (method, int(fleet_stats.get("fleet_dispatches", 0)), len(items)))
     total_w = fleet_stats.get("compact_windows_total", 0)
@@ -375,7 +390,8 @@ def run_experiment(cfg: ExecutorConfig,
               % malformed)
 
     predictors = make_predictors(store.all_spans, store.all_processes,
-                                 device=device)
+                                 device=device, precision=cfg.precision,
+                                 score_gemm=cfg.score_gemm)
     if cfg.predictor_indices:
         bad = [i for i in cfg.predictor_indices
                if not 0 <= i < len(predictors)]
