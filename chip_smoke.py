@@ -20,11 +20,12 @@ Phases, each of which raises on failure (non-zero exit):
    endpoints) through ``WeaverTorch.FindAssignments`` on the card, once
    with the fused kernel and once with the plain Sinkhorn kernel, each
    with every launch counter reset just before and read just after (the
-   score-build kernel must launch too); accuracy must reach
+   assembly kernel must launch too, and the assembly's plain version
+   must not run on the card); accuracy must reach
    ``ACCURACY_FLOOR``; a 256-request cut must give the same assignments
-   on the card as on the CPU; then the fused run again with the score
-   build's plain version (the build before the score-build kernel), for
-   its peak memory and wall beside the kernel's;
+   on the card as on the CPU; then the fused run again with the
+   assembly's plain version on the card, for its peak memory and wall
+   beside the kernel's;
 3. fleet: on a 256-request cut of config ``synth-fleet-8svc`` (eight
    services), ``solve_fleet`` on the card must agree with
    ``solve_fleet`` on the CPU and with per-service ``FindAssignments``
@@ -43,7 +44,7 @@ Phases, each of which raises on failure (non-zero exit):
    services, run no two-pass EM (``fused_em_applied`` 0), keep every
    accuracy floor and agree with round 1 on >= 0.99 of the pairs of
    every service but ``cache`` (reported only: its assignments hang on
-   near ties); then the pipelined K1 run with the score build's plain
+   near ties); then the pipelined K1 run with the assembly's plain
    version, for its peak memory;
 3b. precision: ``synth-async-8k`` at ``precision="bf16"`` with each
    kernel and ``synth-fleet-8svc`` at bf16 (K1, pipelined), every
@@ -107,7 +108,9 @@ Phases, each of which raises on failure (non-zero exit):
    call again under the profiler, whose trace must hold
    ``tw:solve:dispatch`` and ``tw:fleet:dispatch``; ``alibaba-cg-8k``
    at ``--precision bf16`` against ``CG8K_BF16_JAX_ACCURACY`` and at f32
-   with the score build's plain version (peak memory). Outside the exp5
+   with the assembly's plain version (peak memory); every call must
+   launch the assembly kernel and run no plain assembly on the card
+   (the GEMM form aside). Outside the exp5
    loops a method on the card reads JAX within half a point either way,
    or one point where its call met ill-posed windows. Then ``cli
    scorecard --traces 32`` on the card: its table and calibration
@@ -145,13 +148,20 @@ Phases, each of which raises on failure (non-zero exit):
    need different shared-memory limits), must equal their single-stream
    launches bit for bit; K1 and K2 on the bf16 blocks of the precision
    phase ([8, 1025, 2049] and [32, 1025, 2049]) against their plain bf16
-   versions under the same rule; the score-build kernel against its
-   plain version on one sweep's score build at the slice's and the
-   fleet's blocks (``score-check`` lines: the entries that differ and
-   their largest difference, tolerance 1e-5 relative plus 1e-4
-   absolute); then each kernel's time, its plain version's time and its
-   bound at both blocks, f32 and bf16, and the score build's
-   (``score-build`` lines).
+   versions under the same rule; the assembly kernel against its plain
+   version on every block of the first forward and backward sweeps of
+   the slice's and the fleet's chains, at f32 and bf16 (``score-check``
+   lines: feasible counts and argmax exactly, the entries that differ
+   and their largest difference, tolerance 1e-5 relative plus 1e-4
+   absolute at f32 and one bf16 ulp at bf16); then each kernel's time,
+   its plain version's time and its bound at both blocks, f32 and bf16,
+   and the assembly's per sweep with the card's operations per
+   endpoint step (``score-build`` lines).
+
+``--assembly`` runs only the assembly's check and timing, on the first
+sweeps of one ``synth-async-8k`` and one ``synth-fleet-8svc`` solve,
+and where its warps spend their cycles (a build of the kernel that
+clocks its phases: ``score-build-phases`` lines).
 
 ``--slice-root`` runs the slice and fleet phases alone against another
 checkout (one process per checkout, since both packages share a name),
@@ -1038,117 +1048,328 @@ def kernel_timing(blk, tol=1e-3, n_iters=40):
 
 
 # ---------------------------------------------------------------------------
-# the score build
+# the block assembly
 # ---------------------------------------------------------------------------
 
+#: f32 tolerance of the assembly kernel against its plain version (bf16:
+#: one bf16 ulp of the plain entry)
+ASSEMBLY_TOL = dict(atol=1e-4, rtol=1e-5)
+#: captured calls of one chain: its forward sweep and its first backward
+#: sweep (three endpoints each in both configs' chains)
+ASSEMBLY_CALLS = 6
+
+
 @contextlib.contextmanager
-def score_capture(kept, rows, cols, min_windows, n_calls):
-    """The solver's ``score_block`` keeping the terms of its first
+def assembly_capture(kept, rows, cols, min_windows, n_calls=ASSEMBLY_CALLS):
+    """The solver's ``assemble_block`` keeping the arguments of its first
     ``n_calls`` calls on one thread for [>= ``min_windows``, rows, cols]
-    blocks of one window count: one sweep of a chain of ``n_calls``
-    endpoints (``kept`` gets ``(root, preds, succs, ret)`` tuples)."""
+    windows of one window count (not the GEMM form): the first sweeps of
+    one chain, forward then backward."""
     import traceweaver_tpu_torch.algorithms.weaver_torch as wt
 
-    real, lock, owner = wt.score_block, threading.Lock(), []
+    real, lock, owner = wt.assemble_block, threading.Lock(), []
 
-    def keep(root, preds, succs, ret, gemm=False):
-        B, n = root.row_t.shape
+    def keep(*args, precision="f32", gemm=False):
+        B, n = args[4].shape
         with lock:
-            if (len(kept) < n_calls and n == rows and root.col_t.shape[1] == cols
-                    and B >= min_windows and (not owner or owner[0] == (
-                        threading.get_ident(), B))):
+            if (len(kept) < n_calls and not gemm and n == rows
+                    and args[7].shape[1] == cols and B >= min_windows
+                    and (not owner or owner[0] == (threading.get_ident(), B))):
                 owner[:] = [(threading.get_ident(), B)]
-                kept.append((root, list(preds), list(succs), ret))
-        return real(root, preds, succs, ret, gemm=gemm)
+                kept.append(args)
+        return real(*args, precision=precision, gemm=gemm)
 
-    wt.score_block = keep
+    wt.assemble_block = keep
     try:
         yield kept
     finally:
-        wt.score_block = real
+        wt.assemble_block = real
 
 
 @contextlib.contextmanager
-def plain_score_build():
-    """The score build's plain version on the card too: the build the
-    port ran before the score-build kernel, for the peak-memory A/B."""
+def plain_assembly():
+    """The assembly's plain version on the card too: the peak-memory and
+    wall A/B."""
     from traceweaver_tpu_torch.ops import scores as SC
 
-    real = SC.score_block_cuda
-    SC.score_block_cuda = SC.score_block_plain
+    real = SC.assemble_block_cuda
+
+    def plain(*args, precision="f32"):
+        return SC.assemble_block_plain(*args, precision=precision)
+
+    SC.assemble_block_cuda = plain
     try:
         yield
     finally:
-        SC.score_block_cuda = real
+        SC.assemble_block_cuda = real
 
 
-def score_check(name, calls):
-    """The score-build kernel against its plain version on one sweep's
-    calls: every block within 1e-5 relative plus 1e-4 absolute; prints
-    the entries that differ and their largest difference."""
+def _sweep_of(args) -> str:
+    return "forward" if args[11] is None else "backward"
+
+
+def _tolerance(want, precision):
+    """Per-entry tolerance of an assembled block: 1e-5 relative plus 1e-4
+    absolute at f32; one bf16 ulp of the plain entry at bf16."""
     import torch
 
+    if precision == "bf16":
+        _, e = torch.frexp(want)
+        return torch.ldexp(torch.ones_like(want), e - 8)
+    return ASSEMBLY_TOL["atol"] + ASSEMBLY_TOL["rtol"] * want.abs()
+
+
+def block_diff(got, want, precision):
+    """Kernel output ``got`` against the plain ``want`` (each ``(S_ot,
+    feas_count, argmax)``): the S_ot entries that differ and those beyond
+    the tolerance, their largest difference, the rows whose feasible
+    count differs, and the rows whose argmax differs where the plain row's
+    two largest entries are further apart than the tolerance and where
+    they are not (a near tie)."""
+    import torch
+
+    S, S0 = got[0].float(), want[0].float()
+    same = (S == S0) | (torch.isnan(S) & torch.isnan(S0))
+    tol = _tolerance(S0, precision)
+    beyond = ~same & ~((S - S0).abs() <= tol)
+    both = ~same & torch.isfinite(S) & torch.isfinite(S0)
+    W = want[1].shape[1]
+    top2 = torch.topk(S0[:, :W], 2, dim=2).values
+    clear = (top2[..., 0] - top2[..., 1]) > _tolerance(top2[..., 0], precision)
+    arg = got[2] != want[2]
+    return dict(entries=S.numel(), entries_differ=int((~same).sum()),
+                entries_beyond_tolerance=int(beyond.sum()),
+                max_abs_diff=float((S - S0)[both].abs().max()) if bool(both.any()) else 0.0,
+                feas_count_differ=int((got[1] != want[1]).sum()),
+                argmax_differ=int((arg & clear).sum()),
+                argmax_differ_near_ties=int((arg & ~clear).sum()))
+
+
+def assembly_check(name, calls):
+    """The assembly kernel against its plain version on every captured
+    call (forward and backward sweeps), at f32 and bf16: ``feas_count``
+    exactly, the argmax exactly where a row's two largest entries are
+    further apart than the tolerance, ``S_ot`` within the tolerance
+    (:func:`_tolerance`); prints one ``score-check`` line per score type
+    with the entries that differ. Returns the largest difference."""
     from traceweaver_tpu_torch.ops import scores as SC
 
-    differ = total = 0
-    err = 0.0
-    for terms in calls:
-        got, want = SC.score_block_cuda(*terms), SC.score_block_plain(*terms)
-        fin = torch.isfinite(want)
-        differ += int((got != want).sum())
-        total += got.numel()
-        if bool(fin.any()):
-            err = max(err, float((got - want)[fin].abs().max()))
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5,
-                                   msg=lambda m: f"{name}: score build: {m}")
-    B, N = calls[0][0].row_t.shape
-    line = dict(case=name, shape=[B, N, calls[0][0].col_t.shape[1]], calls=len(calls),
-                entries=total, entries_differ=differ, max_abs_diff=err,
-                tolerance="1e-5 relative + 1e-4 absolute")
-    print("score-check " + json.dumps(line), flush=True)
-    return err
+    worst = 0.0
+    for precision in ("f32", "bf16"):
+        sums, sweeps = {}, {}
+        for args in calls:
+            d = block_diff(SC.assemble_block_cuda(*args, precision=precision),
+                           SC.assemble_block_plain(*args, precision=precision), precision)
+            for k, v in d.items():
+                sums[k] = max(sums.get(k, 0.0), v) if k == "max_abs_diff" else sums.get(k, 0) + v
+            sweeps[_sweep_of(args)] = sweeps.get(_sweep_of(args), 0) + 1
+        B, W = calls[0][4].shape
+        line = dict(case=name, precision=precision, shape=[B, W + 1, calls[0][7].shape[1] + 1],
+                    calls=len(calls), sweeps=sweeps, **sums,
+                    tolerance=("one bf16 ulp" if precision == "bf16"
+                               else "1e-5 relative + 1e-4 absolute"))
+        print("score-check " + json.dumps(line), flush=True)
+        if (sums["entries_beyond_tolerance"] or sums["feas_count_differ"]
+                or sums["argmax_differ"] or set(sweeps) != {"forward", "backward"}):
+            raise AssertionError(f"{name} ({precision}): the assembly kernel parts from "
+                                 f"its plain version: {line}")
+        worst = max(worst, sums["max_abs_diff"])
+    return worst
 
 
-def score_timing(name, calls, card):
-    """CUDA-event ms of one sweep's score build (``calls``) with the
-    kernel and with the plain version, the launches, and the bound: the
-    larger of the bytes (one write of each endpoint's f32 block, each
-    term's inputs read once) at the HBM rate and K exponentials plus one
-    logarithm per pair of every term at the special-function rate,
-    counting the pairs these inputs' masks and weights leave (the kernel
-    skips inactive windows and rows and zero-weight components)."""
+def device_ms(fn, reps: int, mhz: float) -> float:
+    """The card's ms per ``fn()`` over ``reps`` calls, CUDA events, after
+    a warm-up call: the calls are queued behind a spin kernel of 20 ms,
+    so the card runs them back to back even where the host enqueues them
+    slower than the card runs them (events around calls enqueued live
+    would time the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(20e-3 * mhz * 1e6))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def device_ops(fn) -> int:
+    """The card's operations (kernels, copies, sets) of one ``fn()`` from
+    a profiler trace, after a warm-up call. A trace may drop the last
+    records before it stops, so spin kernels pad its tail; they are not
+    counted."""
+    import torch
+
+    from traceweaver_tpu_torch.obs import profile as P
+
+    fn()
+    torch.cuda.synchronize()
+    with P.trace() as prof:
+        fn()
+        for _ in range(64):
+            torch.cuda._sleep(20000)
+        torch.cuda.synchronize()
+    return sum(1 for name, _, _ in P.trace_intervals(prof)[0] if "spin_kernel" not in name)
+
+
+def assembly_bound(calls, precision, rate):
+    """The least time for the assembly of ``calls`` on this card: the
+    largest of the bytes (``S_ot`` written once in its type, feasible
+    counts and argmax, every input read once) at the HBM rate, the f32
+    operations at 67 TFLOP/s and the special functions (K exponentials
+    and one logarithm per active pair and term) at ``rate``. Counted from
+    this run's data: a term is active on a pair that is feasible, in a
+    window where the term is active, on a row it does not mask; the
+    plain formula costs 10 operations a live component (delay less mean,
+    quotient, scale, FMA as 2, less log sqrt(2 pi), plus log w, max, less
+    max, sum) and 3 a term (delay, plus max, group sum); a feasible pair
+    4 more (the group sums and the row max), every pair 7 (feasibility
+    and argmax) and at bf16 2 (centring)."""
     from traceweaver_tpu_torch.ops import scores as SC
 
-    nbytes = sfu = 0.0
-    launches = 0
-    for root, preds, succs, ret in calls:
-        B, N = root.row_t.shape
-        M = root.col_t.shape[1]
-        block_terms = (root, *preds, *succs, ret)
-        launches += -(-len(block_terms) // SC.MAX_KERNEL_TERMS)
-        nbytes += 4.0 * B * N * M
-        for t in block_terms:
+    item = 2 if precision == "bf16" else 4
+    nbytes = ops = sfu = 0.0
+    for args in calls:
+        root, preds, succs, ret, in_s, _, _, o_s, _, _, _, t_succ, _ = args
+        B, W = in_s.shape
+        M = o_s.shape[1]
+        feas = SC.assemble_block_cuda(*args, precision=precision)[1].double()  # [B, W]
+        nbytes += item * B * (W + 1) * (M + 1) + 8.0 * B * W
+        nbytes += B * W * (4.0 * (3 + (t_succ is not None)) + 2) + B * M * 9.0
+        ops += B * W * (M + 1) * (7.0 + 2.0 * (item == 2)) + 4.0 * float(feas.sum())
+        for t in (root, *preds, *succs, ret):
             K = t.wt.shape[1]
-            nbytes += B * (4.0 * (N + M + 3 * K) + 1.0 + (N if t.row_ok is not None else 0))
-            rows = (t.row_ok.sum(dim=1) if t.row_ok is not None
-                    else t.row_t.new_full((B,), N))
-            pairs = (rows * t.active).double() * M
+            nbytes += B * (4.0 * W + 12.0 * K + 1 + (W if t.row_ok is not None else 0))
+            on = t.active[:, None] if t.row_ok is None else t.active[:, None] & t.row_ok
+            pairs = (feas * on).sum(dim=1)                       # [B]
             k = (t.wt > 0).sum(dim=1).double()
             sfu += float((pairs * (k + 1.0)).sum())
+            ops += float((pairs * (10.0 * k + 3.0)).sum())
+    terms = dict(bytes=1e3 * nbytes / PEAK_BYTES_PER_S, f32=1e3 * ops / PEAK_F32_OPS_PER_S,
+                 sfu=1e3 * sfu / rate)
+    return terms, dict(bytes=nbytes, f32_ops=ops, sfu_ops=sfu)
+
+
+def assembly_timing(name, calls, card):
+    """The ms of one sweep's assembly, forward and backward, with the
+    kernel and with the plain version, at f32 and bf16: the card's time
+    (``ms``, ``plain_ms``; :func:`device_ms`) and, for the kernel, the
+    CUDA-event time of calls enqueued live, the host's enqueueing
+    included (``stream_ms``); the bound of each (:func:`assembly_bound`,
+    the term that binds it named); the launches of a sweep and the
+    card's operations of one endpoint step, kernel and plain
+    (:func:`device_ops`). Prints one ``score-build`` line per score
+    type; returns them by type."""
+    from traceweaver_tpu_torch.ops import scores as SC
+
     rate, mhz = exp_rate()
-    terms = dict(bytes=1e3 * nbytes / PEAK_BYTES_PER_S, sfu=1e3 * sfu / rate)
-    term = max(terms, key=terms.get)
-    reps = 5
-    ms = cuda_ms(lambda: [SC.score_block_cuda(*c) for c in calls], reps)
-    plain_ms = cuda_ms(lambda: [SC.score_block_plain(*c) for c in calls], reps)
-    B, N = calls[0][0].row_t.shape
-    line = dict(case=name, shape=[B, N, calls[0][0].col_t.shape[1]], endpoints=len(calls),
-                launches_per_sweep=launches, ms=ms, plain_ms=plain_ms,
-                bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
-                bound_terms_ms=terms, bytes=nbytes, sfu_ops=sfu, sm_clock_mhz=mhz,
-                card=card)
-    print("score-build " + json.dumps(line), flush=True)
-    return line
+    out = {}
+    for precision in ("f32", "bf16"):
+        line = dict(case=name, precision=precision)
+        for sweep in ("forward", "backward"):
+            part = [a for a in calls if _sweep_of(a) == sweep]
+
+            def kernel():
+                return [SC.assemble_block_cuda(*a, precision=precision) for a in part]
+
+            def plain():
+                return [SC.assemble_block_plain(*a, precision=precision) for a in part]
+
+            SC.reset_launches()
+            kernel()
+            launches = SC.LAUNCHES["assemble_block"]
+            terms, counts = assembly_bound(part, precision, rate)
+            term = max(terms, key=terms.get)
+            line[sweep] = dict(endpoints=len(part), launches_per_sweep=launches,
+                               ms=device_ms(kernel, 5, mhz), plain_ms=device_ms(plain, 2, mhz),
+                               stream_ms=cuda_ms(kernel, 5), bound_ms=terms[term],
+                               bound_by="bytes" if term == "bytes" else "operations",
+                               bound_term=term, bound_terms_ms=terms, **counts)
+        a = calls[0]
+        ops = dict(kernel=device_ops(lambda: SC.assemble_block_cuda(*a, precision=precision)),
+                   plain=device_ops(lambda: SC.assemble_block_plain(*a, precision=precision)))
+        if ops["kernel"] < 1:  # the trace lost the call: not measured
+            ops["kernel"] = None
+        B, W = a[4].shape
+        feas = float(SC.assemble_block_cuda(*a, precision=precision)[1].sum())
+        line.update(shape=[B, W + 1, a[7].shape[1] + 1],
+                    feasible_share=feas / (B * W * a[7].shape[1]),
+                    device_ops_per_endpoint_step=ops, sm_clock_mhz=mhz, card=card)
+        print("score-build " + json.dumps(line), flush=True)
+        out[precision] = line
+    return out
+
+
+ASSEMBLY_PHASES = ("staging", "row_setup", "pass1_feasibility", "pass2_mixture",
+                   "reductions_argmax", "pass3_store")
+
+
+def assembly_phases(calls_by_case, card):
+    """Where the assembly kernel's warps spend their cycles: builds
+    ``csrc/scores.cu`` with ``-DTWA_PHASE_CLOCKS`` (each warp adds its
+    clock cycles by phase into a device array) into the build directory,
+    runs one forward sweep of each case at f32 and bf16 through it, and
+    prints one ``score-build-phases`` line per case and type with each
+    phase's share of the summed warp cycles."""
+    import ctypes
+
+    import torch
+
+    from traceweaver_tpu_torch.ops import cuda_build
+    from traceweaver_tpu_torch.ops import scores as SC
+
+    lib_path = os.path.join(cuda_build.BUILD_DIR, "libtw_scores_phase_clocks.so")
+    subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-DTWA_PHASE_CLOCKS", "-o",
+                    lib_path, os.path.join(cuda_build.CSRC_DIR, "scores.cu")], check=True)
+    real_build = SC.build
+    SC.build, SC._LIB = (lambda verbose=False: lib_path), None
+    try:
+        lib = SC._lib()
+        lib.tw_assemble_phase_clocks.argtypes = [ctypes.c_void_p]
+        clocks = (ctypes.c_ulonglong * len(ASSEMBLY_PHASES))()
+        for name, calls in calls_by_case.items():
+            for precision in ("f32", "bf16"):
+                lib.tw_assemble_phase_clocks(clocks)  # zeroes them
+                for a in calls:
+                    if _sweep_of(a) == "forward":
+                        SC.assemble_block_cuda(*a, precision=precision)
+                torch.cuda.synchronize()
+                if lib.tw_assemble_phase_clocks(clocks) != 0:
+                    raise RuntimeError("reading the phase clocks failed")
+                total = float(sum(clocks))
+                print("score-build-phases " + json.dumps(dict(
+                    case=name, precision=precision, warp_cycles=total,
+                    share={ph: c / total for ph, c in zip(ASSEMBLY_PHASES, clocks)},
+                    card=card)), flush=True)
+    finally:
+        SC.build, SC._LIB = real_build, None
+
+
+def assembly_only(card):
+    """``--assembly``: one fused ``FindAssignments`` of ``synth-async-8k``
+    and one ``solve_fleet`` of ``synth-fleet-8svc`` keeping their first
+    sweeps' assembly calls, then :func:`assembly_check`,
+    :func:`assembly_timing` and :func:`assembly_phases` on both."""
+    from traceweaver_tpu_torch.metrics.synth import synth_async_8k, synth_fleet_8svc
+
+    slice_calls, fleet_calls = [], []
+    with assembly_capture(slice_calls, 1024, 2048, 8):
+        run_slice(synth_async_8k(), True)
+    with assembly_capture(fleet_calls, 1024, 2048, 32):
+        run_fleet(synth_fleet_8svc(), True)
+    for name, calls in (("slice-score-build", slice_calls),
+                        ("fleet-score-build", fleet_calls)):
+        if len(calls) != ASSEMBLY_CALLS:
+            raise AssertionError(f"{name}: kept {len(calls)} assembly calls")
+        assembly_check(name, calls)
+        assembly_timing(name, calls, card)
+    assembly_phases({"slice-score-build": slice_calls, "fleet-score-build": fleet_calls},
+                    card)
 
 
 # ---------------------------------------------------------------------------
@@ -1203,8 +1424,9 @@ def drive(run, fused: bool, captured=None, want=lambda S: True, largest=False,
     latter as a device sum per block, read once after ``run()``, so the
     count adds no host sync to the timed call. Every
     launch counter is reset just before and read just after (all of
-    them, the score-build kernel's too, into ``counts`` when it is a
-    dict). Returns
+    them, the assembly kernel's too, into ``counts`` when it is a
+    dict, with ``plain_assembly_on_card``: the calls of the assembly's
+    plain version on CUDA tensors, not the GEMM form). Returns
     ``run()``'s result, the path kernel's launches, the other kernel's
     and the summed kernel device ms (summed over streams: under the
     pipelined fleet flow launches overlap)."""
@@ -1216,6 +1438,7 @@ def drive(run, fused: bool, captured=None, want=lambda S: True, largest=False,
 
     key, wrapper = KERNEL_OF[fused]
     real_wrapper, real_assign_topk, events = getattr(K, wrapper), wt.assign_topk, []
+    real_plain, plain_on_card = SC.assemble_block_plain, [0]
     lock, ill_sums = threading.Lock(), []
     if ill is not None:
         ill.update(ill_posed_windows=0, windows=0)
@@ -1244,9 +1467,16 @@ def drive(run, fused: bool, captured=None, want=lambda S: True, largest=False,
                                          col_valid=cv, cap=cap, n_rows=W)
         return real_assign_topk(*args, **kw)
 
+    def plain(*args, gemm=False, **kw):
+        if args[4].is_cuda and not gemm:
+            with lock:
+                plain_on_card[0] += 1
+        return real_plain(*args, gemm=gemm, **kw)
+
     if captured is not None or ill is not None:
         wt.assign_topk = recording
     setattr(K, wrapper, timed)
+    SC.assemble_block_plain = plain
     try:
         K.reset_launches()
         SC.reset_launches()
@@ -1257,16 +1487,28 @@ def drive(run, fused: bool, captured=None, want=lambda S: True, largest=False,
         launches = K.LAUNCHES[key]
         other = K.LAUNCHES[KERNEL_OF[not fused][0]]
         if counts is not None:
-            counts.update(K.LAUNCHES, **SC.LAUNCHES)
+            counts.update(K.LAUNCHES, **SC.LAUNCHES, plain_assembly_on_card=plain_on_card[0])
     finally:
         wt.assign_topk = real_assign_topk
         setattr(K, wrapper, real_wrapper)
+        SC.assemble_block_plain = real_plain
     return out, launches, other, sum(t0.elapsed_time(t1) for t0, t1 in events)
+
+
+def check_assembly(what, counts) -> None:
+    """Fail a main-path run that launched no assembly kernel or called
+    the assembly's plain version on the card (``counts`` from
+    :func:`drive`)."""
+    if counts["assemble_block"] <= 0:
+        raise AssertionError(f"{what}: the main path launched no assembly kernel")
+    if counts["plain_assembly_on_card"]:
+        raise AssertionError(f"{what}: the assembly's plain version ran on the card "
+                             f"{counts['plain_assembly_on_card']} times")
 
 
 def slice_phase(card):
     """The slice phase (see the module docstring). Returns the launches,
-    K1's block, one sweep's score build (captured, and A/B'd against the
+    K1's block, two sweeps' assembly calls (captured, and A/B'd against the
     plain build) and the fused run's peak memory."""
     import torch
 
@@ -1286,7 +1528,7 @@ def slice_phase(card):
     for fused in (True, False):
         key = KERNEL_OF[fused][0]
         counts = {}
-        capture = (score_capture(sweep, 1024, 2048, 8, 3) if fused
+        capture = (assembly_capture(sweep, 1024, 2048, 8) if fused
                    else contextlib.nullcontext())
         with capture:
             (_, acc, wall, peak, stats), launches[key], other, kernel_ms = drive(
@@ -1297,18 +1539,18 @@ def slice_phase(card):
                     kernel_share=kernel_ms / 1e3 / wall,
                     peak_mem_bytes=peak, launches=launches[key],
                     other_kernel_launches=other,
-                    score_build_launches=counts["score_block"],
+                    assembly_launches=counts["assemble_block"],
+                    plain_assembly_on_card=counts["plain_assembly_on_card"],
                     fused_em_applied=stats.get("fused_em_applied", 0.0), card=card)
         print("slice " + json.dumps(line), flush=True)
         lines[fused] = line
         if launches[key] <= 0:
             raise AssertionError(f"main path (fused={fused}) launched no {key} kernel")
-        if counts["score_block"] <= 0:
-            raise AssertionError(f"main path (fused={fused}) launched no score-build kernel")
+        check_assembly(f"slice (fused={fused})", counts)
         if acc < ACCURACY_FLOOR:
             raise AssertionError(f"accuracy {acc} < {ACCURACY_FLOOR} (fused={fused})")
-    launches["score_block"] = lines[True]["score_build_launches"]
-    with plain_score_build():
+    launches["assemble_block"] = lines[True]["assembly_launches"]
+    with plain_assembly():
         (_, acc, wall, peak, _), _, _, _ = drive(lambda: run_slice(prob, True), True)
     print("slice-score-build " + json.dumps(dict(
         config="synth-async-8k", fused_kernel=True,
@@ -1316,8 +1558,8 @@ def slice_phase(card):
         wall_s={"kernel": lines[True]["wall_s"], "plain": wall},
         accuracy={"kernel": lines[True]["accuracy"], "plain": acc},
         card=card)), flush=True)
-    if len(sweep) != 3:
-        raise AssertionError(f"kept {len(sweep)} score builds of the slice's sweep")
+    if len(sweep) != ASSEMBLY_CALLS:
+        raise AssertionError(f"kept {len(sweep)} assembly calls of the slice's sweeps")
     torch.cuda.synchronize()
     return launches, captured["block"], sweep, lines[True]["peak_mem_bytes"]
 
@@ -1370,7 +1612,8 @@ def fleet_phase(card):
     """The fleet phase (see the module docstring). Returns each kernel's
     launches on the full config, the first score block of the chain
     group, the config's services, the wall of its pipelined K1 run, one
-    sweep's score build of the chain group and that run's peak memory."""
+    two sweeps' assembly calls of the chain group and that run's peak
+    memory."""
     import torch
 
     from traceweaver_tpu_torch.metrics.synth import synth_fleet_8svc
@@ -1398,7 +1641,7 @@ def fleet_phase(card):
         runs = {}
         for pipeline in (True, False):
             confs = [None] * len(probs)
-            capture = (score_capture(sweep, 1024, 2048, 32, 3)
+            capture = (assembly_capture(sweep, 1024, 2048, 32)
                        if fused and pipeline else contextlib.nullcontext())
             with capture:
                 runs[pipeline], n, line = fleet_run(
@@ -1407,7 +1650,7 @@ def fleet_phase(card):
             walls[(fused, pipeline)] = line["wall_s"]
             if fused and pipeline:
                 peaks["kernel"] = line["peak_mem_bytes"]
-                launches["score_block"] = line["score_build_launches"]
+                launches["assemble_block"] = line["assembly_launches"]
             if pipeline:  # the default flow is the main path
                 launches[key] = n
                 confidence_line(probs, runs[pipeline][0], confs, fused, card)
@@ -1423,9 +1666,9 @@ def fleet_phase(card):
     if "block" not in captured:
         raise AssertionError("no [>= 32, 1025, 2049] block in the fleet run")
     warm_rounds(probs, floors, card)
-    if len(sweep) != 3:
-        raise AssertionError(f"kept {len(sweep)} score builds of the chain group")
-    with plain_score_build():
+    if len(sweep) != ASSEMBLY_CALLS:
+        raise AssertionError(f"kept {len(sweep)} assembly calls of the chain group")
+    with plain_assembly():
         _, _, line = fleet_run("fleet-plain-score-build", probs, True, floors, card,
                                plain_build=True)
     peaks["plain"] = line["peak_mem_bytes"]
@@ -1441,9 +1684,10 @@ def fleet_phase(card):
 def fleet_run(tag, probs, fused, floors, card, captured=None, ill=None,
               plain_build=False, **kw):
     """One full-size ``solve_fleet`` through :func:`drive`, its line
-    printed under ``tag``; fails on a missing launch (the score-build
-    kernel's too, unless ``score_gemm`` or the plain build, under
-    :func:`plain_score_build`, takes its place), an
+    printed under ``tag``; fails on a missing launch (the assembly
+    kernel's too, and on a call of the assembly's plain version on the
+    card, unless ``score_gemm`` or ``plain_build``, under
+    :func:`plain_assembly`, takes its place), an
     accuracy below its floor, a moved ``fault_*`` counter or a
     quarantine. ``ill`` (a dict) gets the ill-posed window counts.
     Returns the :func:`run_fleet` tuple, the path kernel's launches and
@@ -1462,7 +1706,8 @@ def fleet_run(tag, probs, fused, floors, card, captured=None, ill=None,
         pipeline=kw.get("pipeline", True), precision=kw.get("precision", "f32"),
         wall_s=wall, spans_per_s=n_spans / wall, kernel=key, kernel_ms_summed=kernel_ms,
         launches=launches, other_kernel_launches=other,
-        score_build_launches=counts["score_block"], peak_mem_bytes=peak,
+        assembly_launches=counts["assemble_block"],
+        plain_assembly_on_card=counts["plain_assembly_on_card"], peak_mem_bytes=peak,
         **{k: stats.get(k, 0.0) for k in (
             "pipeline_groups", "pipeline_depth", "fleet_dispatches",
             "fleet_services", "fused_em_applied", "fleet_dynamism_dispatches",
@@ -1473,8 +1718,8 @@ def fleet_run(tag, probs, fused, floors, card, captured=None, ill=None,
     print(f"{tag} " + json.dumps(line), flush=True)
     if launches <= 0:
         raise AssertionError(f"{tag} (fused={fused}) launched no {key} kernel")
-    if not (plain_build or kw.get("score_gemm")) and counts["score_block"] <= 0:
-        raise AssertionError(f"{tag} (fused={fused}) launched no score-build kernel")
+    if not (plain_build or kw.get("score_gemm")):
+        check_assembly(f"{tag} (fused={fused})", counts)
     below = {k: v for k, v in acc.items() if v < floors[k]}
     if below:
         raise AssertionError(f"{tag} accuracy below the floor (fused={fused}): {below}")
@@ -1565,7 +1810,8 @@ def precision_phase(card, probs, f32_peaks):
         print("precision " + json.dumps(dict(
             config="synth-async-8k", run=tag, fused_kernel=fused, **kw, accuracy=acc,
             accuracy_jax_cpu=ref, wall_s=wall, kernel=key, launches=n,
-            other_kernel_launches=other, score_build_launches=counts["score_block"],
+            other_kernel_launches=other, assembly_launches=counts["assemble_block"],
+            plain_assembly_on_card=counts["plain_assembly_on_card"],
             kernel_ms=ms, peak_mem_bytes=peak,
             peak_mem_bytes_f32=f32_peaks["synth-async-8k"], **ill, card=card)),
             flush=True)
@@ -1573,6 +1819,9 @@ def precision_phase(card, probs, f32_peaks):
             raise AssertionError(f"{tag} slice (fused={fused}) launched no {key} kernel")
         if tag == "bf16":
             launches[key] = n
+            check_assembly(f"{tag} slice (fused={fused})", counts)
+            if fused:
+                launches["assemble_block"] = counts["assemble_block"]
         check_accuracy(f"{tag} slice (fused={fused})", {"slice": 100.0 * acc},
                        {"slice": 100.0 * ref}, ill)
     # ``cache`` is held to CACHE_BF16_MAX_PT here and block by block in
@@ -1597,6 +1846,7 @@ def precision_phase(card, probs, f32_peaks):
                              f"{CACHE_BF16_MAX_PT} pt of JAX")
     cache_check(card, next(p for p in probs if p["service"] == "cache"), acc["cache"])
     launches["fleet_fused_assign"] = n
+    launches["fleet_assemble_block"] = line["assembly_launches"]
     blocks = {"slice-block-bf16": captured["block"]}
     if "block" in fleet_captured:
         blocks["fleet-block-bf16"] = fleet_captured["block"]
@@ -2214,10 +2464,14 @@ def executor_phase(card, root):
     blocks = {"executor-exp5-block": {}, "executor-gtfree-block": {},
               "executor-cg8k-block": {}}
 
-    def driven(argv, captured=None, tally=launches, want=lambda S: True):
-        ill = {}
+    def driven(argv, captured=None, tally=launches, want=lambda S: True, plain=False):
+        ill, counts = {}, {}
         (res, peak, wall), n, other, ms = drive(lambda: run_cli(argv), True,
-                                                captured, want, largest=True, ill=ill)
+                                                captured, want, largest=True, ill=ill,
+                                                counts=counts)
+        if not plain:
+            check_assembly(f"cli {argv}", counts)
+        tally["assemble_block"] = tally.get("assemble_block", 0) + counts["assemble_block"]
         tally["fused_assign"] += n
         tally["sinkhorn"] += other
         if res.store.ingest_front_end != "native":
@@ -2320,8 +2574,8 @@ def executor_phase(card, root):
     if k1 <= 0:
         raise AssertionError("cg-8k: no fused_assign launch")
     gt_flag = res.accuracy_overall[FLAGSHIP]
-    # the same call at bf16, and at f32 with the score build's plain
-    # version (the build before the score-build kernel): peak memory
+    # the same call at bf16, and at f32 with the assembly's plain version
+    # on the card: peak memory
     peak_f32, wall_f32 = peak, wall
     bf16_launches = {"fused_assign": 0, "sinkhorn": 0}
     res, peak, wall, k1, ms, ill = driven(exp5_argv(
@@ -2333,10 +2587,10 @@ def executor_phase(card, root):
     check_accuracy("cg-8k bf16", line["accuracy"], CG8K_BF16_JAX_ACCURACY, ill)
     if k1 <= 0:
         raise AssertionError("cg-8k bf16: no fused_assign launch")
-    with plain_score_build():
+    with plain_assembly():
         res, peak, wall, _, _, _ = driven(exp5_argv(
             d, 0, os.path.join(root, "results-8k-plain"), predictors="10",
-            max_traces=8192), tally={"fused_assign": 0, "sinkhorn": 0})
+            max_traces=8192), tally={"fused_assign": 0, "sinkhorn": 0}, plain=True)
     print("executor-score-build " + json.dumps(dict(
         config="alibaba-cg-8k", peak_mem_bytes={"kernel": peak_f32, "plain": peak},
         wall_s={"kernel": wall_f32, "plain": wall},
@@ -2369,6 +2623,7 @@ def executor_phase(card, root):
           f"{json.dumps(gtfree_launches)}, K1 blocks kept {json.dumps(shapes)}",
           flush=True)
     launches["bf16_fused_assign"] = bf16_launches["fused_assign"]
+    launches["bf16_assemble_block"] = bf16_launches["assemble_block"]
     return (launches, gtfree_launches, {k: v["block"] for k, v in blocks.items()},
             (dirs, gt_runs, gtfree_runs, own_rerun))
 
@@ -2578,6 +2833,9 @@ def main() -> int:
                     "importing traceweaver_tpu_torch from this checkout")
     ap.add_argument("--ladder", metavar="OUT", help="run only exp5's whole ladder of "
                     "both corpora; the pickles the figures read go to OUT")
+    ap.add_argument("--assembly", action="store_true", help="run only the block "
+                    "assembly's check and timing on the first sweeps of one "
+                    "synth-async-8k and one synth-fleet-8svc solve")
     args = ap.parse_args()
 
     import torch
@@ -2611,6 +2869,10 @@ def main() -> int:
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("ptxas " + ln.strip(), flush=True)
 
+    if args.assembly:
+        assembly_only(card)
+        print(card, flush=True)
+        return 0
     if args.slice_root:
         print(f"package: {os.path.dirname(os.path.dirname(K.__file__))}", flush=True)
         slice_phase(card)
@@ -2640,15 +2902,15 @@ def main() -> int:
         K.reset_launches()
         worst, worst_bf16 = kernel_phase(real_block, fleet_block, executor_blocks,
                                          bf16_blocks)
-        score_err = max(score_check("slice-score-build", slice_sweep),
-                        score_check("fleet-score-build", fleet_sweep))
+        score_err = max(assembly_check("slice-score-build", slice_sweep),
+                        assembly_check("fleet-score-build", fleet_sweep))
         checks = dict(K.LAUNCHES)
         timing = kernel_timing(real_block)
         fleet_timing = kernel_timing(fleet_block)
         bf16_timing = kernel_timing(bf16_blocks["slice-block-bf16"])
         bf16_fleet_timing = kernel_timing(bf16_blocks["fleet-block-bf16"])
-        score_time = score_timing("slice-score-build", slice_sweep, card)
-        fleet_score_time = score_timing("fleet-score-build", fleet_sweep, card)
+        score_time = assembly_timing("slice-score-build", slice_sweep, card)
+        fleet_score_time = assembly_timing("fleet-score-build", fleet_sweep, card)
         del slice_sweep, fleet_sweep, bf16_blocks
         # the CPU work last, so that no timed phase shares the host with it
         rerun_checks(card, tmp, *rerun_state, ladder=ladder_reruns_needed)
@@ -2668,8 +2930,10 @@ def main() -> int:
         "bf16_sinkhorn": bf16_launches["sinkhorn"],
         "bf16_fleet_fused_assign": bf16_launches["fleet_fused_assign"],
         "bf16_executor_fused_assign": executor_launches["bf16_fused_assign"],
-        "score_block": launches["score_block"],
-        "fleet_score_block": fleet_launches["score_block"],
+        "assemble_block": launches["assemble_block"],
+        "fleet_assemble_block": fleet_launches["assemble_block"],
+        "executor_assemble_block": executor_launches["assemble_block"],
+        "gtfree_assemble_block": gtfree_launches["assemble_block"],
         "round_topk": checks["round_topk"]}), flush=True)
     src = "traceweaver_tpu_torch/ops/csrc/sinkhorn.cu"
     fleet_shape = list(fleet_block["S"].shape)
@@ -2700,28 +2964,41 @@ def main() -> int:
                                        if name == "fused_assign" else 0),
                     **fleet)
 
-    def score_row():
-        return dict(name="score_block", route="cuda",
-                    source="traceweaver_tpu_torch/ops/csrc/scores.cu",
+    def score_row(precision):
+        t, ft = score_time[precision]["forward"], fleet_score_time[precision]["forward"]
+        return dict(name="assemble_block" + ("_bf16" if precision == "bf16" else ""),
+                    route="cuda", source="traceweaver_tpu_torch/ops/csrc/scores.cu",
                     replaces="traceweaver_tpu/algorithms/weaver_tpu.py:224",
                     tpu_kernel_body=None, pallas_call=None,
-                    note="no TPU kernel: XLA fuses the score build there",
-                    launches=launches["score_block"], max_abs_err=score_err,
-                    ms=score_time["ms"], plain_ms=score_time["plain_ms"],
-                    bound_ms=score_time["bound_ms"], bound_by=score_time["bound_by"],
-                    library_ms=None, shape=score_time["shape"],
-                    launches_per_sweep=score_time["launches_per_sweep"],
-                    fleet_launches=fleet_launches["score_block"],
-                    **{f"fleet_{k}": fleet_score_time[k] for k in (
-                        "ms", "plain_ms", "bound_ms", "bound_by", "shape",
-                        "launches_per_sweep")})
+                    note="no TPU kernel: XLA fuses the block assembly there",
+                    score_dtype="bfloat16" if precision == "bf16" else "float32",
+                    launches=(launches["assemble_block"] if precision == "f32"
+                              else bf16_launches["assemble_block"]),
+                    max_abs_err=score_err, ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    bound_term=t["bound_term"], library_ms=None,
+                    shape=score_time[precision]["shape"],
+                    launches_per_sweep=t["launches_per_sweep"],
+                    device_ops_per_endpoint_step=score_time[precision][
+                        "device_ops_per_endpoint_step"],
+                    backward_ms=score_time[precision]["backward"]["ms"],
+                    fleet_launches=(fleet_launches["assemble_block"] if precision == "f32"
+                                    else bf16_launches["fleet_assemble_block"]),
+                    executor_launches=executor_launches[
+                        "assemble_block" if precision == "f32" else "bf16_assemble_block"],
+                    gtfree_launches=(gtfree_launches["assemble_block"]
+                                     if precision == "f32" else 0),
+                    fleet_shape=fleet_score_time[precision]["shape"],
+                    **{f"fleet_{k}": ft[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "launches_per_sweep")})
 
     pallas = "traceweaver_tpu/ops/pallas_sinkhorn.py"
     k1 = ("fused_assign", f"{pallas}:308", f"{pallas}:219 _fused_kernel",
           f"{pallas}:357", "k1_err")
     k2 = ("sinkhorn", f"{pallas}:140", f"{pallas}:80 _kernel", f"{pallas}:184",
           "plan_err")
-    table = [row(*k1), bf16_row(*k1), row(*k2), bf16_row(*k2), score_row()]
+    table = [row(*k1), bf16_row(*k1), row(*k2), bf16_row(*k2), score_row("f32"),
+             score_row("bf16")]
     print(json.dumps({"kernels": table}), flush=True)
     torch.cuda.synchronize()
     print(card, flush=True)

@@ -4,14 +4,15 @@
   a bf16 result, within the tolerance tests/test_ops.py:26 holds JAX's
   GEMM to the elementwise form (rtol 1e-3, atol 1e-2);
 - per-window mixture rows ([B, 1, 1, K]) give each window's 1-D result;
-- the score-build wrapper takes its plain version on the CPU, refuses
-  to launch on CPU tensors, and orients each term's delay as
+- the block assembly takes its plain version on the CPU, whose score
+  block sums the terms in the JAX solver's grouping, the kernel's
+  wrapper refuses CPU tensors, and each term orients its delay as
   ``pair_scores`` and the solver's successor and return terms do;
 - the solver with ``score_gemm`` against JAX at ``TW_SCORE_GEMM=1``:
   >= 99% equal assignments.
 
-A ``gpu`` test holds the score-build kernel against its plain version on
-the card and counts the entries that differ.
+The assembly kernel's own tests, on the CPU and on the card, are in
+tests/test_torch_block.py.
 """
 
 import numpy as np
@@ -138,23 +139,37 @@ def test_score_terms_orient_the_delay_as_the_solver():
 
 
 def test_score_block_takes_the_plain_version_on_the_cpu(monkeypatch):
+    """On the CPU the assembled block holds the plain score build, the
+    terms summed in the JAX solver's grouping, and the kernel's wrapper
+    refuses CPU tensors."""
     rng = np.random.default_rng(4)
     root, preds, succs, ret = _terms(rng)
+    B, N = root.row_t.shape
+    M = root.col_t.shape[1]
+    o_s, o_e = root.col_t, succs[0].col_t
+    for t in preds:
+        t.col_t = o_s
+    ret.col_t = o_e
+    # every pair feasible: the block is the score build itself
+    wide, valid = torch.full((B, N), 1e6), torch.ones(B, N, dtype=torch.bool)
+    args = (root, preds, succs, ret, -wide, wide, valid, o_s, o_e,
+            torch.ones(B, M, dtype=torch.bool), -wide, None, ~valid)
 
     def refuse(*a, **kw):
         raise AssertionError("the kernel wrapper was called on the CPU")
 
-    monkeypatch.setattr(ts, "score_block_cuda", refuse)
+    monkeypatch.setattr(ts, "assemble_block_cuda", refuse)
     before = dict(ts.LAUNCHES)
-    S = ts.score_block(root, preds, succs, ret)
-    assert torch.equal(S, ts.score_block_plain(root, preds, succs, ret))
+    S_ot, feas, _ = ts.assemble_block(*args)
     assert ts.LAUNCHES == before
+    assert torch.equal(feas, torch.full((B, N), M, dtype=torch.int32))
     want = (root.values() + (preds[0].values() + preds[1].values())
             + succs[0].values() + ret.values())
-    assert torch.equal(S, want)
+    assert torch.equal(ts.score_block_plain(root, preds, succs, ret), want)
+    assert torch.equal(S_ot[:, :N, :M], want)
     monkeypatch.undo()
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        ts.score_block_cuda(root, preds, succs, ret)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ts.assemble_block_cuda(*args)
 
 
 def test_solver_with_score_gemm_matches_jax(monkeypatch):
@@ -179,54 +194,3 @@ def test_solver_with_score_gemm_matches_jax(monkeypatch):
         agree += int((got == ref).sum())
     jax.clear_caches()
     assert agree / total >= 0.99, (agree, total)
-
-
-# ---------------------------------------------------------------------------
-# on the card
-# ---------------------------------------------------------------------------
-
-def _cuda_terms(terms):
-    return [ts.MixtureTerm(*(v.cuda() if torch.is_tensor(v) else v
-                             for v in (t.row_t, t.col_t, t.wt, t.mu, t.sd, t.active,
-                                       t.row_ok, t.flip)))
-            for t in terms]
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 7, 11), (2, 1025, 2048), (40, 33, 65)])
-def test_score_kernel_matches_plain_on_card(shape):
-    """The whole block, kernel against plain, in one launch. Entries may
-    differ in their last bits (fmaf rounds once where the plain path
-    rounds twice, and the card's exp/log are not PyTorch's): every entry
-    within 1e-5 relative (about 80 f32 ulps) plus 1e-4 absolute; the
-    count of differing entries is in the message."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    B, N, M = shape
-    root, preds, succs, ret = _terms(np.random.default_rng(sum(shape)), B, N, M)
-    cuda = _cuda_terms([root, *preds, *succs, ret])
-    before = ts.LAUNCHES["score_block"]
-    got = ts.score_block_cuda(cuda[0], cuda[1:3], cuda[3:4], cuda[4])
-    assert ts.LAUNCHES["score_block"] == before + 1
-    want = ts.score_block_plain(cuda[0], cuda[1:3], cuda[3:4], cuda[4])
-    differ = int((got != want).sum())
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5,
-                               msg=lambda m: f"{differ} of {got.numel()} differ: {m}")
-
-
-@pytest.mark.gpu
-def test_score_kernel_splits_long_term_lists_on_card():
-    """More terms than one launch takes: the later launches add into the
-    block, which still matches the plain build."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    rng = np.random.default_rng(6)
-    parts = [_terms(rng, 4, 40, 70) for _ in range(12)]
-    root, ret = _cuda_terms([parts[0][0], parts[0][3]])
-    preds = _cuda_terms([t for p in parts for t in p[1]])          # 24
-    succs = _cuda_terms([t for p in parts for t in p[2]])          # 12
-    before = ts.LAUNCHES["score_block"]
-    got = ts.score_block_cuda(root, preds, succs, ret)
-    assert ts.LAUNCHES["score_block"] == before + 2               # 38 terms
-    want = ts.score_block_plain(root, preds, succs, ret)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)

@@ -46,13 +46,11 @@ from traceweaver_tpu_torch.obs.registry import get_registry as _get_registry
 from traceweaver_tpu_torch.ops.cuda_sinkhorn import assign_topk
 from traceweaver_tpu_torch.ops.gmm import fit_gmm_in_graph
 from traceweaver_tpu_torch.ops.precision import score_itemsize, validate_precision
-from traceweaver_tpu_torch.ops.scores import MixtureTerm, score_block
+from traceweaver_tpu_torch.ops.scores import MixtureTerm, assemble_block
 from traceweaver_tpu_torch.runtime.bucketing import pow2_bucket
 from traceweaver_tpu_torch.spans import NA, SKIP, Span, SpanArray
 
 NEG = -1.0e9
-SKIP_MARGIN = 4.0    # log-space margin a real candidate must beat to avoid skip
-SKIP_FLOOR = -60.0   # skip score floor so candidate-less rows still take skip
 MIN_TOPK_MASS = 1e-3  # top-K fallback candidates need at least this plan mass
 DEFAULT_MAX_WINDOW = 1024
 DEFAULT_TOPK = 5
@@ -120,15 +118,17 @@ def _solve_windows_impl(
     columns, both x ``CONF_SCALE``. They are plain tensor operations on
     the block, outside the kernels.
 
-    The score block of an endpoint is built in f32 by
-    :func:`~traceweaver_tpu_torch.ops.scores.score_block` (on the card
-    the score-build kernel; ``score_gemm`` the GEMM form, the JAX
-    package's ``TW_SCORE_GEMM``, at every term as under its per-window
-    ``vmap``). Under ``precision="bf16"`` each row of the assembled
-    block is centred at its best feasible score and the block is stored
-    in bf16 (JAX ``weaver_tpu.py:278-296``); the kernels, ``not_best``'s
-    argmax and the confidence margins read that block, and the
-    marginals and everything that accumulates stay f32.
+    The OT block of an endpoint, with its feasible counts and row
+    argmax, comes from
+    :func:`~traceweaver_tpu_torch.ops.scores.assemble_block` (on the
+    card one launch of the assembly kernel; ``score_gemm`` the GEMM
+    form, the JAX package's ``TW_SCORE_GEMM``, at every term as under
+    its per-window ``vmap``). The scores sum in f32; under
+    ``precision="bf16"`` each row of the assembled block is centred at
+    its best feasible score and the block is stored in bf16 (JAX
+    ``weaver_tpu.py:278-296``); the kernels, ``not_best``'s argmax and
+    the confidence margins read that block, and the marginals and
+    everything that accumulates stay f32.
     """
     precision = validate_precision(precision)
     B, E, M = out_start.shape
@@ -163,7 +163,8 @@ def _solve_windows_impl(
         smask = pred_mask[:, :, e]
         t_pred = torch.where(pmask[:, :, None], chosen_end, neg).amax(dim=1)
         t_prev = torch.where(pmask.any(dim=1)[:, None], t_pred, in_s)
-        t_succ = torch.where(smask[:, :, None], chosen_start, pos).amin(dim=1)
+        t_succ = (torch.where(smask[:, :, None], chosen_start, pos).amin(dim=1)
+                  if backward else None)
         o_s, o_e, o_v = out_start[:, e], out_end[:, e], out_valid[:, e]
 
         # --- score block --------------------------------------------------
@@ -186,46 +187,19 @@ def _solve_windows_impl(
         ret = MixtureTerm(in_e, o_e, ret_wt[:, e], ret_mu[:, e], ret_sd[:, e],
                           is_last[:, e], flip=True)
         with _obs_profile.annotate("tw:solve:score"):
-            S = score_block(root, preds, succs, ret, gemm=score_gemm)
-
-        # --- feasibility --------------------------------------------------
-        feas = (in_v[:, :, None] & o_v[:, None, :]
-                & (in_s[:, :, None] <= o_s[:, None, :])
-                & (o_e[:, None, :] <= in_e[:, :, None])
-                & (t_prev[:, :, None] <= o_s[:, None, :])
-                & ~force_skip[:, e][:, :, None])
-        if backward:
-            feas = feas & (o_e[:, None, :] <= t_succ[:, :, None])
-        S = torch.where(feas, S, neg)
-        feas_count = feas.sum(dim=2, dtype=torch.int32)
-
-        # --- skip column ----------------------------------------------------
-        row_best = S.amax(dim=2)
-        skip_score = torch.clamp(row_best - SKIP_MARGIN, min=SKIP_FLOOR)
-        skip_score = torch.where(force_skip[:, e], zero, skip_score)
-        skip_score = torch.where(in_v, skip_score, neg)
-        Sfull = torch.cat([S, skip_score[:, :, None]], dim=2)     # [B, W, M+1]
-        if precision == "bf16":
-            # entropic OT is invariant to a constant per row: centred at
-            # its best feasible score, a row keeps its margins in bf16's
-            # 8 mantissa bits; masked entries stay NEG (in place on the
-            # fresh f32 block: no second f32 copy)
-            row_ref = torch.where(row_best > NEG / 2, row_best, zero)
-            masked = Sfull <= NEG / 2
-            Sfull = Sfull.sub_(row_ref[:, :, None]).masked_fill_(masked, NEG).to(
-                torch.bfloat16)
-            del masked
+            S_ot, feas_count, row_argmax = assemble_block(
+                root, preds, succs, ret, in_s, in_e, in_v, o_s, o_e, o_v, t_prev,
+                t_succ, force_skip[:, e], precision=precision, gemm=score_gemm)
 
         # --- marginals (dummy row absorbs surplus columns) ------------------
-        n_rows = in_v.sum(dim=1).to(S.dtype)
-        n_cols = o_v.sum(dim=1).to(S.dtype)
+        f32 = in_s.dtype
+        n_rows = in_v.sum(dim=1).to(f32)
+        n_cols = o_v.sum(dim=1).to(f32)
         cap_e = torch.maximum(skip_cap[:, e], torch.clamp(n_rows - n_cols, min=0.0))
         row_marg = torch.cat(
-            [in_v.to(S.dtype), torch.clamp(n_cols + cap_e - n_rows, min=0.0)[:, None]],
+            [in_v.to(f32), torch.clamp(n_cols + cap_e - n_rows, min=0.0)[:, None]],
             dim=1)
-        col_marg = torch.cat([o_v.to(S.dtype), cap_e[:, None]], dim=1)
-        S_ot = torch.cat([Sfull, torch.zeros(B, 1, M + 1, dtype=Sfull.dtype,
-                                             device=dev)], dim=1)
+        col_marg = torch.cat([o_v.to(f32), cap_e[:, None]], dim=1)
         col_valid = torch.cat([o_v, (cap_e > 0)[:, None]], dim=1)
         assign, tk = assign_topk(
             S_ot, row_marg, col_marg, in_v, col_valid, cap_e, W,
@@ -237,12 +211,12 @@ def _solve_windows_impl(
         safe = torch.clamp(assign, 0, M - 1).to(torch.int64)
         chosen_end[:, e] = torch.where(real, torch.gather(o_e, 1, safe), t_prev)
         chosen_start[:, e] = torch.where(real, torch.gather(o_s, 1, safe), pos)
-        not_best = (assign != Sfull.argmax(dim=2)) & in_v
+        not_best = (assign != row_argmax) & in_v
         if not confidence:
             return assign, tk, not_best, feas_count
         # the row conditional softmax(S / eps) is the Sinkhorn plan row
         # without the column potentials: its entropy is 0 for a one-hot row
-        Sf = Sfull.to(torch.float32)
+        Sf = S_ot[:, :W].to(torch.float32)
         top2 = torch.topk(Sf, 2, dim=2).values
         margin = torch.clamp(top2[..., 0] - top2[..., 1], min=0.0)
         p = torch.softmax(torch.where(Sf > NEG / 2, Sf / epsilon, neg), dim=2)
