@@ -9,6 +9,7 @@ against their plain versions.
     python3 chip_smoke.py --ladder OUT       # only exp5's whole ladder
                                              # (180 CLI calls), pickles
                                              # to OUT
+    python3 chip_smoke.py --stream           # only the stream phase
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -130,6 +131,27 @@ Phases, each of which raises on failure (non-zero exit):
    JAX's in the last bits (``LADDER_PORT_CPU``), equal to that reading;
    the figures are drawn where the machine has matplotlib. ``--ladder OUT`` runs the whole ladder of
    both corpora (15 graphs x 6 rungs each) alone under the same rule;
+5c. stream: config ``stream-cg-8k`` (one call graph of seed 10 at 8192
+   traces 20 ms apart, replayed with 50 ms of arrival jitter through
+   20 s windows with 4 s of overlap and a 2 s watermark) through the
+   port's ``cli stream`` in this process on the card, with a sink and a
+   checkpoint every 2 windows, every launch counter reset just before the
+   call and read just after; then, as a call of its own, the batch
+   comparison ``--compare_batch`` prints (``cli.batch_accuracy``, the
+   flagship on the stream's store). Spans emitted plus late-dropped
+   must equal the events consumed, no window may be dead-lettered, K1
+   and the assembly kernel must launch and the assembly's plain version
+   must not run on the card; the window, late and shed counts must equal
+   the JAX package's (``STREAM_JAX``) and the streamed accuracy read
+   JAX's within half a point where no window was ill-posed, else the
+   port's CPU stream (started in a process of its own right after this
+   phase, checked with the CPU reruns) must equal its recorded reading
+   exactly (``STREAM_PORT_CPU``: it parts from JAX's in the last bits)
+   and the card read JAX within 7 points with >= 90% of every service's
+   pairs equal to the CPU run's. Then a second run stopped after half the
+   windows (under the profiler: the ``profile`` line) is resumed from its
+   checkpoint in a fresh service, and its sink must equal the first
+   run's byte for byte (``stream-resume``);
 6. kernels: each kernel against its plain PyTorch version on the card,
    on random blocks (ragged, all-masked, padded rows, skip-heavy, tol 0
    and 1e-3; rows not a multiple of the cluster size, fewer rows than
@@ -139,7 +161,8 @@ Phases, each of which raises on failure (non-zero exit):
    chain group ([32, 1025, 2049]) and from the executor phase (the
    largest K1 block of the exp5 loop, of ground-truth-free discovery (a
    block of >= 256 windows, from the exp5 loop and ``alibaba-cg-8k``)
-   and of ``alibaba-cg-8k``, less their ill-posed windows: windows with an
+   and of ``alibaba-cg-8k``, and the stream's largest, less their
+   ill-posed windows: windows with an
    incoming span that has no feasible child and no skip room, whose
    plans are rounding noise);
    ``two-streams``: K1 and K2 launched
@@ -158,6 +181,9 @@ Phases, each of which raises on failure (non-zero exit):
    and the assembly's per sweep with the card's operations per
    endpoint step (``score-build`` lines).
 
+``--stream`` runs only the stream phase and its K1 block's check (and
+the CPU stream where the card met ill-posed windows).
+
 ``--assembly`` runs only the assembly's check and timing, on the first
 sweeps of one ``synth-async-8k`` and one ``synth-fleet-8svc`` solve,
 and where its warps spend their cycles (a build of the kernel that
@@ -165,8 +191,11 @@ clocks its phases: ``score-build-phases`` lines).
 
 ``--slice-root`` runs the slice and fleet phases alone against another
 checkout (one process per checkout, since both packages share a name),
-so that two commits are compared on one card in turns; its fleet phase
-needs a checkout whose ``solve_fleet`` has the pipelined flow.
+so that two commits are compared on one card in turns, then times K1
+and K2 on the slice's and the fleet's captured blocks (``kernel-ab``
+lines: each block is the first of its solve, the same for every
+checkout); its fleet phase needs a checkout whose ``solve_fleet`` has
+the pipelined flow.
 
 Lines: ``slice`` and ``fleet`` lines carry the wall time and the summed
 device time of the path's kernel launches (CUDA events around each
@@ -188,7 +217,12 @@ edges and discovery's seconds: deep copies, solves and pruning apart);
 ``ingest-front-ends`` lines the seconds of both front ends;
 ``profile`` lines the idle share over the traced call and, from the
 same device-busy time, over the call's unprofiled wall (the profiler
-slows the host); ``executor-phase`` the phase's wall.
+slows the host); ``executor-phase`` the phase's wall; the ``stream``
+line the stream's counts, accuracy (JAX's and the port's batch beside
+it), wall, events per second, stage seconds (solve, emit, checkpoint),
+launches, ill-posed windows, the unmet windows of its largest K1 block,
+peak memory and the device idle share of the profiled half run;
+``stream-resume`` the kill, the resume and the byte check.
 The kernel-timing lines carry each kernel's cluster size and the three
 terms of its bound.
 
@@ -640,6 +674,29 @@ LADDER_PORT_CPU = {
 # 5 reads 6.6 pt above JAX, graph 9 keeps 94% of one service's pairs)
 ILL_POSED_MAX_PT = 7.0
 ILL_POSED_MIN_PAIRS = 0.9
+# config stream-cg-8k: one call graph of seed 10 at 8192 traces, 20 ms
+# apart, replayed with 50 ms of arrival jitter through 20 s windows (4 s
+# overlap, 2 s watermark, no grace, four pending windows)
+STREAM_CORPUS = dict(n_graphs=1, traces_per_graph=8192, seed=10, base_gap_ms=20)
+STREAM_QUERY = "fix=5&max_traces=8192&ooo_ms=50&seed=1"
+STREAM_ARGS = ["--window_s", "20", "--overlap_s", "4", "--watermark_s", "2",
+               "--grace_s", "0", "--max_pending", "4"]
+# JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config stream-cg-8k
+# (the JAX package's stream on the CPU, then its batch executor, predictor
+# 10, on the same store; that batch reading is only reported: run alone,
+# --config stream-cg-8k-batch, JAX reads 11.38916015625, PERF.md section 7)
+STREAM_JAX = dict(consumed=106496, windows=14, micro_batches=14, spans_emitted=106496,
+                  late_rerouted=0, late_dropped=0, shed_spilled=0, shed_dropped_windows=0,
+                  deadletter_windows=0, streamed_e2e=96.435546875,
+                  batch_e2e=68.76220703125)
+# The port's CPU stream reads this instead (the CPU rerun must equal it
+# exactly): from equal inputs the two part in one solver window of window
+# 0's cold solve, at a K1 block where two rows score two columns alike and
+# f32 rounding breaks the tie (the plans agree to 2e-6); the sweeps and
+# the warm-started windows carry the swap on. The first three emitted
+# windows of both sinks assign alike
+# (tests/test_torch_stream_cg8k.py pins this; ROADMAP C.1).
+STREAM_PORT_CPU = 96.42333984375
 # discovery solves a service's every window in a few launches; the
 # flagship's fleet blocks hold tens of windows
 DISCOVERY_MIN_WINDOWS = 256
@@ -1569,9 +1626,13 @@ def slice_phase(card):
 # ---------------------------------------------------------------------------
 
 def agreement(got, ref) -> float:
-    """Share of ``ref``'s (endpoint, span) pairs that ``got`` assigns alike."""
+    """Share of ``ref``'s (endpoint, span) pairs that ``got`` assigns alike
+    (``ops/compare.pair_agreement``, kept here so that ``--slice-root`` runs
+    checkouts from before it)."""
     pairs = [(ep, i) for ep in ref for i in ref[ep]]
-    return sum(got[ep][i] == ref[ep][i] for ep, i in pairs) / len(pairs)
+    if not pairs:
+        return 1.0
+    return sum(got.get(ep, {}).get(i) == ref[ep][i] for ep, i in pairs) / len(pairs)
 
 
 def run_fleet(probs, fused: bool, device="cuda", **kw):
@@ -2288,12 +2349,14 @@ def profiled(run):
 def profile_line(tag, config, report, wall, unprofiled_wall_s, card, **extra):
     """The ``profile`` line: the device's idle share of the traced call
     and, from the same busy time, of the call's unprofiled wall (the
-    profiler slows the host)."""
+    profiler slows the host; None where no unprofiled run did the same
+    work)."""
     busy_s = report["device_busy"] / 1e6
     line = dict(config=config, call=tag, traced_wall_s=wall,
                 traced_window_s=report["wall"] / 1e6, device_busy_s=busy_s,
                 idle_share=report["idle_share"], unprofiled_wall_s=unprofiled_wall_s,
-                idle_share_of_unprofiled_wall=1.0 - busy_s / unprofiled_wall_s,
+                idle_share_of_unprofiled_wall=(None if unprofiled_wall_s is None
+                                               else 1.0 - busy_s / unprofiled_wall_s),
                 device_ops=report["kernels"], longest_ops_us=report["longest_ops"],
                 longest_gaps_us=report["longest_gaps"], names=report["names"],
                 card=card, **extra)
@@ -2401,6 +2464,260 @@ def profiled_cli(argv, card, unprofiled):
         raise AssertionError(f"profiled CLI: missing ranges {missing}, accuracy "
                              f"{res.accuracy_overall[FLAGSHIP]} vs "
                              f"{unprofiled['accuracy'][FLAGSHIP]}")
+
+
+# ---------------------------------------------------------------------------
+# stream
+# ---------------------------------------------------------------------------
+
+def _stream_cfg(**kw):
+    """``STREAM_ARGS`` as a ``StreamConfig``."""
+    from traceweaver_tpu_torch.stream import StreamConfig
+
+    return StreamConfig(window_us=20e6, overlap_us=4e6, ooo_bound_us=2e6, grace_us=0.0,
+                        max_pending=4, **kw)
+
+
+def _stream_pred(svc):
+    """A finished service's graded predictions, ``{service: {endpoint:
+    {in id: out id}}}``."""
+    return {p: by_ep for p, by_ep in svc.grader.pred.items()}
+
+
+def stream_phase(card, root):
+    """Config ``stream-cg-8k`` through ``cli stream`` in this process on
+    the card, with a sink and a checkpoint every 2 windows, every launch
+    counter reset just before the call and read just after; then, as a
+    call of its own, the batch comparison that ``--compare_batch`` prints
+    (``cli.batch_accuracy`` on the stream's store); then a second run
+    stopped after half the windows (an odd count, so beyond a checkpoint)
+    under the profiler, resumed from its checkpoint in a fresh service,
+    whose sink must equal the first run's byte for byte. Checks
+    conservation, no dead-lettered window, both kernels launched and no
+    plain assembly on the card, and the streamed accuracy against
+    ``STREAM_JAX`` where no window was ill-posed (else
+    :func:`rerun_checks` holds it to a CPU run). Returns the stream's
+    launches, its largest K1 block and what :func:`rerun_checks` needs."""
+    import io
+
+    import torch
+
+    from traceweaver_tpu_torch.alibaba.synthesize import synthesize_corpus
+    from traceweaver_tpu_torch.ops.sinkhorn import sinkhorn_log
+    from traceweaver_tpu_torch.runtime import cli
+    from traceweaver_tpu_torch.stream import (
+        StreamingReconstructor,
+        TraceSink,
+        parse_source_spec,
+    )
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    (d,) = synthesize_corpus(os.path.join(root, "stream"), **STREAM_CORPUS)
+    synth_s = time.perf_counter() - t0
+    spec = f"replay:{d}?{STREAM_QUERY}"
+    out = os.path.join(root, "stream-out")
+    sink_a, sink_b = os.path.join(out, "run.jsonl"), os.path.join(out, "killed.jsonl")
+    argv = (["stream", "--source", spec] + STREAM_ARGS
+            + ["--out", sink_a, "--checkpoint", os.path.join(out, "run.ckpt"),
+               "--checkpoint_every", "2"])
+    real_run, runs = StreamingReconstructor.run, []
+
+    def keep_service(self, *args, **kw):
+        runs.append((self, real_run(self, *args, **kw)))
+        return runs[-1][1]
+
+    def call():
+        StreamingReconstructor.run = keep_service
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                rc = cli.main(argv)
+        finally:
+            StreamingReconstructor.run = real_run
+        if rc != 0:
+            raise AssertionError(f"cli {argv} exited {rc}")
+        return printed.getvalue()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    captured, ill, c = {}, {}, {}
+    t_call = time.perf_counter()
+    printed, _, _, _ = drive(call, True, captured, largest=True, ill=ill, counts=c)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_call
+    peak = torch.cuda.max_memory_allocated() - base
+    ((svc, s),) = runs
+    st = s["stats"]
+    t0 = time.perf_counter()
+    batch_acc = cli.batch_accuracy(svc.source.store, 5, "cuda", s["precision"])
+    batch_s = time.perf_counter() - t0
+    blk = captured["block"]
+    plan = sinkhorn_log(blk["S"], blk["row_marg"], blk["col_marg"], epsilon=1.0,
+                        n_iters=40, tol=1e-3)
+    unmet = int(unmet_windows(plan, blk["row_marg"]).sum())
+    del plan
+    card_acc, ill_s = s["accuracy"]["e2e"], ill["ill_posed_windows"]
+    line = dict(
+        config="stream-cg-8k", device=s["device"], precision=s["precision"],
+        consumed=s["consumed"], windows=s["emitted_windows"],
+        micro_batches=int(st.get("micro_batches", 0)),
+        spans_emitted=int(st.get("spans_emitted", 0)),
+        late_rerouted=s["late_rerouted"], late_dropped=s["late_dropped"],
+        shed_spilled=s["shed_spilled"], shed_dropped_windows=s["shed_dropped_windows"],
+        deadletter_windows=s["deadletter_windows"],
+        streamed_e2e=card_acc, streamed_e2e_jax=STREAM_JAX["streamed_e2e"],
+        batch_e2e_port=batch_acc, batch_e2e_jax=STREAM_JAX["batch_e2e"],
+        delta_vs_port_batch=card_acc - batch_acc, per_service=s["accuracy"]["per_service"],
+        wall_s=wall, events_per_s=s["consumed"] / wall,
+        solve_s=st.get("solve_s", 0.0), emit_s=st.get("emit_s", 0.0),
+        checkpoint_s=st.get("checkpoint_s", 0.0), consume_s=st.get("consume_s", 0.0),
+        plan_fit_s=st.get("plan_fit_s", 0.0), checkpoints=int(st.get("checkpoints", 0)),
+        fused_assign_launches=c["fused_assign"], assemble_block_launches=c["assemble_block"],
+        launches_in_summary=s["launches"], plain_assembly_on_card=c["plain_assembly_on_card"],
+        ill_posed_windows=ill_s, k1_windows=ill["windows"],
+        unmet_windows_largest_block=unmet, largest_block=list(blk["S"].shape),
+        plan_cache=s["plan_cache"], pipeline=s["pipeline"], peak_mem_bytes=peak,
+        batch_wall_s=batch_s, synthesize_s=synth_s, card=card)
+    # a second run stopped after half the windows (odd: beyond a
+    # checkpoint), under the profiler for the idle share; resumed below
+    kill_at = max(3, s["emitted_windows"] // 2 | 1)
+    ckpt = os.path.join(out, "killed.ckpt")
+    killed = StreamingReconstructor(parse_source_spec(spec),
+                                    _stream_cfg(checkpoint_path=ckpt, checkpoint_every=2,
+                                                verbose=False),
+                                    sink=TraceSink(sink_b))
+    partial, traced_wall, report = profiled(lambda: killed.run(max_windows=kill_at))
+    killed.sink.close()
+    profile_line("stream-killed", "stream-cg-8k", report, traced_wall, None, card,
+                 windows=partial["emitted_windows"])
+    line.update(idle_share_profiled_half=report["idle_share"],
+                profiled_windows=partial["emitted_windows"])
+    print("stream " + json.dumps(line), flush=True)
+    if "[stream] win=" not in printed or "streamed end-to-end accuracy" not in printed:
+        raise AssertionError(f"cli stream printed {printed[-2000:]}")
+    failed = []
+    if line["spans_emitted"] + s["late_dropped"] != s["consumed"]:
+        failed.append(f"conservation: {line['spans_emitted']} emitted + "
+                      f"{s['late_dropped']} dropped != {s['consumed']} consumed")
+    if s["deadletter_windows"] or s["faults"]["poisoned_windows"]:
+        failed.append(f"{s['deadletter_windows']} dead-lettered windows")
+    if c["fused_assign"] <= 0 or c["assemble_block"] <= 0:
+        failed.append(f"the stream launched K1 {c['fused_assign']} and the assembly "
+                      f"kernel {c['assemble_block']} times")
+    if c["plain_assembly_on_card"]:
+        failed.append(f"the assembly's plain version ran on the card "
+                      f"{c['plain_assembly_on_card']} times")
+    if (c["fused_assign"], c["assemble_block"]) != (
+            s["launches"]["fused_assign"], s["launches"]["assemble_block"]):
+        failed.append(f"launch counts {c} and the summary's {s['launches']} part")
+    for key in ("consumed", "windows", "late_rerouted", "late_dropped", "shed_spilled",
+                "shed_dropped_windows"):
+        if line[key] != STREAM_JAX[key]:
+            failed.append(f"{key}: {line[key]} != JAX {STREAM_JAX[key]}")
+    if ill_s == 0 and abs(card_acc - STREAM_JAX["streamed_e2e"]) > 0.5:
+        failed.append(f"streamed {card_acc} is not within 0.5 pt of JAX "
+                      f"{STREAM_JAX['streamed_e2e']} with no ill-posed window")
+
+    # the stopped run resumed from its checkpoint in a fresh service
+    t0 = time.perf_counter()
+    resumed = StreamingReconstructor.resume(ckpt, parse_source_spec(spec))
+    final = resumed.run()
+    resumed.sink.close()
+    resume_s = time.perf_counter() - t0
+    with open(sink_a, "rb") as f:
+        want = f.read()
+    with open(sink_b, "rb") as f:
+        got = f.read()
+    resumed_pairs = {p: agreement(_stream_pred(resumed).get(p, {}), pred)
+                     for p, pred in _stream_pred(svc).items()}
+    print("stream-resume " + json.dumps(dict(
+        config="stream-cg-8k", killed_after_windows=partial["emitted_windows"],
+        checkpoints_before_kill=int(partial["stats"].get("checkpoints", 0)),
+        resumed_windows=final["emitted_windows"], sink_bytes=len(want),
+        sink_identical=got == want, accuracy_resumed=final["accuracy"]["e2e"],
+        resume_wall_s=resume_s, card=card)), flush=True)
+    if got != want:
+        first = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                     min(len(got), len(want)))
+        failed.append(f"the resumed sink parts from the uninterrupted run's at byte "
+                      f"{first} of {len(want)} ({len(got)} written); pairs "
+                      f"{resumed_pairs}")
+    if failed:
+        raise AssertionError("stream: " + "; ".join(failed))
+    print(f"stream-phase: {time.perf_counter() - t_phase:.3f} s wall", flush=True)
+    launches = dict(fused_assign=c["fused_assign"], assemble_block=c["assemble_block"])
+    return launches, blk, (d, card_acc, _stream_pred(svc), ill_s)
+
+
+def cpu_stream(graph_dir, threads):
+    """Worker: ``stream-cg-8k`` through the port's stream on the CPU, on
+    ``threads`` threads; returns its streamed accuracy, graded
+    predictions and wall seconds."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from traceweaver_tpu_torch.stream import StreamingReconstructor, parse_source_spec
+
+    torch.set_num_threads(threads)
+
+    t0 = time.perf_counter()
+    svc = StreamingReconstructor(parse_source_spec(f"replay:{graph_dir}?{STREAM_QUERY}"),
+                                 _stream_cfg(verbose=False), device="cpu")
+    summary = svc.run()
+    return dict(accuracy=summary["accuracy"]["e2e"], pred=_stream_pred(svc),
+                wall_s=time.perf_counter() - t0)
+
+
+class StreamRerun:
+    """:func:`cpu_stream` in a spawned process of its own, on two threads,
+    started as soon as the card's stream met ill-posed windows: it is the
+    longest CPU rerun (about 370 s on one thread), so it runs beside the
+    card phases that follow, which leave most cores idle, and not after
+    them with the other reruns. :meth:`result` waits for it; leaving the
+    ``with`` block stops the process."""
+
+    def __init__(self, graph_dir, threads: int = 2):
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        self.job = self.pool.apply_async(cpu_stream, (graph_dir, threads))
+
+    def result(self):
+        return self.job.get()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.pool.terminate()
+        self.pool.join()
+
+
+def stream_verdict(card, stream, cpu):
+    """The C.1 rule for a stream whose card run met ill-posed windows:
+    the port's CPU run equals its recorded reading (``STREAM_PORT_CPU``,
+    where it parts from JAX's) exactly, and the card reads JAX within
+    ``ILL_POSED_MAX_PT`` with >= ``ILL_POSED_MIN_PAIRS`` of every
+    service's pairs equal to the CPU run's. Returns what failed."""
+    _, card_acc, card_pred, ill_s = stream
+    ref = STREAM_JAX["streamed_e2e"]
+    pairs = {p: agreement(card_pred.get(p, {}), pred) for p, pred in cpu["pred"].items()}
+    low = {p: v for p, v in pairs.items() if v < ILL_POSED_MIN_PAIRS}
+    print("stream-card-vs-cpu " + json.dumps(dict(
+        config="stream-cg-8k", streamed_card=card_acc, streamed_cpu=cpu["accuracy"],
+        streamed_jax_cpu=ref, streamed_cpu_recorded=STREAM_PORT_CPU,
+        card_ill_posed_windows=ill_s, cpu_wall_s=cpu["wall_s"],
+        card_vs_cpu_pairs=pairs, rule=f"CPU equals the recorded port CPU, card within "
+        f"{ILL_POSED_MAX_PT} pt of JAX, >= {ILL_POSED_MIN_PAIRS} pairs", card=card)),
+        flush=True)
+    if cpu["accuracy"] != STREAM_PORT_CPU:
+        return (f"stream: the port on the CPU reads {cpu['accuracy']}, not its recorded "
+                f"{STREAM_PORT_CPU} (JAX {ref})")
+    if abs(card_acc - ref) > ILL_POSED_MAX_PT or low:
+        return (f"stream: card {card_acc} vs JAX {ref}, pairs under "
+                f"{ILL_POSED_MIN_PAIRS} {low}, with {ill_s} ill-posed windows")
+    return ""
 
 
 def scorecard_phase(card):
@@ -2628,13 +2945,17 @@ def executor_phase(card, root):
             (dirs, gt_runs, gtfree_runs, own_rerun))
 
 
-def rerun_checks(card, root, dirs, gt_runs, gtfree_runs, own_rerun, ladder=()):
+def rerun_checks(card, root, dirs, gt_runs, gtfree_runs, own_rerun, ladder=(),
+                 stream=None, stream_rerun=None):
     """The flagship of every exp5 graph on the CPU (:class:`CpuReruns`),
     ground-truth-free too where ``own_rerun`` names the graph, then the
     two-sided flagship checks of both exp5 loops against those runs, and
     the ground-truth-free flagship within one point of the
-    ground-truth-DAG one on every graph with no ill-posed window; and
-    :func:`ladder_verdict` of every ladder call in ``ladder``."""
+    ground-truth-DAG one on every graph with no ill-posed window;
+    :func:`ladder_verdict` of every ladder call in ``ladder``; and, when
+    the card's ``stream`` (from :func:`stream_phase`) met ill-posed
+    windows, :func:`stream_verdict` against the CPU run of the stream
+    that ``stream_rerun`` (a :class:`StreamRerun`) holds."""
     t0 = time.perf_counter()
     names = [os.path.basename(d) for d in dirs]
     reruns = CpuReruns()
@@ -2649,10 +2970,13 @@ def rerun_checks(card, root, dirs, gt_runs, gtfree_runs, own_rerun, ladder=()):
         cpu_gt = {name: fut.result() for name, fut in cpu_gt.items()}
         cpu_gtfree = {name: fut.result() for name, fut in cpu_gtfree.items()}
         ladder_cpu = [f.result() for f in ladder_futs]
+        stream_cpu = stream_rerun.result() if stream_rerun is not None else None
         ok = True
     finally:
         reruns.close(cancel=not ok)
     failed = [ladder_verdict(card, r, c) for r, c in zip(ladder, ladder_cpu)]
+    if stream_cpu is not None:
+        failed.append(stream_verdict(card, stream, stream_cpu))
     for name in names:
         failed.append(card_vs_cpu("gt-dag", name, gt_runs[name][0], gt_runs[name][1],
                                   EXP5_JAX_ACCURACY[name][FLAGSHIP],
@@ -2678,7 +3002,8 @@ def rerun_checks(card, root, dirs, gt_runs, gtfree_runs, own_rerun, ladder=()):
         if ill["ill_posed_windows"] == 0 and not near_gt:
             failed.append(f"gt-free {name}: {got} is not within 1 pt of the "
                           f"ground-truth-DAG flagship {gt_flag}")
-    print(f"executor-cpu-reruns: {len(cpu_gt) + len(cpu_gtfree) + len(ladder_cpu)} runs in "
+    print(f"executor-cpu-reruns: {len(cpu_gt) + len(cpu_gtfree) + len(ladder_cpu)} runs"
+          f"{' and the stream' if stream_cpu is not None else ''} in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     failed = [f for f in failed if f]
     if failed:
@@ -2836,6 +3161,8 @@ def main() -> int:
     ap.add_argument("--assembly", action="store_true", help="run only the block "
                     "assembly's check and timing on the first sweeps of one "
                     "synth-async-8k and one synth-fleet-8svc solve")
+    ap.add_argument("--stream", action="store_true", help="run only the stream "
+                    "phase (stream-cg-8k) and its K1 block's check")
     args = ap.parse_args()
 
     import torch
@@ -2873,10 +3200,25 @@ def main() -> int:
         assembly_only(card)
         print(card, flush=True)
         return 0
+    if args.stream:
+        with tempfile.TemporaryDirectory() as tmp:
+            _, blk, state = stream_phase(card, tmp)
+            check_case("stream-block", blk, 1e-3, posed_only=True)
+            if state[3]:
+                failed = stream_verdict(card, state, cpu_stream(state[0], 8))
+                if failed:
+                    raise AssertionError(failed)
+        print(card, flush=True)
+        return 0
     if args.slice_root:
         print(f"package: {os.path.dirname(os.path.dirname(K.__file__))}", flush=True)
-        slice_phase(card)
-        fleet_phase(card)
+        _, real_block, _, _ = slice_phase(card)
+        _, fleet_block, *_ = fleet_phase(card)
+        for name, blk in (("slice-block", real_block), ("fleet-block", fleet_block)):
+            print("kernel-ab " + json.dumps(dict(
+                block=name, shape=list(blk["S"].shape), **kernel_timing(blk),
+                package=os.path.dirname(os.path.dirname(K.__file__)), card=card)),
+                flush=True)
         return 0
     if args.ladder:
         ladder_main(card, os.path.abspath(args.ladder))
@@ -2891,12 +3233,16 @@ def main() -> int:
         fleet_phase(card)
     bf16_launches, bf16_blocks = precision_phase(
         card, probs, {"synth-async-8k": slice_peak, "synth-fleet-8svc": fleet_peak})
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as later:
         fleet_profile(probs, fleet_wall, card)
         del probs
         fault_run(tmp, card)
         executor_launches, gtfree_launches, executor_blocks, rerun_state = \
             executor_phase(card, tmp)
+        stream_launches, executor_blocks["stream-block"], stream_state = \
+            stream_phase(card, tmp)
+        stream_rerun = (later.enter_context(StreamRerun(stream_state[0]))
+                        if stream_state[3] else None)
         ladder_launches, ladder_reruns_needed = ladder_phase(card, tmp)
         scorecard_launches = scorecard_phase(card)
         K.reset_launches()
@@ -2913,7 +3259,8 @@ def main() -> int:
         fleet_score_time = assembly_timing("fleet-score-build", fleet_sweep, card)
         del slice_sweep, fleet_sweep, bf16_blocks
         # the CPU work last, so that no timed phase shares the host with it
-        rerun_checks(card, tmp, *rerun_state, ladder=ladder_reruns_needed)
+        rerun_checks(card, tmp, *rerun_state, ladder=ladder_reruns_needed,
+                     stream=stream_state, stream_rerun=stream_rerun)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s after the build", flush=True)
     print("kernels: " + json.dumps({
         "fused_assign": launches["fused_assign"],
@@ -2926,6 +3273,8 @@ def main() -> int:
         "gtfree_sinkhorn": gtfree_launches["sinkhorn"],
         "scorecard_fused_assign": scorecard_launches,
         "ladder_fused_assign": ladder_launches,
+        "stream_fused_assign": stream_launches["fused_assign"],
+        "stream_assemble_block": stream_launches["assemble_block"],
         "bf16_fused_assign": bf16_launches["fused_assign"],
         "bf16_sinkhorn": bf16_launches["sinkhorn"],
         "bf16_fleet_fused_assign": bf16_launches["fleet_fused_assign"],
@@ -2948,6 +3297,7 @@ def main() -> int:
                     executor_launches=executor_launches[name],
                     gtfree_launches=gtfree_launches[name],
                     scorecard_launches=scorecard_launches if name == "fused_assign" else 0,
+                    stream_launches=stream_launches.get(name, 0),
                     executor_shapes={k: list(v["S"].shape)
                                      for k, v in executor_blocks.items()},
                     **fleet)
@@ -2987,6 +3337,8 @@ def main() -> int:
                     executor_launches=executor_launches[
                         "assemble_block" if precision == "f32" else "bf16_assemble_block"],
                     gtfree_launches=(gtfree_launches["assemble_block"]
+                                     if precision == "f32" else 0),
+                    stream_launches=(stream_launches["assemble_block"]
                                      if precision == "f32" else 0),
                     fleet_shape=fleet_score_time[precision]["shape"],
                     **{f"fleet_{k}": ft[k] for k in (

@@ -11,6 +11,8 @@ these numbers (minus one point). Run on the CPU:
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-cg-8k-gtfree
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-exp5-ladder
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-exp5-ladder-hard
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config stream-cg-8k
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config stream-cg-8k-batch
 
 ``TW_PRECISION=bf16`` and ``TW_SCORE_GEMM=1`` in the environment give the
 JAX package's bf16 and GEMM score paths on any config.
@@ -43,6 +45,16 @@ and graph; ``alibaba-exp5-ladder-hard`` the same over the messy corpus
 (``run_experiment_hard.sh``: ``synthesize_corpus(messy=MESSY_DEFAULT)``).
 ``--graphs 0,4`` and ``--rungs 10000,15000`` limit either ladder to
 those graphs and compress factors.
+
+``stream-cg-8k`` replays one synthesized call graph (seed 10, 8192
+traces, 20 ms between trace arrivals) through the JAX package's
+streaming reconstructor (``replay:<dir>?fix=5&max_traces=8192&ooo_ms=50
+&seed=1``, 20 s windows, 4 s overlap, 2 s watermark, no grace, four
+pending windows), then the batch executor (predictor 10) on the same
+store, and prints one JSON line: the streamed end-to-end accuracy, the
+window, late and shed counts, and the batch accuracy.
+``stream-cg-8k-batch`` runs that batch executor alone, in a process
+that has run no stream.
 """
 
 from __future__ import annotations
@@ -183,13 +195,70 @@ def alibaba_configs(config: str, out_root: str) -> None:
               flush=True)
 
 
+#: ``stream-cg-8k``: the corpus, the replay spec's query and the windows
+STREAM_CG8K = dict(n_graphs=1, traces_per_graph=8192, seed=10, base_gap_ms=20)
+STREAM_CG8K_QUERY = "fix=5&max_traces=8192&ooo_ms=50&seed=1"
+STREAM_CG8K_WINDOWS = dict(window_us=20e6, overlap_us=4e6, ooo_bound_us=2e6,
+                           grace_us=0.0, max_pending=4)
+
+
+def stream_config(out_root: str, stream: bool = True) -> None:
+    """``stream-cg-8k`` through the JAX package's ``StreamingReconstructor``
+    (unless ``stream`` is false) and, on the identical store, its batch
+    executor."""
+    from traceweaver_tpu.alibaba.synthesize import synthesize_corpus
+    from traceweaver_tpu.runtime.executor import ExecutorConfig, run_experiment
+    from traceweaver_tpu.stream import (
+        StreamConfig,
+        StreamingReconstructor,
+        parse_source_spec,
+    )
+
+    (d,) = synthesize_corpus(out_root, **STREAM_CG8K)
+    source = parse_source_spec(f"replay:{d}?{STREAM_CG8K_QUERY}")
+
+    def batch():
+        t0 = time.perf_counter()
+        res = run_experiment(ExecutorConfig(
+            data_path="", results_directory="", fix=5, cache_rate=0.0,
+            test_name="streamcmp", predictor_indices=[10]), store=source.store)
+        return res.accuracy_overall["MaxScoreBatchSubsetWithSkips"], time.perf_counter() - t0
+
+    if not stream:
+        acc, wall = batch()
+        print(json.dumps(dict(config="stream-cg-8k-batch", batch_e2e=acc, wall_s=wall,
+                              backend=jax.default_backend())), flush=True)
+        return
+    svc = StreamingReconstructor(source, StreamConfig(
+        verbose=False, **STREAM_CG8K_WINDOWS))
+    t0 = time.perf_counter()
+    summary = svc.run()
+    wall = time.perf_counter() - t0
+    batch_acc, _ = batch()
+    stats = summary["stats"]
+    print(json.dumps(dict(
+        config="stream-cg-8k", events=len(source),
+        consumed=summary["consumed"], windows=summary["emitted_windows"],
+        micro_batches=int(stats.get("micro_batches", 0)),
+        spans_emitted=int(stats.get("spans_emitted", 0)),
+        late_rerouted=summary["late_rerouted"],
+        late_dropped=summary["late_dropped"],
+        shed_spilled=summary["shed_spilled"],
+        shed_dropped_windows=summary["shed_dropped_windows"],
+        deadletter_windows=summary["deadletter_windows"],
+        streamed_e2e=summary["accuracy"]["e2e"],
+        per_service=summary["accuracy"]["per_service"],
+        batch_e2e=batch_acc, wall_s=wall, backend=jax.default_backend())), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="synth-async-8k",
                     choices=("synth-async-8k", "synth-fleet-8svc",
                              "alibaba-exp5-15000", "alibaba-cg-8k",
                              "alibaba-exp5-gtfree", "alibaba-cg-8k-gtfree",
-                             "alibaba-exp5-ladder", "alibaba-exp5-ladder-hard"))
+                             "alibaba-exp5-ladder", "alibaba-exp5-ladder-hard",
+                             "stream-cg-8k", "stream-cg-8k-batch"))
     ap.add_argument("--traces", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
@@ -200,11 +269,13 @@ def main() -> None:
     ap.add_argument("--rungs", default=None,
                     help="comma-separated compress factors of a ladder config")
     args = ap.parse_args()
-    if args.config.startswith("alibaba"):
+    if args.config.startswith(("alibaba", "stream")):
         import tempfile
 
         with tempfile.TemporaryDirectory() as tmp:
-            if "-ladder" in args.config:
+            if args.config.startswith("stream-cg-8k"):
+                stream_config(args.out or tmp, stream=args.config == "stream-cg-8k")
+            elif "-ladder" in args.config:
                 graphs = (None if args.graphs is None
                           else {int(g) for g in args.graphs.split(",")})
                 rungs = (LADDER_RUNGS if args.rungs is None

@@ -82,6 +82,15 @@ MIRRORS = {
     "traceweaver_tpu_torch.ops.precision": "traceweaver_tpu/ops/precision.py",
     "traceweaver_tpu_torch.ops.sinkhorn": "traceweaver_tpu/ops/sinkhorn.py",
     "traceweaver_tpu_torch.runtime.ladder": "exps/exp5/run_experiment.sh",
+    "traceweaver_tpu_torch.obs.selftrace": "traceweaver_tpu/obs/selftrace.py",
+    "traceweaver_tpu_torch.stream": "traceweaver_tpu/stream",
+    "traceweaver_tpu_torch.stream.watermark": "traceweaver_tpu/stream/watermark.py",
+    "traceweaver_tpu_torch.stream.window": "traceweaver_tpu/stream/window.py",
+    "traceweaver_tpu_torch.stream.sources": "traceweaver_tpu/stream/sources.py",
+    "traceweaver_tpu_torch.stream.state": "traceweaver_tpu/stream/state.py",
+    "traceweaver_tpu_torch.stream.scheduler": "traceweaver_tpu/stream/scheduler.py",
+    "traceweaver_tpu_torch.stream.checkpoint": "traceweaver_tpu/stream/checkpoint.py",
+    "traceweaver_tpu_torch.stream.service": "traceweaver_tpu/stream/service.py",
 }
 
 

@@ -287,6 +287,40 @@ def test_cluster_edges_on_card(card, shape, tol, n_iters):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lift", ["row", "column", "both"])
+def test_lifted_potentials_follow_plain_on_card(card, lift):
+    """A live row (or column) whose every entry is masked lifts its
+    potential to about 1e9, where the masked entries of its row (column)
+    come out of the f32 sums as values of order 64 (a stream window's
+    tail rows and head columns): K2's plan still equals the plain
+    version's within the usual tolerance, and K1 equals the plain
+    composition up to near ties, as both form S + potential in natural
+    units and subtract the max before the exponential."""
+    rng = np.random.default_rng({"row": 3, "column": 4, "both": 5}[lift])
+    blocks = [list(_random_block(rng, 64, 128, some_invalid_rows=False)) for _ in range(3)]
+    for S, rm, cm, in_v, cv, cap in blocks:
+        if lift in ("row", "both"):
+            S[7, :] = NEG
+        if lift in ("column", "both"):
+            live = np.flatnonzero(cm[:-1] > 0)
+            S[:, live[3]] = NEG
+    S, rm, cm, in_v, cv, cap = (torch.as_tensor(np.stack(a)).cuda() for a in zip(*blocks))
+    W = 64
+    kw = dict(epsilon=1.0, n_iters=40, tol=1e-3)
+    rk = dict(topk=5, min_topk_mass=1e-3)
+    plan_p = K.sinkhorn_log(S, rm, cm, **kw)
+    assert float(plan_p.sum()) > 0
+    torch.testing.assert_close(K.sinkhorn_cuda(S, rm, cm, **kw), plan_p,
+                               atol=1e-5, rtol=1e-4)
+    a_k, tk_k = K.fused_assign_cuda(S, rm, cm, cap, W, **kw, **rk)
+    a_f, tk_f = K.assign_topk_plain(S, rm, cm, in_v, cv, cap, W, **kw, **rk)
+    plan = plan_p[:, :W].cpu().numpy()
+    for b in range(3):
+        _assert_same(a_k[b].cpu().numpy(), tk_k[b].cpu().numpy(),
+                     a_f[b].cpu().numpy(), tk_f[b].cpu().numpy(), plan[b], b)
+
+
+@pytest.mark.gpu
 def test_all_masked_and_launch_counts_on_card(card):
     S, rm, cm, in_v, cv, cap = _cuda_blocks(np.random.default_rng(1), 2, 9, 12,
                                             all_masked_cols=True)

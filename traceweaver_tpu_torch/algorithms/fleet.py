@@ -54,8 +54,15 @@ channels to every dispatch.
 
 The JAX package's ``TW_*`` knobs are keyword arguments of
 :func:`solve_fleet` with the knobs' defaults. Not ported yet:
-device-resident columns, mesh sharding, AOT notes, tenancy and the
-self-trace (none of them changes an output).
+device-resident columns, mesh sharding, AOT notes and tenancy (none of
+them changes an output).
+
+Each item may carry a self-trace window key (``FleetItem.trace_key``,
+:mod:`traceweaver_tpu_torch.obs.selftrace`): with a tracer installed,
+the pack thread, the flow workers and the supervisor's rungs stamp
+their stages (pack, dispatch, compact-fetch, redispatch, decode, retry,
+bisect, host-fallback, quarantine) on the windows of the group they
+work on.
 
 Every ``_Stats`` update also lands in the metrics registry
 (:mod:`traceweaver_tpu_torch.obs.registry`: ``tw_fleet_ledger_total``,
@@ -100,6 +107,7 @@ from traceweaver_tpu_torch.algorithms.weaver_torch import (
 from traceweaver_tpu_torch.obs import events as _events
 from traceweaver_tpu_torch.obs import profile as _profile
 from traceweaver_tpu_torch.obs import quality as _quality
+from traceweaver_tpu_torch.obs import selftrace as _selftrace
 from traceweaver_tpu_torch.obs.registry import get_registry as _get_registry
 from traceweaver_tpu_torch.ops.precision import score_itemsize, validate_precision
 from traceweaver_tpu_torch.runtime import faults as _faults
@@ -208,6 +216,22 @@ def _as_stats(stats) -> _Stats:
     return stats if isinstance(stats, _Stats) else _Stats(stats)
 
 
+def _trace_stage(keys, stage: str, w0_us: float,
+                 w1_us: Optional[float] = None) -> None:
+    """Record one pipeline stage on every window trace in ``keys`` (a
+    group's trace keys); one global read and out without a tracer."""
+    tr = _selftrace.active()
+    if tr is None or not keys:
+        return
+    for key in keys:
+        tr.stage(key, stage, w0_us, w1_us)
+
+
+def _group_keys(group) -> List[str]:
+    """The sorted self-trace keys of a group's items."""
+    return sorted({p[1].trace_key for p in group if p[1].trace_key is not None})
+
+
 def _fault_check(site: str, st: _Stats, plan) -> None:
     """Fault-injection hook, ledgered; no-op without a plan."""
     if plan is None:
@@ -249,12 +273,16 @@ class FleetItem:
     item solves single-pass on them (unseen edges get the packer's
     near-flat Gaussian). ``plan_key`` is the item's plan-cache key (the
     service name when None; callers that solve several call graphs
-    against one cache tell them apart with it)."""
+    against one cache tell them apart with it). ``in_cols``/``out_cols``
+    are prebuilt columns of the sorted partitions (the stream hands its
+    windows over so), used in place of a second build when they match.
+    ``trace_key`` is the item's self-trace window key."""
 
     def __init__(self, svc, in_span_partitions, out_span_partitions,
                  true_assignments, dag=None,
                  method="MaxScoreBatchSubsetWithSkips", store=None,
-                 warm_dists=None, plan_key=None):
+                 warm_dists=None, plan_key=None, in_cols=None, out_cols=None,
+                 trace_key=None):
         self.svc = svc
         self.in_span_partitions = in_span_partitions
         self.out_span_partitions = out_span_partitions
@@ -264,6 +292,9 @@ class FleetItem:
         self.store = store
         self.warm_dists = warm_dists
         self.plan_key = plan_key
+        self.in_cols = in_cols
+        self.out_cols = out_cols
+        self.trace_key = trace_key
 
 
 def _plan_key(item: FleetItem) -> str:
@@ -295,12 +326,16 @@ def _prepare(item: FleetItem, cached_dists=None):
         dists, n_passes = item.warm_dists, 1
     elif cached_dists is not None:
         dists, n_passes = cached_dists, 1
+    in_cols = (item.in_cols if item.in_cols is not None
+               and len(item.in_cols) == len(in_spans) else in_columns(in_spans))
+    out_cols = (item.out_cols if item.out_cols is not None
+                and all(ep in item.out_cols for ep in out_eps)
+                else out_columns(item.out_span_partitions, out_eps))
     return dict(in_ep=in_ep, in_spans=in_spans, out_eps=out_eps,
                 skip_budget=plan["skip_budget"], dists=dists,
                 n_in=plan["n_in"], n_passes=n_passes,
                 force_skip_ids=plan["force_skip_ids"],
-                in_cols=in_columns(in_spans),
-                out_cols=out_columns(item.out_span_partitions, out_eps))
+                in_cols=in_cols, out_cols=out_cols)
 
 
 def _raw_cells(item: FleetItem, max_window: int) -> float:
@@ -613,12 +648,15 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
     4. **quarantine**: its slot gets an all-NA result and its index lands
        in ``ctx["quarantined"]``.
 
-    Every rung is counted and appended to ``fault_ladder``."""
+    Every rung is counted, appended to ``fault_ladder`` and stamped on
+    the group's window self-traces."""
+    rung_keys = _group_keys(spec.group)
     for attempt in range(run.retry_max):
         if run.retry_backoff_s > 0:
             time.sleep(run.retry_backoff_s * (2 ** attempt))
         st.add("fault_retries")
         st.note("fault_ladder", "retry")
+        _trace_stage(rung_keys, "retry", _selftrace.now_us())
         try:
             _attempt_group(pg, spec, results, st, run, ctx)
             st.add("fault_recovered_retry")
@@ -631,6 +669,7 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
     if len(spec.group) > 1:
         st.add("fault_bisections")
         st.note("fault_ladder", "bisect")
+        _trace_stage(rung_keys, "bisect", _selftrace.now_us())
         mid = len(spec.group) // 2
         for half in (spec.group[:mid], spec.group[mid:]):
             half_spec = _make_spec(half, score_itemsize(run.hypers["precision"]))
@@ -644,6 +683,7 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
     plan = spec.group[0]
     st.add("fault_host_fallbacks")
     st.note("fault_ladder", "host")
+    _trace_stage(rung_keys, "host-fallback", _selftrace.now_us())
     try:
         _fault_check("host", st, run.faults)
         _run_fallback([(plan[0], plan[1])], results, ctx["all_spans"],
@@ -657,6 +697,7 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
 
     st.add("fault_quarantined")
     st.note("fault_ladder", "quarantine")
+    _trace_stage(rung_keys, "quarantine", _selftrace.now_us())
     results[plan[0]] = _quarantine_result(plan)
     if ctx["confidences"] is not None:
         # an all-NA result has zero confidence, so queries can leave it out
@@ -786,6 +827,7 @@ def _pack_group(spec: _GroupSpec, st: _Stats):
     (each item's rows cut to its exact window count), stacked tables,
     the refit row map and the group's neighbour bounds."""
     t0 = time.perf_counter()
+    w0 = _selftrace.now_us()
     batch_parts: Dict[str, List[np.ndarray]] = {k: [] for k in _BATCH_KEYS}
     table_rows: Dict[str, List[np.ndarray]] = {k: [] for k in _TABLE_KEYS}
     per_item_pack = []
@@ -823,6 +865,8 @@ def _pack_group(spec: _GroupSpec, st: _Stats):
         window_valid[p, :n_w] = True
         row0 += n_w
     st.add("pack_s", time.perf_counter() - t0)
+    trace_keys = _group_keys(spec.group)
+    _trace_stage(trace_keys, "pack", w0)
     st.add("fleet_dispatches", 1.0)
     st.add("fleet_services", float(len(per_item_pack)))
     st.add("fused_em_applied" if spec.n_passes == 2 else "fleet_dynamism_dispatches",
@@ -831,7 +875,7 @@ def _pack_group(spec: _GroupSpec, st: _Stats):
                 pidx=np.asarray(param_idx, dtype=np.int32),
                 window_rows=window_rows, window_valid=window_valid,
                 per_item_pack=per_item_pack, max_preds=max_preds,
-                max_succs=max_succs, n_rows=row0)
+                max_succs=max_succs, n_rows=row0, trace_keys=trace_keys)
 
 
 def _place(arrs: Dict[str, np.ndarray], pidx: np.ndarray, dev, st: _Stats):
@@ -855,7 +899,9 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
                    and pg["n_rows"] > 1)
     flow_wait: List[float] = []
     refit_sink = [] if (run.plan_cache is not None and spec.n_passes == 2) else None
+    trace_keys = pg.get("trace_keys") or ()
     t0 = time.perf_counter()
+    w0 = _selftrace.now_us()
     # the JAX package opens this range on the uncompacted branch only;
     # here it spans the group's whole device solve, so the default
     # (compacted) flow shows it too, its stages nested inside
@@ -865,7 +911,7 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
                 pg["batch"], pg["pidx"], pg["params"], pg["window_rows"],
                 pg["window_valid"], spec.n_passes, run.n_sweeps, run.sweep_warm,
                 hypers, st, dev, run.faults, flow_wait=flow_wait,
-                refit_sink=refit_sink)
+                refit_sink=refit_sink, trace_keys=trace_keys)
         else:
             common = _place(pg["batch"], pg["pidx"], dev, st)
             tables = _tables_on(pg["params"], dev)
@@ -878,6 +924,7 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
                 out, _ = solve_windows_fleet(*common, *tables,
                                              n_sweeps=run.n_sweeps, **hypers)
     st.add("dispatch_s", time.perf_counter() - t0 - sum(flow_wait))
+    _trace_stage(trace_keys, "dispatch", w0)
     if refit_sink:
         # the device already fitted the next round's plan: keep it
         t_admit = time.perf_counter()
@@ -895,7 +942,7 @@ def _tables_on(params: Dict[str, np.ndarray], dev) -> Tuple[torch.Tensor, ...]:
 
 
 def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
-                    faults=None, flow_wait=None) -> np.ndarray:
+                    faults=None, flow_wait=None, trace_keys=()) -> np.ndarray:
     """One solve pass as a warm dispatch of ``warm`` sweeps plus a full
     redispatch of only the unconverged windows. Returns the packed
     ``[B, E, W, 3 + topk]`` block on the host; ``batch``/``pidx`` are
@@ -906,9 +953,11 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
         out_warm, flags = solve_windows_fleet(*_place(batch, pidx, device, st),
                                               *tables, n_sweeps=warm, **hypers)
     st.add("d2h_flag_fetches", 1.0)
+    w0 = _selftrace.now_us()
     with _profile.annotate("tw:fleet:flag-fetch"):
         converged = _fetch(flags, st, faults, flag_fetch=True,
                            flow_wait=flow_wait).astype(bool)
+    _trace_stage(trace_keys, "compact-fetch", w0)
     active = np.flatnonzero(~converged)
     st.add("compact_windows_total", float(converged.shape[0]))
     st.add("compact_windows_redispatched", float(active.size))
@@ -923,9 +972,11 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
                 for k in _BATCH_KEYS}
     pidx_active = np.concatenate([np.asarray(pidx)[active],
                                   np.zeros(pad, dtype=np.asarray(pidx).dtype)])
+    w0 = _selftrace.now_us()
     with _profile.annotate("tw:fleet:redispatch"):
         out_full, _ = solve_windows_fleet(*_place(gathered, pidx_active, device, st),
                                           *tables, n_sweeps=n_sweeps, **hypers)
+    _trace_stage(trace_keys, "redispatch", w0)
     out = _fetch(out_warm, st, faults, flow_wait=flow_wait).copy()
     out[active] = _fetch(out_full, st, faults, flow_wait=flow_wait)[:active.size]
     return out
@@ -934,7 +985,7 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
 def _solve_group_compacted(batch, pidx, params, window_rows, window_valid,
                            n_passes, n_sweeps, warm, hypers, stats, device,
                            faults=None, flow_wait=None,
-                           refit_sink=None) -> np.ndarray:
+                           refit_sink=None, trace_keys=()) -> np.ndarray:
     """The compacted counterpart of one group dispatch: a compacted pass
     0, for two-pass groups :func:`refit_fleet_params` on pass 0's merged
     assignments (the refit :func:`solve_em_fleet` runs), then a
@@ -943,7 +994,7 @@ def _solve_group_compacted(batch, pidx, params, window_rows, window_valid,
     st = _as_stats(stats)
     tables = _tables_on(params, device)
     out0 = _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, st,
-                           device, faults, flow_wait)
+                           device, faults, flow_wait, trace_keys)
     if n_passes == 1:
         return out0
 
@@ -958,7 +1009,7 @@ def _solve_group_compacted(batch, pidx, params, window_rows, window_valid,
     if refit_sink is not None:
         refit_sink.append(new_tables)
     return _compacted_pass(batch, pidx, tables[:3] + tuple(new_tables), n_sweeps,
-                           warm, hypers, st, device, faults, flow_wait)
+                           warm, hypers, st, device, faults, flow_wait, trace_keys)
 
 
 def _decode_group(pend, results, st: _Stats, run: _Run, ctx) -> None:
@@ -969,6 +1020,7 @@ def _decode_group(pend, results, st: _Stats, run: _Run, ctx) -> None:
     confidences = ctx["confidences"]
     o = out if isinstance(out, np.ndarray) else _fetch(out, st, run.faults)
     t0 = time.perf_counter()
+    w0 = _selftrace.now_us()
     row = 0
     for i, item, prep, packed, n_w in per_item_pack:
         rows = o[row:row + n_w]
@@ -998,3 +1050,5 @@ def _decode_group(pend, results, st: _Stats, run: _Run, ctx) -> None:
                       {in_ids[j]: int(span_cands[j]) for j in range(n_in)},
                       cnt_unassigned)
     st.add("decode_s", time.perf_counter() - t0)
+    _trace_stage(sorted({item.trace_key for _, item, *_ in per_item_pack
+                         if item.trace_key is not None}), "decode", w0)

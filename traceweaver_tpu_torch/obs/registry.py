@@ -307,3 +307,38 @@ def get_registry() -> MetricsRegistry:
             if _DEFAULT is None:
                 _DEFAULT = MetricsRegistry()
     return _DEFAULT
+
+
+def stream_families(registry: Optional[MetricsRegistry] = None) -> Dict[str, _Family]:
+    """The streaming reconstructor's families (declared in the JAX
+    package's ``stream/service.py`` and ``stream/scheduler.py``), keyed by
+    their role: ``ledger`` (every stats-counter bump, labelled by key),
+    ``solve_s`` (a micro-batch's solve wall), ``seal_emit_s`` (a window's
+    seal-to-emit latency), ``slo_breach`` (seal-to-emit p99 excursions
+    past the SLO), ``backpressure`` (sealed-window admissions: queued,
+    spilled, dropped) and ``watchdog`` (micro-batch timeouts, retries,
+    poisoned windows)."""
+    reg = registry if registry is not None else get_registry()
+    return dict(
+        ledger=reg.counter(
+            "tw_stream_ledger_total",
+            "stream service ledger mirror (one series per stats counter key)",
+            labels=("key",)),
+        solve_s=reg.histogram(
+            "tw_solve_seconds", "micro-batch solve wall time"),
+        seal_emit_s=reg.histogram(
+            "tw_seal_emit_seconds", "per-window seal-to-emit latency",
+            labels=("tenant",)),
+        slo_breach=reg.counter(
+            "tw_slo_breach_total",
+            "seal-to-emit p99 excursions past the SLO, one per excursion",
+            labels=("tenant",)),
+        backpressure=reg.counter(
+            "tw_stream_backpressure_total",
+            "sealed-window admission outcomes (queued/spilled/dropped)",
+            labels=("outcome",)),
+        watchdog=reg.counter(
+            "tw_stream_watchdog_total",
+            "micro-batch watchdog outcomes (timeouts/retries/poisoned windows)",
+            labels=("outcome",)),
+    )

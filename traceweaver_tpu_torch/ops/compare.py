@@ -1,4 +1,5 @@
-"""Tie-aware comparison of two hard assignments of the same plan.
+"""Tie-aware comparison of two hard assignments of the same plan, and the
+share of pairs two assignment maps agree on.
 
 Two Sinkhorn implementations that sum their log-sum-exps in different
 orders give plans that agree to float tolerance, not bit for bit, so the
@@ -61,3 +62,13 @@ def topk_diff_report(tk_x: np.ndarray, tk_y: np.ndarray, plan_masked: np.ndarray
         floor = abs(v[s] - min_mass) <= REL_TIE * min_mass
         bad += not (tie or floor)
     return len(diff_rows), bad
+
+
+def pair_agreement(got: Dict[str, Dict], ref: Dict[str, Dict]) -> float:
+    """Share of ``ref``'s (endpoint, incoming span) pairs that ``got``
+    assigns alike (``{endpoint: {in id: out id}}`` maps; 1.0 when ``ref``
+    has no pair)."""
+    pairs = [(ep, i) for ep in ref for i in ref[ep]]
+    if not pairs:
+        return 1.0
+    return sum(got.get(ep, {}).get(i) == ref[ep][i] for ep, i in pairs) / len(pairs)

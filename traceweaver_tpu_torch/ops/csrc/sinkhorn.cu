@@ -14,7 +14,7 @@
 // __nv_bfloat16 for the bf16 score path (Pallas bodies :88-94 and :237-241
 // keep a bf16 block at storage precision and upcast it on each use). The
 // tile ring carries the stored type, so a bf16 block streams half the
-// bytes; every use upcasts to f32 and scales by log2(e)/eps, and the
+// bytes; every use upcasts to f32 and scales by 1/eps, and the
 // potentials, column partials, plan and rounding state stay f32.
 //
 // What bounds it on this card: the work is one [R, C] f32 score block per
@@ -32,7 +32,7 @@
 // occupancy) per window, so a window's work spreads over G SMs instead of
 // one. CTA r of the cluster owns the row stripe [r*RS, (r+1)*RS), RS =
 // ceil(R/G), and keeps its phi, its rows' rounding state and a full copy
-// of psi (in base 2) in shared memory:
+// of psi in shared memory:
 //   - Sinkhorn, one read of the stripe per iteration: the stripe streams
 //     through a two-slot ring of TR-row tiles in shared memory, each tile
 //     one bulk (TMA) copy completing on an mbarrier, the next in flight
@@ -41,7 +41,9 @@
 //     folded at a time into an online log-sum-exp, two chains per lane),
 //     then the same tile adds its rows, with the new phi, to per-column
 //     partial (max, sum-exp) pairs (a thread per column, two at a time).
-//     The sums run in base 2 on the special-function unit (ex2.approx);
+//     The exponentials run in base 2 on the special-function unit
+//     (ex2.approx) on (x - max) * log2(e), while x, the running max and
+//     the potentials stay in natural units, as in the plain version;
 //   - after a cluster barrier CTA r merges the G partials of its column
 //     slice [r*CS, (r+1)*CS), CS = ceil(C/G), read through distributed
 //     shared memory (a lane per peer, butterfly merge, so every lane
@@ -65,9 +67,20 @@
 // change the time per element, so the cause is still to be measured.
 //
 // Plan entries are formed with __fmul_rn/__fadd_rn (never contracted into
-// an FMA) from phi and psi2 * ln2, and K1, K2 and round_topk run one
-// cluster size for one (B, R, C), so the fused kernel's on-the-fly plan
-// equals the plan the plain Sinkhorn kernel writes, bit for bit.
+// an FMA) as S / eps + (phi + psi), the plain version's association, and
+// K1, K2 and round_topk run one cluster size for one (B, R, C), so the
+// fused kernel's on-the-fly plan equals the plan the plain Sinkhorn
+// kernel writes, bit for bit.
+//
+// Why natural units: a window with a live row (or column) whose every
+// entry is masked lifts that potential to about -NEG = 1e9, where f32
+// values are 64 apart, and the masked entries of its row (column) come
+// out of S + psi (S + phi) as values of order 64, the same in every
+// implementation that forms S + psi in f32 and subtracts the max before
+// the exponential (XLA's, ATen's on the CPU and on the card). Scaling x
+// by log2(e) before the max rounds those values differently, and the
+// window's plan then parts from the plain version's; such windows are a
+// head and a tail of every stream window.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -97,7 +110,7 @@ __device__ __forceinline__ float log_marginal(float m) {
 
 __device__ __forceinline__ float plan_val(float s, float inv_eps, float phi,
                                           float psi) {
-  float x = __fadd_rn(__fadd_rn(__fmul_rn(s, inv_eps), phi), psi);
+  float x = __fadd_rn(__fmul_rn(s, inv_eps), __fadd_rn(phi, psi));
   return expf(fminf(fmaxf(x, -80.f), 80.f));
 }
 
@@ -109,34 +122,38 @@ static const float kLog2e = 1.4426950408889634f;
 static const float kLn2 = 0.6931471805599453f;
 
 // 2^x on the special-function unit (about 2 ulp; flushes subnormals).
-// The Sinkhorn loop sums in base 2 with it; plan entries keep expf.
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
-// Online log-sum-exp in base 2: m = running max, s = sum of 2^(x - m).
-// lse_batch folds a batch whose x[0] is finite (padding is -inf).
+// e^d for a difference d = x - max (natural units): the difference is
+// taken before the scaling, so a large x and its max cancel exactly
+__device__ __forceinline__ float exd(float d) { return ex2(__fmul_rn(d, kLog2e)); }
+
+// Online log-sum-exp: m = running max, s = sum of e^(x - m), both of
+// natural-unit x. lse_batch folds a batch whose x[0] is finite (padding
+// is -inf).
 __device__ __forceinline__ void lse_batch(float &m, float &s,
                                           const float (&x)[TW_BATCH]) {
   float bm = x[0];
 #pragma unroll
   for (int q = 1; q < TW_BATCH; ++q) bm = fmaxf(bm, x[q]);
   if (bm > m) {
-    s *= ex2(m - bm);
+    s *= exd(m - bm);
     m = bm;
   }
 #pragma unroll
-  for (int q = 0; q < TW_BATCH; ++q) s += ex2(x[q] - m);
+  for (int q = 0; q < TW_BATCH; ++q) s += exd(x[q] - m);
 }
 
 __device__ __forceinline__ void lse_push(float &m, float &s, float x) {
   if (x > m) {
-    s = __fmaf_rn(s, ex2(m - x), 1.f);
+    s = __fmaf_rn(s, exd(m - x), 1.f);
     m = x;
   } else {
-    s += ex2(x - m);
+    s += exd(x - m);
   }
 }
 
@@ -150,16 +167,16 @@ __device__ __forceinline__ void lse_merge(float &m, float &s, float m2,
     return;
   }
   if (m2 > m) {
-    s = __fmaf_rn(s, ex2(m - m2), s2);
+    s = __fmaf_rn(s, exd(m - m2), s2);
     m = m2;
   } else {
-    s = __fmaf_rn(s2, ex2(m2 - m), s);
+    s = __fmaf_rn(s2, exd(m2 - m), s);
   }
 }
 
-// natural log of a base-2 (max, sum) pair
+// log-sum-exp of a (max, sum) pair
 __device__ __forceinline__ float lse_ln(float m, float s) {
-  return (m + log2f(s)) * kLn2;
+  return __fadd_rn(m, __fmul_rn(log2f(s), kLn2));
 }
 
 // butterfly merge over aligned groups of `width` lanes (every lane of a
@@ -205,15 +222,15 @@ __device__ inline Geo geometry(cg::cluster_group cl, int R, int C) {
 }
 
 // Dynamic shared memory of one CTA (the same layout for every kernel):
-// the two-slot tile ring of the Sinkhorn loop (2 x TR rows), then psi in
-// base 2 (psi * log2(e), full copy), the column partials, the log column
+// the two-slot tile ring of the Sinkhorn loop (2 x TR rows), then psi
+// (full copy), the column partials, the log column
 // marginals of the CTA's merge slice, and the stripe's potentials,
 // marginals and rounding state. pm/ps hold the column partials
 // of the Sinkhorn loop and, as pv/pi, the partial column argmaxes of the
 // rounding.
 struct Smem {
   unsigned char *ring;  // tiles of the stored score type; the peel's cache
-  float *psi2, *pm, *ps, *log_c, *phi, *log_r, *skip_all;
+  float *psi, *pm, *ps, *log_c, *phi, *log_r, *skip_all;
   int *assign, *row_arg;
   uint8_t *flags, *row_ok, *col_ok, *col_taken, *wanted;
 };
@@ -236,8 +253,8 @@ __device__ inline Smem carve(void *base, int R, int C, int G, int TR, int item) 
   const int rs = (R + G - 1) / G;
   Smem s;
   s.ring = (unsigned char *)base;
-  s.psi2 = (float *)(s.ring + 2 * item * slot_elems(TR, C, item));
-  s.pm = s.psi2 + C;
+  s.psi = (float *)(s.ring + 2 * item * slot_elems(TR, C, item));
+  s.pm = s.psi + C;
   s.ps = s.pm + C;
   s.log_c = s.ps + C;
   s.phi = s.log_c + (C + G - 1) / G;
@@ -359,9 +376,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // (16/TR warps per row; the last warp of a row to finish merges the row's
 // partials), then its contribution to the column partials with the new
 // phi (a thread per column). The ring never stops: the tile after the
-// last one is the next iteration's first. The sums run in base 2 on
-// x = S * log2(e)/eps + pot * log2(e); phi is kept in natural units, psi
-// in base 2 (psi2).
+// last one is the next iteration's first. The log-sum-exps run on
+// x = S / eps + pot in natural units (exponentials of x - max in base 2).
 template <typename T>
 __device__ int sinkhorn_cluster(cg::cluster_group cl,
                                 const T *__restrict__ S, int R, int C,
@@ -376,11 +392,10 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
   const int nloc = g.r1 - g.r0, ntiles = (nloc + TR - 1) / TR;
   const int wpr = TW_WARPS / TR;
   const int seg = max(32 * TW_BATCH, C / wpr / (32 * TW_BATCH) * (32 * TW_BATCH));
-  const float a2 = inv_eps * kLog2e;
   const T *Sr = S + (size_t)g.r0 * C;
   T *ring = (T *)sm.ring;
   for (int i = tid; i < nloc; i += TW_THREADS) sm.phi[i] = 0.f;
-  for (int j = tid; j < C; j += TW_THREADS) sm.psi2[j] = 0.f;
+  for (int j = tid; j < C; j += TW_THREADS) sm.psi[j] = 0.f;
   if (tid < TW_BATCH) s_done[tid] = 0;
   if (tid == 0) {
     mbar_init(&s_bar[0]);
@@ -427,8 +442,8 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
 #pragma unroll
           for (int u = 0; u < TW_BATCH; ++u) {
             const int ja = j0 + 32 * u, jb = ja + 32 * TW_BATCH;
-            x[u] = __fmaf_rn(to_f32(row[ja]), a2, sm.psi2[ja]);
-            y[u] = __fmaf_rn(to_f32(row[jb]), a2, sm.psi2[jb]);
+            x[u] = __fmaf_rn(to_f32(row[ja]), inv_eps, sm.psi[ja]);
+            y[u] = __fmaf_rn(to_f32(row[jb]), inv_eps, sm.psi[jb]);
           }
           lse_batch(m, s, x);
           lse_batch(m2, s2, y);
@@ -437,12 +452,12 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
           float x[TW_BATCH];
 #pragma unroll
           for (int u = 0; u < TW_BATCH; ++u)
-            x[u] = __fmaf_rn(to_f32(row[j0 + 32 * u]), a2, sm.psi2[j0 + 32 * u]);
+            x[u] = __fmaf_rn(to_f32(row[j0 + 32 * u]), inv_eps, sm.psi[j0 + 32 * u]);
           lse_batch(m, s, x);
           j0 += 32 * TW_BATCH;
         }
         for (; j0 < jhi; j0 += 32)
-          lse_push(m2, s2, __fmaf_rn(to_f32(row[j0]), a2, sm.psi2[j0]));
+          lse_push(m2, s2, __fmaf_rn(to_f32(row[j0]), inv_eps, sm.psi[j0]));
         lse_merge(m, s, m2, s2);
         group_lse(m, s, 32);
         int last = 0;
@@ -477,7 +492,7 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
       // column partials: this tile's rows with their new phi
       float ph[TW_BATCH];
 #pragma unroll
-      for (int u = 0; u < TW_BATCH; ++u) ph[u] = u < rows ? sm.phi[l0 + u] * kLog2e : 0.f;
+      for (int u = 0; u < TW_BATCH; ++u) ph[u] = u < rows ? sm.phi[l0 + u] : 0.f;
       // two columns per pass (independent chains), both loads in range;
       // later passes run the threads in reverse, so that the leftover
       // columns (the skip column at C = 2^k + 1) fall to the last warp
@@ -489,8 +504,8 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
 #pragma unroll
         for (int u = 0; u < TW_BATCH; ++u) {
           const T *r = tile + (size_t)min(u, TR - 1) * C;
-          x[u] = u < rows ? __fmaf_rn(to_f32(r[j]), a2, ph[u]) : -INFINITY;
-          y[u] = u < rows ? __fmaf_rn(to_f32(r[jb]), a2, ph[u]) : -INFINITY;
+          x[u] = u < rows ? __fmaf_rn(to_f32(r[j]), inv_eps, ph[u]) : -INFINITY;
+          y[u] = u < rows ? __fmaf_rn(to_f32(r[jb]), inv_eps, ph[u]) : -INFINITY;
         }
         float m = sm.pm[j], s = sm.ps[j], m2 = sm.pm[jb], s2 = sm.ps[jb];
         lse_batch(m, s, x);
@@ -522,8 +537,7 @@ __device__ int sinkhorn_cluster(cg::cluster_group cl,
       group_lse(m, s, g.G);
       if (ok) {
         const float lc = sm.log_c[j - g.c0];
-        *cl.map_shared_rank(sm.psi2 + j, q) =
-            (lc > 0.5f * kNeg ? lc - lse_ln(m, s) : kNeg) * kLog2e;
+        *cl.map_shared_rank(sm.psi + j, q) = lc > 0.5f * kNeg ? lc - lse_ln(m, s) : kNeg;
       }
     }
     cl.sync();
@@ -542,9 +556,9 @@ struct PlanFromScores {
   const T *S;
   int C, r0;
   float inv_eps;
-  const float *phi, *psi2;  // phi of the stripe starting at row r0
+  const float *phi, *psi;  // phi of the stripe starting at row r0
   __device__ float operator()(int i, int j) const {
-    return plan_val(to_f32(S[(size_t)i * C + j]), inv_eps, phi[i - r0], psi2[j] * kLn2);
+    return plan_val(to_f32(S[(size_t)i * C + j]), inv_eps, phi[i - r0], psi[j]);
   }
 };
 
@@ -809,7 +823,7 @@ fused_assign_kernel(const T *__restrict__ S, const float *__restrict__ row_marg,
     sm.row_ok[li] = sm.log_r[li] > 0.5f * kNeg;
   __syncthreads();
   const int iters = sinkhorn_cluster(cl, Sb, R, C, g, TR, n_iters, inv_eps, tol_phi, sm);
-  PlanFromScores<T> P{Sb, C, g.r0, inv_eps, sm.phi, sm.psi2};
+  PlanFromScores<T> P{Sb, C, g.r0, inv_eps, sm.phi, sm.psi};
   const int rounds = round_and_peel(cl, P, n_rows, C, g, TR, sizeof(T), (int)cap[b], topk,
                                     min_mass, sm, assign_out + (size_t)b * n_rows,
                                     topk_out + (size_t)b * n_rows * topk);
@@ -840,7 +854,7 @@ sinkhorn_plan_kernel(const T *__restrict__ S, const float *__restrict__ row_marg
   for (int li = warp; li < g.r1 - g.r0; li += TW_WARPS) {
     const size_t off = (size_t)b * R * C + (size_t)(g.r0 + li) * C;
     for (int j = lane; j < C; j += 32)
-      plan_out[off + j] = plan_val(to_f32(S[off + j]), inv_eps, sm.phi[li], sm.psi2[j] * kLn2);
+      plan_out[off + j] = plan_val(to_f32(S[off + j]), inv_eps, sm.phi[li], sm.psi[j]);
   }
   if (threadIdx.x == 0 && g.rank == 0) iters_out[b] = iters;
 }

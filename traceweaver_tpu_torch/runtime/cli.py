@@ -1,6 +1,6 @@
 """The command line of the port (mirrors ``traceweaver_tpu/runtime/cli.py``,
-its batch path and its ``events``, ``query`` and ``scorecard``
-subcommands).
+its batch path and its ``stream``, ``events``, ``query`` and
+``scorecard`` subcommands).
 
 The JAX CLI's 17 batch flags, so the ``exps/exp*`` argument lists run
 unchanged, plus the flags that stand for the JAX CLI's environment
@@ -18,12 +18,19 @@ loopback while the run lasts; 0 binds a free port) and ``--events``
         --predictor_indices 3,4,7,10 [--device cpu] [--gt_free_dag 1] \
         [--precision bf16] [--score_gemm 1] [--metrics_port 0] \
         [--events run.jsonl]
+    python -m traceweaver_tpu_torch.runtime.cli stream \
+        --source 'replay:DATA/call_graph_0?fix=5&ooo_ms=50' --window_s 20 \
+        --overlap_s 4 --out traces.jsonl [--checkpoint ck.pkl] \
+        [--compare_batch] [--device cpu] [--precision bf16] \
+        [--selftrace journey.json]
     python -m traceweaver_tpu_torch.runtime.cli events run.jsonl
     python -m traceweaver_tpu_torch.runtime.cli query out/e2e_....pickle
     python -m traceweaver_tpu_torch.runtime.cli scorecard --traces 32
 
-With no card and no ``--device`` the batch run exits non-zero before
-loading anything.
+With no card and no ``--device`` the batch run and ``stream`` exit
+non-zero before loading anything. ``stream``'s ``--selftrace PATH``
+(the JAX CLI's ``TW_SELFTRACE``) writes the windows' own journeys as
+Jaeger JSON when the stream drains.
 """
 
 from __future__ import annotations
@@ -117,12 +124,14 @@ def find_replica_table(data_path: str, root: str):
     return None
 
 
-def _obs_setup(metrics_port, events_path):
+def _obs_setup(metrics_port, events_path, selftrace_path=None):
     """The run's observability: a ``/metrics`` exporter on loopback
-    (``metrics_port``; 0 binds a free port, printed on stderr) and the
-    process-wide event sink (``events_path``). Returns ``(exporter,
-    event_log)`` for :func:`_obs_finish`."""
+    (``metrics_port``; 0 binds a free port, printed on stderr), the
+    process-wide event sink (``events_path``) and, with
+    ``selftrace_path``, an installed self-tracer. Returns ``(exporter,
+    event_log, tracer)`` for :func:`_obs_finish`."""
     from traceweaver_tpu_torch.obs import events as obs_events
+    from traceweaver_tpu_torch.obs import selftrace as obs_selftrace
 
     exporter = None
     if metrics_port is not None:
@@ -137,13 +146,27 @@ def _obs_setup(metrics_port, events_path):
     if events_path:
         log = obs_events.EventLog(events_path)
         obs_events.install(log)
-    return exporter, log
+    tracer = None
+    if selftrace_path:
+        tracer = obs_selftrace.PipelineTracer()
+        obs_selftrace.install(tracer)
+    return exporter, log, tracer
 
 
-def _obs_finish(exporter, log) -> None:
+def _obs_finish(exporter, log, tracer=None, selftrace_path=None) -> None:
     """Stop what :func:`_obs_setup` started: the exporter serves until
-    the run's end, and the event sink is uninstalled and closed."""
+    the run's end, the event sink is uninstalled and closed, and the
+    self-tracer is uninstalled after its payload is written (it loads
+    back with ``--fix 6``)."""
     from traceweaver_tpu_torch.obs import events as obs_events
+    from traceweaver_tpu_torch.obs import selftrace as obs_selftrace
+
+    if tracer is not None:
+        if obs_selftrace.active() is tracer:
+            obs_selftrace.install(None)
+        n = tracer.write(selftrace_path)
+        print(f"[obs] self-trace: {n} window journey(s) -> {selftrace_path} "
+              "(re-ingest with --fix 6)", file=sys.stderr)
 
     if log is not None:
         if obs_events.active() is log:
@@ -154,8 +177,198 @@ def _obs_finish(exporter, log) -> None:
         exporter.server_close()
 
 
+def build_stream_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m traceweaver_tpu_torch.runtime.cli stream",
+        description="Online windowed reconstruction over a span stream.")
+    p.add_argument("--source", required=True,
+                   help="source spec: replay:<corpus-dir>"
+                        "[?fix=2&max_traces=200&ooo_ms=50&seed=0] replays "
+                        "a recorded Jaeger corpus")
+    p.add_argument("--fix", type=int, default=0,
+                   help="dataset FIX mode for replay sources (overridden "
+                        "by a ?fix= query in --source)")
+    p.add_argument("--max_traces", type=int, default=1000,
+                   help="replay trace cap (reference executor hardcap)")
+    p.add_argument("--ooo_ms", type=float, default=0.0,
+                   help="replay out-of-order arrival jitter (ms)")
+    p.add_argument("--window_s", type=float, default=60.0,
+                   help="event-time window size (seconds)")
+    p.add_argument("--overlap_s", type=float, default=5.0,
+                   help="window overlap (seconds)")
+    p.add_argument("--watermark_s", type=float, default=2.0,
+                   help="watermark out-of-order bound (seconds)")
+    p.add_argument("--grace_s", type=float, default=0.0,
+                   help="allowed lateness past the watermark (seconds)")
+    p.add_argument("--max_pending", type=int, default=4,
+                   help="in-flight sealed-window bound (backpressure)")
+    p.add_argument("--spill_max", type=int, default=64,
+                   help="spill queue bound before windows are dropped")
+    p.add_argument("--out", default=None,
+                   help="JSONL sink for stitched traces (one window per "
+                        "line); omit to only print live stats")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file; pass with --resume to continue "
+                        "a killed run without reprocessing/double-emit")
+    p.add_argument("--checkpoint_every", type=int, default=8,
+                   help="emitted windows between checkpoints")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint instead of starting over")
+    p.add_argument("--deadletter", default=None,
+                   help="dead-letter JSONL sidecar for poison windows "
+                        "(default: <out>.deadletter.jsonl when --out is set)")
+    p.add_argument("--watchdog_s", type=float, default=None,
+                   help="micro-batch solve watchdog timeout (seconds); "
+                        "a timed-out batch retries, then dead-letters")
+    p.add_argument("--slo_p99_ms", type=float, default=None,
+                   help="seal-to-emit p99 latency SLO (ms): count and "
+                        "event each excursion above it (default off)")
+    p.add_argument("--solve_retries", type=int, default=1,
+                   help="micro-batch retry budget past the first attempt")
+    p.add_argument("--strict", action="store_true",
+                   help="malformed span records raise at ingest instead "
+                        "of the default skip-and-count")
+    p.add_argument("--no_warm", action="store_true",
+                   help="disable carried-state warm start (two-pass EM "
+                        "per window, the batch executor's shape)")
+    p.add_argument("--no_grade", action="store_true",
+                   help="disable ground-truth grading")
+    p.add_argument("--compare_batch", action="store_true",
+                   help="after the stream drains, run the batch executor "
+                        "(predictor 10) on the same store and print the "
+                        "accuracy delta")
+    p.add_argument("--device", default=None,
+                   help="device of the solve (default: the CUDA card; 'cpu' "
+                        "runs the plain versions on the CPU)")
+    p.add_argument("--precision", default="f32",
+                   help="score-block precision: f32 or bf16 (the JAX CLI's "
+                        "TW_PRECISION)")
+    p.add_argument("--metrics_port", type=int, default=None,
+                   help="serve /metrics on 127.0.0.1 at this port while the "
+                        "stream runs (0: a free port)")
+    p.add_argument("--events", default=None,
+                   help="append fault-ladder, drift and SLO records to this "
+                        "JSONL file")
+    p.add_argument("--selftrace", default=None,
+                   help="write the windows' own pipeline journeys to this "
+                        "Jaeger-JSON file when the stream drains (the JAX "
+                        "CLI's TW_SELFTRACE)")
+    return p
+
+
+def batch_accuracy(store, fix: int, device, precision: str) -> float:
+    """``stream --compare_batch``: the batch executor's flagship
+    (predictor 10) on the stream's whole store, end-to-end accuracy in
+    percent."""
+    from traceweaver_tpu_torch.runtime.executor import ExecutorConfig, run_experiment
+
+    res = run_experiment(ExecutorConfig(
+        data_path="", results_directory="", fix=fix, cache_rate=0.0,
+        test_name="streamcmp", predictor_indices=[10], device=str(device),
+        precision=precision), store=store)
+    return res.accuracy_overall["MaxScoreBatchSubsetWithSkips"]
+
+
+def stream_main(argv) -> int:
+    """The ``stream`` subcommand; returns the exit code."""
+    from traceweaver_tpu_torch.algorithms.weaver_torch import resolve_device
+    from traceweaver_tpu_torch.ops.precision import validate_precision
+    from traceweaver_tpu_torch.stream import (
+        StreamConfig,
+        StreamingReconstructor,
+        TraceSink,
+        parse_source_spec,
+    )
+
+    args = build_stream_parser().parse_args(argv)
+    try:
+        precision = validate_precision(args.precision)
+        device = resolve_device(args.device)
+    except (ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.resume and not (args.checkpoint and os.path.exists(args.checkpoint)):
+        print(f"--resume: no checkpoint at {args.checkpoint!r}", file=sys.stderr)
+        return 2
+    try:
+        source = parse_source_spec(
+            args.source, fix=args.fix, max_traces=args.max_traces,
+            ooo_us=args.ooo_ms * 1000.0, strict=args.strict)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    cfg = StreamConfig(
+        window_us=args.window_s * 1e6,
+        overlap_us=args.overlap_s * 1e6,
+        ooo_bound_us=args.watermark_s * 1e6,
+        grace_us=args.grace_s * 1e6,
+        max_pending=args.max_pending,
+        spill_max=args.spill_max,
+        warm_start=not args.no_warm,
+        grade=not args.no_grade,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+        deadletter_path=args.deadletter,
+        solve_watchdog_s=args.watchdog_s,
+        solve_retries=args.solve_retries,
+        slo_p99_ms=args.slo_p99_ms,
+    )
+    exporter, log, tracer = _obs_setup(args.metrics_port, args.events,
+                                       args.selftrace)
+    sink = TraceSink(args.out) if args.out else None
+    try:
+        if args.resume:
+            service = StreamingReconstructor.resume(
+                args.checkpoint, source, sink=sink, device=device,
+                precision=precision)
+        else:
+            service = StreamingReconstructor(source, cfg, sink=sink,
+                                             device=device, precision=precision)
+        summary = service.run()
+    finally:
+        if sink is not None:
+            sink.close()
+        _obs_finish(exporter, log, tracer, args.selftrace)
+
+    print("[stream] done [%s]: %d events -> %d windows, %d spans emitted, "
+          "late %d rerouted / %d dropped, shed %d spilled / %d dropped"
+          % (summary["precision"], summary["consumed"],
+             summary["emitted_windows"],
+             summary["stats"].get("spans_emitted", 0),
+             summary["late_rerouted"], summary["late_dropped"],
+             summary["shed_spilled"], summary["shed_dropped_windows"]))
+    st = summary["stats"]
+    print("[stream] %d micro-batches on %s: %d K1 launches, %d assembly "
+          "launches; solve %.3f s, emit %.3f s, checkpoint %.3f s"
+          % (int(st.get("micro_batches", 0)), summary["device"],
+             summary["launches"]["fused_assign"],
+             summary["launches"]["assemble_block"], st.get("solve_s", 0.0),
+             st.get("emit_s", 0.0), st.get("checkpoint_s", 0.0)))
+    fl = summary["faults"]
+    if any(fl.values()) or summary["deadletter_windows"]:
+        print("[stream] faults: %d injected, %d retries, %d bisections, "
+              "%d host fallbacks, %d quarantined; %d solve timeouts / %d "
+              "batch retries; %d checkpoint failures / %d recovered; "
+              "dead-letter %d windows (%d spans, %d bytes)"
+              % (fl["injected"], fl["retries"], fl["bisections"],
+                 fl["host_fallbacks"], fl["quarantined"],
+                 fl["solve_timeouts"], fl["solve_retried"],
+                 fl["checkpoint_failures"], fl["checkpoint_recovered"],
+                 summary["deadletter_windows"], summary["deadletter_spans"],
+                 summary["deadletter_bytes"]))
+    if "accuracy" in summary:
+        streamed_acc = summary["accuracy"]["e2e"]
+        print("[stream] streamed end-to-end accuracy: %.3f%%" % streamed_acc)
+        if args.compare_batch:
+            batch_acc = batch_accuracy(source.store, args.fix, device, precision)
+            print("[stream] batch executor on identical input: %.3f%% "
+                  "(streamed delta %+.3f pts)" % (batch_acc, streamed_acc - batch_acc))
+    return 0
+
+
 #: subcommand -> (module, function) run with the remaining arguments
 SUBCOMMANDS = {
+    "stream": ("traceweaver_tpu_torch.runtime.cli", "stream_main"),
     "events": ("traceweaver_tpu_torch.obs.events", "tail_main"),
     "query": ("traceweaver_tpu_torch.query.delay_culprit", "main"),
     "scorecard": ("traceweaver_tpu_torch.metrics.scorecard", "main"),
@@ -227,7 +440,7 @@ def main(argv=None) -> int:
         precision=precision,
         score_gemm=bool(args.score_gemm),
     )
-    exporter, log = _obs_setup(args.metrics_port, args.events)
+    exporter, log, _ = _obs_setup(args.metrics_port, args.events)
     try:
         run_experiment(cfg)  # prints per-method accuracy as it goes
     finally:

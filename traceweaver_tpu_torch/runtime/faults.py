@@ -1,5 +1,6 @@
-"""Deterministic fault injection for the fleet's solve supervisor (mirrors
-``traceweaver_tpu/runtime/faults.py``, for the sites the fleet uses).
+"""Deterministic fault injection for the fleet's solve supervisor and the
+stream (mirrors ``traceweaver_tpu/runtime/faults.py``, for the sites the
+fleet and the stream use).
 
 The JAX package reads its plan from ``TW_FAULTS``; the port reads no
 environment variable, so a caller builds a :class:`FaultPlan` with
@@ -14,10 +15,20 @@ Sites (anything else raises):
 - ``dispatch`` — a fleet group's device dispatch;
 - ``fetch``    — a blocking device-to-host fetch;
 - ``host``     — the per-service fallback solve (the supervisor's last
-  compute rung; injecting here is how tests force quarantine).
+  compute rung; injecting here is how tests force quarantine);
+- ``checkpoint`` — a stream checkpoint's save or load
+  (:mod:`traceweaver_tpu_torch.stream.checkpoint`);
+- ``source``   — a stream source read (the streaming reconstructor's run
+  loop retries the same position).
 
 One seeded RNG is shared across sites, so a ``(spec, seed)`` pair gives
 one fixed draw sequence.
+
+The stream reads its plan from :func:`active`: a plan put in force for a
+``with`` block by :func:`override` (parses a spec) or
+:func:`override_plan` (an existing plan, its draw position and counters
+kept), the JAX package's programmatic counterparts of ``TW_FAULTS``. The
+stream hands the same plan to ``solve_fleet(faults=...)``.
 
 :func:`is_transient_fault` decides which failures the supervisor's
 ladder absorbs. On the card that is an injected :class:`FaultError` and
@@ -33,12 +44,13 @@ from __future__ import annotations
 
 import random
 import threading
+from contextlib import contextmanager
 from typing import Dict, Optional
 
 import torch
 
 #: every legal injection site
-SITES = ("dispatch", "fetch", "host")
+SITES = ("dispatch", "fetch", "host", "checkpoint", "source")
 
 #: what the CUDA caching allocator says when it runs out of memory
 _ALLOCATOR_OOM = "CUDA out of memory"
@@ -124,6 +136,37 @@ def parse_faults(spec: str, seed: int = 0) -> Optional[FaultPlan]:
             raise ValueError(f"faults: duplicate site {site!r}")
         sites[site] = SiteSpec(p, max_n)
     return FaultPlan(sites, seed=seed)
+
+
+_OVERRIDE: Optional[FaultPlan] = None
+
+
+def active() -> Optional[FaultPlan]:
+    """The plan in force (:func:`override`, :func:`override_plan`), or None."""
+    return _OVERRIDE
+
+
+@contextmanager
+def override_plan(plan: Optional[FaultPlan]):
+    """Put an existing plan in force for the ``with`` block, keeping its
+    draw position and injection counters across entries (a caller that
+    re-enters with one plan gets one draw sequence, not the first draw
+    again)."""
+    global _OVERRIDE
+    prev = _OVERRIDE
+    _OVERRIDE = plan
+    try:
+        yield plan
+    finally:
+        _OVERRIDE = prev
+
+
+@contextmanager
+def override(spec: str, seed: int = 0):
+    """Parse ``spec`` and put the plan in force for the ``with`` block;
+    yields the plan so the caller can read its counters afterwards."""
+    with override_plan(parse_faults(spec, seed=seed)) as plan:
+        yield plan
 
 
 def maybe_fail(plan: Optional[FaultPlan], site: str) -> None:
