@@ -10,6 +10,7 @@ against their plain versions.
                                              # (180 CLI calls), pickles
                                              # to OUT
     python3 chip_smoke.py --stream           # only the stream phase
+    python3 chip_smoke.py --serve            # only the serve phase
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -79,8 +80,9 @@ Phases, each of which raises on failure (non-zero exit):
    the JAX package's end-to-end accuracy on the CPU
    (``EXP5_JAX_ACCURACY``) and all five result-pickle families must
    exist for every graph. The flagship of every graph also runs on the
-   CPU (``--device cpu``), in worker processes once every card phase is
-   done (so no timed phase shares the host with them); the check is
+   CPU (``--device cpu``), in four worker processes started as this
+   phase ends, beside the card phases that follow (the smoke's time
+   leaves no room to run them after the card phases); the check is
    two-sided: a graph whose card run met no
    ill-posed window must read JAX's number within half a point either
    way with >= 99% of every service's pairs equal to the CPU run's, and
@@ -144,14 +146,64 @@ Phases, each of which raises on failure (non-zero exit):
    must not run on the card; the window, late and shed counts must equal
    the JAX package's (``STREAM_JAX``) and the streamed accuracy read
    JAX's within half a point where no window was ill-posed, else the
-   port's CPU stream (started in a process of its own right after this
-   phase, checked with the CPU reruns) must equal its recorded reading
+   port's CPU stream (started in a process of its own before the first
+   card phase, checked with the CPU reruns) must equal its recorded reading
    exactly (``STREAM_PORT_CPU``: it parts from JAX's in the last bits)
    and the card read JAX within 7 points with >= 90% of every service's
    pairs equal to the CPU run's. Then a second run stopped after half the
    windows (under the profiler: the ``profile`` line) is resumed from its
    checkpoint in a fresh service, and its sink must equal the first
    run's byte for byte (``stream-resume``);
+5d. serve: config ``serve-cg-4t`` (four call graphs of seed 10 at 8192
+   traces 20 ms apart, tenant ``t<i>`` posting graph ``i`` in bodies of
+   256 traces in root start-time order; ``serve_bodies``) through the
+   port's serve tier on the card with the serve CLI's defaults
+   (continuous admission, two tickets in flight, the WAL with ``batch``
+   sync, device-resident columns, f32) and the stream's geometry.
+   1. the shared run: ``make_server`` on a thread, one client thread a
+   tenant posting as fast as acks return (429s waited out), then
+   ``POST /api/v1/flush`` and a wait for an empty backlog, every launch
+   counter reset just before and read just after (the ``serve`` line:
+   per tenant the POSTs, spans ingested, windows sealed, emitted,
+   dead-lettered and shed, the seal-to-emit p99 and the sink's accuracy
+   (``serve_sink_accuracy``) beside JAX's (``SERVE_JAX``); the shared
+   solves, tenant batches, fleet dispatches, tickets and overlap; the
+   ring, index and shipped bytes, host fallbacks, the rows appended to
+   the column rings and their fill; wall, spans a second, launches,
+   ill-posed windows and peak memory; ``serve-batches``: each fleet
+   call's tenants and windows). 2. over the same server the trace list
+   and one trace, both live queries, ``/metrics`` (the tenancy, devcols
+   and WAL families, per-tenant and dispatch counters equal to
+   ``/api/v1/stats``) and ``/readyz`` (200, then 503 after
+   ``begin_drain``; ``serve-queries``). 3. tenant ``t0`` alone under the
+   fixed pump (eight windows a pump), with device-resident columns and
+   without, fresh rings each: the sinks must be byte-identical, and the
+   sink must read JAX's within 7 points; then ``t0`` alone under a pump
+   of one window (the run the CPU rerun repeats); then
+   ``t0`` alone with the shared run's batches (its ticket submits and
+   completes replayed in order): its rows must equal the shared run's on
+   >= 99% of every service's rows outside ill-posed solver windows (the
+   pump run's agreement with the shared run is reported beside JAX's
+   own: the batches differ; ``serve-alone``). 4. ``cli serve
+   --no-continuous`` in a subprocess: half of ``t0``'s bodies, SIGKILL
+   after their acks, ``--resume``, the rest, a flush, SIGTERM (exit 0):
+   the sink must equal the pump run's byte for byte (the WAL replay;
+   ``serve-resume``). It fails on broken conservation (emitted +
+   dead-lettered = sealed windows, spans emitted + late-dropped =
+   ingested), any dead-lettered or shed window, no solve carrying two
+   tenants' windows, a host fallback or no index bytes, more ring rows
+   than spans ingested, K1 or the assembly kernel not launched or the
+   assembly's plain version on the card, and accuracy: each tenant
+   within half a point of JAX's shared reading where none of its
+   windows was ill-posed, else within 7 points, with the port's CPU run
+   of ``t0`` alone under a pump of one window (started in a process of
+   its own before the first card phase) equal to JAX's reading and the card's
+   same run within 7 points of it with >= 90% of every service's rows
+   equal to the CPU run's. The CPU rerun is not the pump of eight: on the
+   CPU it takes 1438 s on two threads, past the smoke's time, and its
+   eight cold windows break exact-mass ties (ROADMAP C.3) that flip whole
+   windows between any two roundings (``PERF.md`` section 6). The corpus is
+   synthesized in a process of its own beside the first card phases;
 6. kernels: each kernel against its plain PyTorch version on the card,
    on random blocks (ragged, all-masked, padded rows, skip-heavy, tol 0
    and 1e-3; rows not a multiple of the cluster size, fewer rows than
@@ -161,8 +213,8 @@ Phases, each of which raises on failure (non-zero exit):
    chain group ([32, 1025, 2049]) and from the executor phase (the
    largest K1 block of the exp5 loop, of ground-truth-free discovery (a
    block of >= 256 windows, from the exp5 loop and ``alibaba-cg-8k``)
-   and of ``alibaba-cg-8k``, and the stream's largest, less their
-   ill-posed windows: windows with an
+   and of ``alibaba-cg-8k``, and the stream's and the serve run's
+   largest, less their ill-posed windows: windows with an
    incoming span that has no feasible child and no skip room, whose
    plans are rounding noise);
    ``two-streams``: K1 and K2 launched
@@ -182,7 +234,8 @@ Phases, each of which raises on failure (non-zero exit):
    endpoint step (``score-build`` lines).
 
 ``--stream`` runs only the stream phase and its K1 block's check (and
-the CPU stream where the card met ill-posed windows).
+the CPU stream where the card met ill-posed windows); ``--serve`` the
+same for the serve phase.
 
 ``--assembly`` runs only the assembly's check and timing, on the first
 sweeps of one ``synth-async-8k`` and one ``synth-fleet-8svc`` solve,
@@ -697,6 +750,63 @@ STREAM_JAX = dict(consumed=106496, windows=14, micro_batches=14, spans_emitted=1
 # windows of both sinks assign alike
 # (tests/test_torch_stream_cg8k.py pins this; ROADMAP C.1).
 STREAM_PORT_CPU = 96.42333984375
+# config serve-cg-4t: four call graphs of seed 10 at 8192 traces, 20 ms
+# apart, one tenant each (t0-t3), posted in root start-time order in
+# bodies of 256 traces through the serve tier with the stream's geometry
+SERVE_CORPUS = dict(n_graphs=4, traces_per_graph=8192, seed=10, base_gap_ms=20)
+SERVE_BODY_TRACES = 256
+SERVE_TENANTS = ("t0", "t1", "t2", "t3")
+SERVE_SETTINGS = dict(fix=5, window_us=20e6, overlap_us=4e6, ooo_bound_us=2e6,
+                      grace_us=0.0, slo_p99_ms=2000.0, inflight=2, pump_windows=8)
+# JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config serve-cg-4t
+# (the JAX package's TenantService on the CPU, in process, the same bodies
+# and settings; the sinks' accuracy by serve_sink_accuracy, in percent),
+# with TW_DEVCOLS=0 in front: the host packer. "shared" is the four
+# tenants under continuous admission, "alone" t0 alone under the fixed
+# pump (eight windows a pump), "alone1" under a pump of one window. In both every tenant sealed and emitted 14 windows and every span,
+# with no late, shed or dead-lettered window. The "*_resident" readings
+# are the same runs on the JAX package's default resident columns, which
+# read otherwise: its one global ring a partition kind is smaller than
+# the working set of a pump or a ticket here, and its gathers then read
+# evicted slots (PERF.md section 6). The port's resident path,
+# which keeps a ring per tenant and service and checks its slots before
+# a gather, equals its host path, so it is held to the host-packed
+# readings. "shared_vs_alone_rows" is the share of t0's shared-run rows
+# that its alone run assigns alike, per service, in the JAX package
+# itself (resident): the two runs batch t0's windows differently, and the
+# carried warm-start state follows the batches
+SERVE_JAX = dict(
+    shared=dict(
+        t0=dict(e2e=95.556640625, per_service={
+            "MS_00002": 98.61246744791667, "MS_00017": 99.9755859375,
+            "MS_00029": 99.1943359375, "MS_00041": 98.6572265625}),
+        t1=dict(e2e=99.15771484375, per_service={"MS_00048": 99.15771484375}),
+        t2=dict(e2e=99.54833984375, per_service={"MS_00044": 99.774169921875,
+                                                  "MS_00059": 100.0}),
+        t3=dict(e2e=100.0, per_service={"MS_00012": 100.0, "MS_00042": 100.0})),
+    shared_resident=dict(
+        t0=dict(e2e=90.283203125), t1=dict(e2e=68.27392578125),
+        t2=dict(e2e=99.6826171875), t3=dict(e2e=92.05322265625)),
+    alone=dict(t0=dict(e2e=66.24755859375, per_service={
+        "MS_00002": 74.89827473958333, "MS_00017": 99.98779296875,
+        "MS_00029": 99.072265625, "MS_00041": 98.69384765625})),
+    alone_resident=dict(t0=dict(e2e=64.3798828125)),
+    alone1=dict(t0=dict(e2e=96.4599609375, per_service={
+        "MS_00002": 98.85660807291667, "MS_00017": 99.9755859375,
+        "MS_00029": 99.2919921875, "MS_00041": 98.9990234375})),
+    shared_vs_alone_rows={"MS_00002": 0.7802327473958334, "MS_00017": 1.0,
+                          "MS_00029": 0.9947509765625, "MS_00041": 0.9913330078125})
+# The port's CPU run of t0 alone under a pump of one window reads this
+# instead (the CPU rerun must equal it exactly; JAX reads 96.4599609375
+# with and without its resident columns): the two assign windows 0-2
+# alike, then the statistics each carries to window 3, refitted on the
+# host from equal assignments, part in the last bits (2e-6 relative) and
+# a few rows flip from there on (tests/test_torch_serve_cg4t_pump1.py
+# pins this; ROADMAP C.1). Under the pump of eight the two part wholesale
+# in four cold windows at exact-mass ties (66.50390625 against
+# 66.24755859375; tests/test_torch_serve_cg4t.py, ROADMAP C.3), which no
+# check reads: that CPU run takes 1438 s on the card's machine
+SERVE_PORT_CPU = 96.56982421875
 # discovery solves a service's every window in a few launches; the
 # flagship's fleet blocks hold tens of windows
 DISCOVERY_MIN_WINDOWS = 256
@@ -2085,9 +2195,8 @@ def cpu_flagship(graph_dir, n, results, gt_free=False, compress=15000):
 
 
 class CpuReruns:
-    """A pool of ``workers`` spawned processes for :func:`cpu_flagship`,
-    started after the card phases so they do not slow the timed host
-    work; :meth:`close` stops every process."""
+    """A pool of ``workers`` spawned processes for :func:`cpu_flagship`;
+    :meth:`close` (or leaving the ``with`` block) stops every process."""
 
     def __init__(self, workers: int = 8):
         import multiprocessing
@@ -2102,6 +2211,12 @@ class CpuReruns:
 
     def close(self, cancel=False):
         self.pool.shutdown(wait=True, cancel_futures=cancel)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        self.close(cancel=exc_type is not None)
 
 
 def exp5_argv(graph_dir, n, results, compress=15000, predictors="3,4,7,10",
@@ -2470,6 +2585,89 @@ def profiled_cli(argv, card, unprofiled):
 # stream
 # ---------------------------------------------------------------------------
 
+def serve_bodies(graph_dir, per_body=SERVE_BODY_TRACES):
+    """One synthesized call graph as POST bodies: its traces in root
+    start-time order (a trace without a root last), ``per_body`` to a
+    ``{"data": [...]}`` body, serialized once. Shared with
+    ``tests/jax_reference_synth.py --config serve-cg-4t``."""
+    traces = []
+    for name in sorted(os.listdir(graph_dir)):
+        if not name.endswith(".json"):
+            continue
+        with open(os.path.join(graph_dir, name)) as f:
+            for tr in json.load(f)["data"]:
+                roots = [s["startTime"] for s in tr["spans"] if not s.get("references")]
+                traces.append((min(roots) if roots else float("inf"), name, tr))
+    traces.sort(key=lambda t: (t[0], t[1]))
+    return [json.dumps({"data": [t[2] for t in traces[i:i + per_body]]}).encode()
+            for i in range(0, len(traces), per_body)]
+
+
+def serve_truth(graph_dir):
+    """Ground truth of a call graph for :func:`serve_sink_accuracy`, in
+    the ids the Alibaba ingest gives (a client span's id takes a
+    ``.client`` suffix): ``(parent, children)`` where ``parent`` maps a
+    client span to its incoming (server) span and ``children`` maps a
+    server span to ``[(callee, self_call)]`` of its client spans."""
+    parent, children = {}, {}
+    for name in os.listdir(graph_dir):
+        if not name.endswith(".json"):
+            continue
+        with open(os.path.join(graph_dir, name)) as f:
+            for tr in json.load(f)["data"]:
+                for s in tr["spans"]:
+                    kind = next((t.get("value") for t in s.get("tags", [])
+                                 if t.get("key") == "span.kind"), None)
+                    refs = s.get("references") or []
+                    if kind != "client" or not refs:
+                        continue
+                    cid = (s["traceID"], s["spanID"] + ".client")
+                    pid = (refs[0]["traceID"], refs[0]["spanID"])
+                    parent[cid] = pid
+                    children.setdefault(pid, []).append(
+                        (s.get("callee"), s.get("caller") == s.get("callee")))
+    return parent, children
+
+
+def serve_sink_accuracy(sink_path, truth):
+    """Accuracy of one tenant's stitched-trace sink (a serve tenant runs
+    ungraded, so the reading comes from what it emitted). A sink record
+    holds, per service and endpoint, ``[incoming span, outgoing span or
+    NA]`` rows of the spans its window owns. A row is right when the
+    outgoing span is a ground-truth child of the incoming one, or it is
+    NA and the incoming span has no child at that endpoint (an endpoint
+    named ``*-loop`` is a self-call's, whose name the ingest draws at
+    random). Returns ``{"per_service": {service: percent}, "e2e":
+    percent of traces whose every row is right, "rows": n, "traces":
+    n}``, and, for row agreement between runs, ``"rows_by_key"``:
+    ``{(service, endpoint, in id): out id}`` and ``"window_of"``:
+    ``{(service, in id): owning window}``."""
+    parent, children = truth
+    right, total, trace_ok, keyed, window_of = {}, {}, {}, {}, {}
+    with open(sink_path) as f:
+        for line in f:
+            rec = json.loads(line)
+            for svc, eps in rec["services"].items():
+                for ep, rows in eps.items():
+                    loop = ep.endswith("-loop")
+                    for (itid, isid), (otid, osid) in rows:
+                        iid, oid = (itid, isid), (otid, osid)
+                        if oid == ("NA", "NA"):
+                            ok = not any(self_call if loop else callee == ep
+                                         for callee, self_call in children.get(iid, ()))
+                        else:
+                            ok = parent.get(oid) == iid
+                        right[svc] = right.get(svc, 0) + ok
+                        total[svc] = total.get(svc, 0) + 1
+                        trace_ok[itid] = trace_ok.get(itid, True) and ok
+                        keyed[(svc, ep, iid)] = oid
+                        window_of[(svc, iid)] = rec["window"]
+    n_rows = sum(total.values())
+    return dict(per_service={s: 100.0 * right[s] / total[s] for s in sorted(total)},
+                e2e=(100.0 * sum(trace_ok.values()) / len(trace_ok)) if trace_ok else 0.0,
+                rows=n_rows, traces=len(trace_ok), rows_by_key=keyed, window_of=window_of)
+
+
 def _stream_cfg(**kw):
     """``STREAM_ARGS`` as a ``StreamConfig``."""
     from traceweaver_tpu_torch.stream import StreamConfig
@@ -2653,29 +2851,34 @@ def stream_phase(card, root):
 def cpu_stream(graph_dir, threads):
     """Worker: ``stream-cg-8k`` through the port's stream on the CPU, on
     ``threads`` threads; returns its streamed accuracy, graded
-    predictions and wall seconds."""
+    predictions and wall seconds. ``graph_dir`` None synthesizes the
+    corpus first."""
     sys.path.insert(0, HERE)
     import torch
 
+    import tempfile
+
+    from traceweaver_tpu_torch.alibaba.synthesize import synthesize_corpus
     from traceweaver_tpu_torch.stream import StreamingReconstructor, parse_source_spec
 
     torch.set_num_threads(threads)
 
     t0 = time.perf_counter()
-    svc = StreamingReconstructor(parse_source_spec(f"replay:{graph_dir}?{STREAM_QUERY}"),
-                                 _stream_cfg(verbose=False), device="cpu")
-    summary = svc.run()
+    with tempfile.TemporaryDirectory() as tmp:
+        if graph_dir is None:
+            (graph_dir,) = synthesize_corpus(tmp, **STREAM_CORPUS)
+        svc = StreamingReconstructor(parse_source_spec(f"replay:{graph_dir}?{STREAM_QUERY}"),
+                                     _stream_cfg(verbose=False), device="cpu")
+        summary = svc.run()
     return dict(accuracy=summary["accuracy"]["e2e"], pred=_stream_pred(svc),
                 wall_s=time.perf_counter() - t0)
 
 
 class StreamRerun:
-    """:func:`cpu_stream` in a spawned process of its own, on two threads,
-    started as soon as the card's stream met ill-posed windows: it is the
-    longest CPU rerun (about 370 s on one thread), so it runs beside the
-    card phases that follow, which leave most cores idle, and not after
-    them with the other reruns. :meth:`result` waits for it; leaving the
-    ``with`` block stops the process."""
+    """:func:`cpu_stream` in a spawned process of its own, on two threads
+    (about 340 s beside the card phases), so that it runs while they
+    leave cores idle. :meth:`result` waits for it; leaving the ``with``
+    block stops the process."""
 
     def __init__(self, graph_dir, threads: int = 2):
         import multiprocessing
@@ -2717,6 +2920,678 @@ def stream_verdict(card, stream, cpu):
     if abs(card_acc - ref) > ILL_POSED_MAX_PT or low:
         return (f"stream: card {card_acc} vs JAX {ref}, pairs under "
                 f"{ILL_POSED_MIN_PAIRS} {low}, with {ill_s} ill-posed windows")
+    return ""
+
+
+# ---------------------------------------------------------------------------
+# serve-cg-4t: the multi-tenant serve tier
+# ---------------------------------------------------------------------------
+
+def _serve_cfg(state_dir, continuous, **kw):
+    """``SERVE_SETTINGS`` as a ``ServeConfig`` (the serve CLI's defaults,
+    the stream's geometry)."""
+    from traceweaver_tpu_torch.serve import ServeConfig
+
+    return ServeConfig(state_dir=state_dir, continuous=continuous, verbose=False,
+                       **dict(SERVE_SETTINGS, **kw))
+
+
+def _http(method, url, body=None, timeout=900):
+    """One request on loopback: ``(status, body bytes, headers)``."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method=method)
+    if body is not None:
+        req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers
+
+
+def _post_all(base, tenant, bodies, first=0):
+    """A client: POST each body in order as fast as acks return, waiting
+    out 429s by their ``Retry-After``. Returns the POSTs answered 200."""
+    n = 0
+    for i, body in enumerate(bodies):
+        while True:
+            code, out, hdr = _http("POST", f"{base}/api/v1/tenants/{tenant}/spans", body)
+            if code != 429:
+                break
+            time.sleep(float(hdr.get("Retry-After", "0.1")))
+        if code != 200:
+            raise AssertionError(f"POST {tenant} body {first + i}: {code} {out[:300]!r}")
+        n += 1
+    return n
+
+
+class ServeRows:
+    """Which owned rows of which tenant windows met an ill-posed K1 block.
+
+    While installed it wraps the fleet's ``_dispatch_packed`` (to learn
+    each group's rows: tenant, window key, service, solver window) and
+    ``solve_windows_fleet``/``solve_em_fleet`` (to know when a K1 block's
+    rows are the group's, in order: a warm dispatch of the compacted flow
+    or an uncompacted group), and ``assign_topk`` (the K1 blocks), whose
+    ill-posed windows it keeps as device flags, read once at the end;
+    the straggler redispatch's blocks (a subset of rows) are not read.
+    :meth:`ids` gives ``{(window key, service): {in ids of ill-posed
+    solver windows}}``."""
+
+    def __init__(self):
+        self.local = threading.local()
+        self.lock = threading.Lock()
+        self.pending = []
+        self.spans = {}
+
+    def __enter__(self):
+        import traceweaver_tpu_torch.algorithms.fleet as F
+        import traceweaver_tpu_torch.algorithms.weaver_torch as wt
+
+        self.saved = (F._dispatch_packed, F.solve_windows_fleet, F.solve_em_fleet,
+                      wt.assign_topk)
+        real_disp, real_swf, real_sem, real_k1 = self.saved
+        local = self.local
+
+        def disp(pg, spec, st, run):
+            rows = []
+            for _, item, prep, packed, n_w in pg["per_item_pack"]:
+                ids = prep["in_cols"].ids
+                key = (item.trace_key, item.svc)
+                with self.lock:
+                    self.spans[key] = [ids[lo:hi] for lo, hi in packed.windows[:n_w]]
+                rows.extend((key, b) for b in range(n_w))
+            local.rows, local.full = rows, False
+            try:
+                return real_disp(pg, spec, st, run)
+            finally:
+                local.rows = None
+
+        def solver(real):
+            def run(*args, n_sweeps, **kw):
+                rows = getattr(local, "rows", None)
+                local.full = rows is not None and args[0].shape[0] == len(rows) and (
+                    n_sweeps == 2 or len(rows) == 1)
+                try:
+                    return real(*args, n_sweeps=n_sweeps, **kw)
+                finally:
+                    local.full = False
+            return run
+
+        def k1(*args, **kw):
+            if getattr(local, "full", False):
+                flags = ill_posed_windows(*args[:3])
+                with self.lock:
+                    self.pending.append((local.rows, flags))
+            return real_k1(*args, **kw)
+
+        F._dispatch_packed = disp
+        F.solve_windows_fleet = solver(real_swf)
+        F.solve_em_fleet = solver(real_sem)
+        wt.assign_topk = k1
+        return self
+
+    def __exit__(self, *exc):
+        import traceweaver_tpu_torch.algorithms.fleet as F
+        import traceweaver_tpu_torch.algorithms.weaver_torch as wt
+
+        (F._dispatch_packed, F.solve_windows_fleet, F.solve_em_fleet,
+         wt.assign_topk) = self.saved
+
+    def ids(self):
+        import torch
+
+        if any(f.is_cuda for _, f in self.pending):
+            torch.cuda.synchronize()
+        out = {}
+        for rows, flags in self.pending:
+            for (key, b) in (rows[i] for i in flags.nonzero().flatten().tolist()):
+                out.setdefault(key, set()).update(self.spans[key][b].tolist())
+        return out
+
+
+def rows_agreement(a, b, ill=(), tenant=None):
+    """Per service, the share of run ``a``'s sink rows (from
+    :func:`serve_sink_accuracy`) that run ``b`` assigns alike, leaving
+    out rows whose incoming span sat in an ill-posed solver window of its
+    owning window (``ill`` from :meth:`ServeRows.ids`, keyed by
+    ``"<tenant>:<window>"``)."""
+    eq, tot = {}, {}
+    ka, kb, win = a["rows_by_key"], b["rows_by_key"], a["window_of"]
+    for (svc, ep, iid), oid in ka.items():
+        if ill and iid in ill.get((f"{tenant}:{win[(svc, iid)]}", svc), ()):
+            continue
+        tot[svc] = tot.get(svc, 0) + 1
+        eq[svc] = eq.get(svc, 0) + (kb.get((svc, ep, iid)) == oid)
+    return {svc: eq[svc] / tot[svc] for svc in sorted(tot)}
+
+
+def serve_alone(bodies, state, device, devcols=True, plan=None,
+                pump_windows=SERVE_SETTINGS["pump_windows"]):
+    """Tenant ``t0`` alone in a fresh service with fresh column rings,
+    in this process: its bodies through ``wal_ingest`` in order, then,
+    under the fixed pump of ``pump_windows`` (``plan`` None), a flush;
+    with ``plan`` (the shared run's ``[("submit", seq, [window k]) |
+    ("complete", seq)]`` events of ``t0``), every window sealed first and
+    then submitted, dispatched and completed in the shared run's order,
+    so the tenant's batches are the shared run's. Returns ``(sink path,
+    stats, wall s, batches)``."""
+    from traceweaver_tpu_torch.ops import devcols as DC
+    from traceweaver_tpu_torch.serve import TenantService
+
+    DC.get_store().clear()
+    svc = TenantService(_serve_cfg(state, False, devcols=devcols,
+                                   pump_windows=pump_windows if plan is None else 1 << 30),
+                        device=device)
+    batches = _record_batches(svc)
+    t0 = time.perf_counter()
+    for body in bodies:
+        svc.wal_ingest("t0", body, raw=body)
+    if plan is None:
+        svc.flush()
+    else:
+        t = svc.tenant("t0", create=False)
+        with svc._lock:
+            t.flush()
+            by_k = {b.k: b for b in t.svc.scheduler.ready()}
+        tickets = {}
+        for ev in plan:
+            if ev[0] == "submit":
+                ticket = svc.submit_admitted([(t, [by_k[k] for k in ev[2]])])
+                svc._ring_dispatch(ticket)
+                tickets[ev[1]] = ticket
+            else:
+                svc.complete_ticket(tickets.pop(ev[1]))
+        if tickets or svc.total_backlog():
+            raise AssertionError(f"serve replay left {len(tickets)} tickets and "
+                                 f"{svc.total_backlog()} windows")
+    wall = time.perf_counter() - t0
+    st = svc.stats()
+    svc.drain()
+    return os.path.join(state, "t0", "traces.jsonl"), st, wall, batches
+
+
+_SHAPES = threading.local()
+
+
+def _record_batches(svc, events=None):
+    """Record each of ``svc``'s fleet calls' composition (``{tenant:
+    [window k]}``, and under ``"shapes"`` its dispatch groups' padded
+    ``[windows, E, W, M]``) and, into ``events``, ``t0``'s ticket submits
+    and completes in order."""
+    import traceweaver_tpu_torch.algorithms.fleet as F
+
+    if not hasattr(F._make_spec, "recording"):
+        real_spec = F._make_spec
+
+        def spec(group, itemsize):
+            out = real_spec(group, itemsize)
+            shapes = getattr(_SHAPES, "shapes", None)
+            if shapes is not None:
+                shapes.append([sum(len(p[3]) for p in group), out.E_pad, out.W_pad,
+                               out.M_pad])
+            return out
+
+        spec.recording = True
+        F._make_spec = spec
+    batches = []
+    real_solve, real_submit, real_complete = (svc._solve_fleet, svc.submit_admitted,
+                                              svc.complete_ticket)
+
+    def solve(items, *args, **kw):
+        comp = {}
+        for it in items:
+            k = int(it.trace_key.split(":")[1])
+            if k not in comp.setdefault(it.tenant, []):
+                comp[it.tenant].append(k)
+        batches.append(comp)
+        _SHAPES.shapes = comp["shapes"] = []
+        try:
+            return real_solve(items, *args, **kw)
+        finally:
+            _SHAPES.shapes = None
+
+    def submit(plan):
+        ticket = real_submit(plan)
+        if ticket is not None and events is not None:
+            ks = [b.k for t, bufs in ticket.taken if t.id == "t0" for b in bufs]
+            if ks:
+                events.append(("submit", ticket.seq, ks))
+        return ticket
+
+    def complete(ticket):
+        n = real_complete(ticket)
+        if events is not None and any(t.id == "t0" for t, _ in ticket.taken):
+            events.append(("complete", ticket.seq))
+        return n
+
+    svc._solve_fleet, svc.submit_admitted, svc.complete_ticket = solve, submit, complete
+    return batches
+
+
+def _metric_samples(text, name):
+    """``{frozenset(labels): value}`` of one family in a Prometheus text."""
+    import re
+
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r"^" + name + r"\{(.*)\} (\S+)$", line)
+        if m:
+            labels = frozenset(re.findall(r'(\w+)="([^"]*)"', m.group(1)))
+            out[labels] = float(m.group(2))
+    return out
+
+
+def serve_queries(base, service, card):
+    """Phase step 2 over the shared run's server: trace list and fetch,
+    both live queries, ``/metrics`` (the tenancy, devcols and WAL
+    families, per-tenant counters equal to ``/api/v1/stats``) and
+    ``/readyz`` (200, then 503 after ``begin_drain``). Returns what
+    failed."""
+    failed = []
+    code, out, _ = _http("GET", f"{base}/api/v1/tenants/t0/traces?limit=5")
+    traces = json.loads(out)
+    code2, rec, _ = _http("GET", f"{base}/api/v1/tenants/t0/traces/{traces['trace_ids'][-1]}")
+    rec = json.loads(rec)
+    code3, culprit, _ = _http("GET", f"{base}/api/v1/tenants/t0/query/delay_culprit"
+                                     "?percentile=0.95")
+    culprit = json.loads(culprit)
+    code4, low, _ = _http("GET", f"{base}/api/v1/tenants/t0/query/low_confidence?limit=3")
+    low = json.loads(low)
+    code5, metrics, _ = _http("GET", f"{base}/metrics")
+    metrics = metrics.decode()
+    code6, stats, _ = _http("GET", f"{base}/api/v1/stats")
+    stats = json.loads(stats)
+    if {code, code2, code3, code4, code5, code6} != {200}:
+        failed.append(f"queries answered {code} {code2} {code3} {code4} {code5} {code6}")
+    if culprit["empty"] or not rec.get("spans"):
+        failed.append(f"delay culprit {culprit} / trace {str(rec)[:200]}")
+    tenant_total = _metric_samples(metrics, "tw_serve_tenant_total")
+    dispatch_total = _metric_samples(metrics, "tw_serve_dispatch_total")
+    mismatch = []
+    for tid, t in stats["tenants"].items():
+        for key in ("consumed", "emitted_windows", "solved_windows", "spans_emitted",
+                    "deadletter_windows", "shed_dropped_windows"):
+            got = tenant_total.get(frozenset({("tenant", tid), ("key", key)}))
+            if got != float(t[key]):
+                mismatch.append((tid, key, got, t[key]))
+    for key, v in stats["dispatch"].items():
+        if dispatch_total.get(frozenset({("kind", key)})) != float(v):
+            mismatch.append(("dispatch", key, dispatch_total.get(frozenset({("kind", key)})), v))
+    families = {f: f in metrics for f in (
+        "tw_serve_tenant_total", "tw_serve_dispatch_total", "tw_serve_tenant_ledger_total",
+        "tw_devcols_ring_fill", "tw_devcols_events_total", "tw_tenant_windows_total",
+        'key="wal_appends"', "tw_serve_admission_total")}
+    code7, ready, _ = _http("GET", f"{base}/readyz")
+    service.begin_drain()
+    code8, _, _ = _http("GET", f"{base}/readyz")
+    print("serve-queries " + json.dumps(dict(
+        config="serve-cg-4t", traces_listed=traces["n_traces"],
+        trace_spans=rec.get("n_spans"), trace_complete=rec.get("complete"),
+        delay_culprit=dict(worst_service=culprit["worst_service"],
+                           n_bracket=culprit["n_bracket"]),
+        low_confidence=dict(n_scored=low["n_scored"], n_low=low["n_low"]),
+        metrics_families=families, metrics_vs_stats_mismatches=mismatch,
+        readyz=[code7, json.loads(ready), code8], card=card)), flush=True)
+    if mismatch:
+        failed.append(f"/metrics and /api/v1/stats part: {mismatch[:5]}")
+    if not all(families.values()):
+        failed.append(f"/metrics lacks {[f for f, ok in families.items() if not ok]}")
+    if (code7, code8) != (200, 503):
+        failed.append(f"/readyz answered {code7} then {code8}")
+    return failed
+
+
+def serve_kill_resume(bodies, root, card):
+    """Phase step 4: ``cli serve --no-continuous`` in a subprocess on the
+    card; half of ``t0``'s bodies, SIGKILL after their acks, a restart
+    with ``--resume``, the rest, a flush, SIGTERM. Returns the sink path
+    and what failed."""
+    import signal
+
+    state = os.path.join(root, "serve-killed")
+    argv = [sys.executable, "-m", "traceweaver_tpu_torch.runtime.cli", "serve",
+            "--port", "0", "--state-dir", state, "--no-continuous", "--fix", "5",
+            "--window_s", "20", "--overlap_s", "4", "--watermark_s", "2", "--grace_s", "0"]
+    failed, half = [], len(bodies) // 2
+
+    def start(extra):
+        proc = subprocess.Popen(argv + extra, cwd=HERE, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        for line in proc.stdout:
+            if "listening on http://" in line:
+                url = line.split("listening on ")[1].split()[0]
+                threading.Thread(target=proc.stdout.read, daemon=True).start()
+                return proc, url
+        proc.wait()
+        raise AssertionError(f"cli serve exited {proc.returncode} before listening")
+
+    t0 = time.perf_counter()
+    proc, base = start([])
+    try:
+        _post_all(base, "t0", bodies[:half])
+    finally:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+    proc, base = start(["--resume"])
+    try:
+        _post_all(base, "t0", bodies[half:], first=half)
+        code, _, _ = _http("POST", f"{base}/api/v1/flush")
+        if code != 200:
+            failed.append(f"flush after resume answered {code}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    if rc != 0:
+        failed.append(f"the resumed server's SIGTERM drain exited {rc}")
+    return os.path.join(state, "t0", "traces.jsonl"), time.perf_counter() - t0, failed
+
+
+def serve_phase(card, root, corpus=None):
+    """Config ``serve-cg-4t`` through the port's serve tier on the card
+    (see the module docstring, phase serve); ``corpus`` (a
+    :class:`SynthJob`) is the corpus synthesized beside the earlier
+    phases. Returns the shared run's launches, its largest K1 block and
+    what :func:`rerun_checks` needs."""
+    import torch
+
+    from traceweaver_tpu_torch.ops import devcols as DC
+    from traceweaver_tpu_torch.serve import TenantService, make_server
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    if corpus is None:
+        with SynthJob(os.path.join(root, "serve")) as job:
+            dirs, bodies, truths = job.result()
+    else:
+        dirs, bodies, truths = corpus.result()
+    synth_s = time.perf_counter() - t0
+
+    # 1. the shared run, over HTTP on loopback
+    DC.get_store().clear()
+    state = os.path.join(root, "serve-shared")
+    service = TenantService(_serve_cfg(state, True), device="cuda")
+    events = []
+    batches = _record_batches(service, events)
+    server = make_server(service, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.port}"
+    posts = {}
+
+    def traffic():
+        threads = []
+        for i, tid in enumerate(SERVE_TENANTS):
+            th = threading.Thread(target=lambda i=i, tid=tid: posts.__setitem__(
+                tid, _post_all(base, tid, bodies[i])))
+            threads.append(th)
+            th.start()
+        for th in threads:
+            th.join()
+        code, _, _ = _http("POST", f"{base}/api/v1/flush")
+        if code != 200:
+            raise AssertionError(f"flush answered {code}")
+        while service.total_backlog() or service.in_flight_windows():
+            time.sleep(0.02)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    captured, ill, c = {}, {}, {}
+    t_run = time.perf_counter()
+    with ServeRows() as rows_shared:
+        drive(traffic, True, captured, largest=True, ill=ill, counts=c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        ill_shared = rows_shared.ids()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    if len(posts) != len(SERVE_TENANTS):
+        raise AssertionError(f"serve: client threads posted {posts}")
+    st = service.stats()
+    rings = DC.get_store().rings()
+    appended = sum(r.appended_rows for r in rings)
+    failed = serve_queries(base, service, card)
+    server.shutdown()
+    server.server_close()
+    service.drain()
+    fleet = st["fleet"]
+    accs, tenant_lines = {}, {}
+    ingested = 0
+    for i, tid in enumerate(SERVE_TENANTS):
+        t = st["tenants"][tid]
+        accs[tid] = serve_sink_accuracy(os.path.join(state, tid, "traces.jsonl"), truths[i])
+        ill_t = sum(1 for (key, _) in ill_shared if key.startswith(tid + ":"))
+        ingested += int(t["counters"].get("ingested_spans", 0))
+        tenant_lines[tid] = dict(
+            posts=posts[tid], spans_ingested=int(t["counters"].get("ingested_spans", 0)),
+            windows_sealed=t["solved_windows"] + t["backlog"],
+            windows_emitted=t["emitted_windows"], spans_emitted=t["spans_emitted"],
+            traces_emitted=t["traces_emitted"], late_dropped=t["late_dropped"],
+            deadletter_windows=t["deadletter_windows"],
+            shed_dropped_windows=t["shed_dropped_windows"], shed_spilled=t["shed_spilled"],
+            seal_emit_p99_ms=t["seal_emit_p99_ms"], e2e=accs[tid]["e2e"],
+            e2e_jax=SERVE_JAX["shared"][tid]["e2e"],
+            e2e_jax_resident=SERVE_JAX["shared_resident"][tid]["e2e"],
+            per_service=accs[tid]["per_service"],
+            ill_posed_service_windows=ill_t,
+            packed=fleet.get("tenant_windows_packed", {}).get(tid),
+            decoded=fleet.get("tenant_windows_decoded", {}).get(tid))
+    line = dict(
+        config="serve-cg-4t", device=st["device"], precision=st["precision"],
+        tenants=tenant_lines, shared_solves=st["dispatch"]["shared_solves"],
+        tenant_batches=st["dispatch"]["tenant_batches"],
+        fleet_dispatches=st["dispatch"]["fleet_dispatches"],
+        tickets_submitted=st["ring"]["submitted"], tickets_completed=st["ring"]["completed"],
+        overlap_pct=st["ring"]["overlap_pct"],
+        h2d_bytes_ring=fleet.get("h2d_bytes_ring", 0.0),
+        h2d_bytes_index=fleet.get("h2d_bytes_index", 0.0),
+        h2d_bytes_shipped=fleet.get("h2d_bytes_shipped", 0.0),
+        devcols_fallbacks=fleet.get("devcols_fallbacks", 0.0),
+        ring_rows_appended=appended, spans_ingested=ingested,
+        rings=len(rings), ring_fill_max=max((r.live / r.cap for r in rings), default=0.0),
+        wall_s=wall, spans_per_s=ingested / wall,
+        fused_assign_launches=c["fused_assign"], assemble_block_launches=c["assemble_block"],
+        plain_assembly_on_card=c["plain_assembly_on_card"],
+        ill_posed_windows=ill["ill_posed_windows"], k1_windows=ill["windows"],
+        largest_block=list(captured["block"]["S"].shape), peak_mem_bytes=peak,
+        synthesize_s=synth_s, card=card)
+    print("serve " + json.dumps(line), flush=True)
+    print("serve-batches " + json.dumps(dict(
+        config="serve-cg-4t", run="shared", solves=batches)), flush=True)
+    for tid, t in tenant_lines.items():
+        if t["windows_emitted"] + t["deadletter_windows"] != t["windows_sealed"]:
+            failed.append(f"{tid}: {t['windows_emitted']} emitted + "
+                          f"{t['deadletter_windows']} dead-lettered != {t['windows_sealed']}")
+        if t["spans_emitted"] + t["late_dropped"] != t["spans_ingested"]:
+            failed.append(f"{tid}: {t['spans_emitted']} spans emitted + {t['late_dropped']} "
+                          f"late != {t['spans_ingested']} ingested")
+        if t["deadletter_windows"] or t["shed_dropped_windows"]:
+            failed.append(f"{tid}: {t['deadletter_windows']} dead-lettered, "
+                          f"{t['shed_dropped_windows']} shed windows")
+        if t["packed"] != t["decoded"]:
+            failed.append(f"{tid}: tenant column packed {t['packed']} != decoded "
+                          f"{t['decoded']}")
+    if not line["tenant_batches"] > line["shared_solves"]:
+        failed.append(f"no shared solve carried two tenants' windows: "
+                      f"{line['tenant_batches']} batches in {line['shared_solves']} solves")
+    if line["devcols_fallbacks"] or not line["h2d_bytes_index"] > 0:
+        failed.append(f"devcols: {line['devcols_fallbacks']} fallbacks, "
+                      f"{line['h2d_bytes_index']} index bytes")
+    if appended > ingested:
+        failed.append(f"the rings took {appended} rows for {ingested} spans ingested")
+    if c["fused_assign"] <= 0 or c["assemble_block"] <= 0 or c["plain_assembly_on_card"]:
+        failed.append(f"serving launched K1 {c['fused_assign']} and the assembly kernel "
+                      f"{c['assemble_block']} times, the plain assembly "
+                      f"{c['plain_assembly_on_card']} times on the card")
+
+    # 3. t0 alone under the fixed pump, devcols on then off; then under a
+    # pump of one window, the run the CPU rerun repeats
+    on_path, on_st, on_wall, on_batches = serve_alone(
+        bodies[0], os.path.join(root, "serve-alone-on"), "cuda")
+    off_path, off_st, off_wall, off_batches = serve_alone(
+        bodies[0], os.path.join(root, "serve-alone-off"), "cuda", devcols=False)
+    with open(on_path, "rb") as f:
+        on_bytes = f.read()
+    with open(off_path, "rb") as f:
+        off_bytes = f.read()
+    alone = serve_sink_accuracy(on_path, truths[0])
+    one_path, one_st, one_wall, _ = serve_alone(
+        bodies[0], os.path.join(root, "serve-alone-pump1"), "cuda", pump_windows=1)
+    alone1 = serve_sink_accuracy(one_path, truths[0])
+    # the same tenant with the shared run's batches, for shared-against-alone
+    with ServeRows() as rows_replay:
+        rep_path, rep_st, rep_wall, rep_batches = serve_alone(
+            bodies[0], os.path.join(root, "serve-alone-replay"), "cuda", plan=events)
+        ill_replay = rows_replay.ids()
+    replay = serve_sink_accuracy(rep_path, truths[0])
+    ill_t0 = {k: v | ill_replay.get(k, set()) for k, v in ill_shared.items()}
+    for k, v in ill_replay.items():
+        ill_t0.setdefault(k, v)
+    shared_vs_replay = rows_agreement(accs["t0"], replay, ill_t0, "t0")
+    shared_vs_pump = rows_agreement(accs["t0"], alone, ill_t0, "t0")
+    print("serve-alone " + json.dumps(dict(
+        config="serve-cg-4t", tenant="t0", pump_windows=SERVE_SETTINGS["pump_windows"],
+        devcols_on=dict(e2e=alone["e2e"], per_service=alone["per_service"], wall_s=on_wall,
+                        fleet_dispatches=on_st["dispatch"]["fleet_dispatches"],
+                        devcols_fallbacks=on_st["fleet"].get("devcols_fallbacks", 0.0),
+                        h2d_bytes_ring=on_st["fleet"].get("h2d_bytes_ring", 0.0),
+                        h2d_bytes_shipped=on_st["fleet"].get("h2d_bytes_shipped", 0.0)),
+        devcols_off=dict(wall_s=off_wall,
+                         h2d_bytes_shipped=off_st["fleet"].get("h2d_bytes_shipped", 0.0)),
+        sinks_identical=on_bytes == off_bytes, sink_bytes=len(on_bytes),
+        e2e_jax=SERVE_JAX["alone"]["t0"]["e2e"],
+        e2e_jax_resident=SERVE_JAX["alone_resident"]["t0"]["e2e"],
+        pump1=dict(e2e=alone1["e2e"], per_service=alone1["per_service"], wall_s=one_wall,
+                   fleet_dispatches=one_st["dispatch"]["fleet_dispatches"],
+                   e2e_jax=SERVE_JAX["alone1"]["t0"]["e2e"]),
+        replay_of_shared_batches=dict(e2e=replay["e2e"], wall_s=rep_wall),
+        shared_vs_replay_rows=shared_vs_replay, shared_vs_pump_rows=shared_vs_pump,
+        shared_vs_pump_rows_jax=SERVE_JAX["shared_vs_alone_rows"],
+        rows_left_out_ill_posed=sum(len(v) for k, v in ill_t0.items()
+                                    if k[0].startswith("t0:")),
+        card=card)), flush=True)
+    print("serve-batches " + json.dumps(dict(
+        config="serve-cg-4t", run="t0-alone", solves=on_batches,
+        replay_solves=rep_batches, replay_events=events)), flush=True)
+    if on_bytes != off_bytes:
+        failed.append("t0 alone: the devcols-on and devcols-off sinks part")
+    if abs(alone["e2e"] - SERVE_JAX["alone"]["t0"]["e2e"]) > ILL_POSED_MAX_PT:
+        failed.append(f"t0 alone: {alone['e2e']} not within {ILL_POSED_MAX_PT} pt of JAX "
+                      f"{SERVE_JAX['alone']['t0']['e2e']}")
+    low = {s: v for s, v in shared_vs_replay.items() if v < 0.99}
+    if low:
+        failed.append(f"t0 shared against alone (the same batches): rows under 0.99 {low}")
+
+    # 4. hard death and WAL replay in a subprocess
+    killed_path, kill_wall, kill_failed = serve_kill_resume(bodies[0], root, card)
+    failed += kill_failed
+    with open(killed_path, "rb") as f:
+        killed_bytes = f.read()
+    print("serve-resume " + json.dumps(dict(
+        config="serve-cg-4t", tenant="t0", killed_after_posts=len(bodies[0]) // 2,
+        sink_bytes=len(killed_bytes), sink_identical=killed_bytes == on_bytes,
+        wall_s=kill_wall, card=card)), flush=True)
+    if killed_bytes != on_bytes:
+        failed.append("the killed-and-resumed server's sink parts from t0 alone's")
+
+    # 5. accuracy
+    for tid in SERVE_TENANTS:
+        ref = SERVE_JAX["shared"][tid]["e2e"]
+        limit = ILL_POSED_MAX_PT if tenant_lines[tid]["ill_posed_service_windows"] else 0.5
+        if abs(accs[tid]["e2e"] - ref) > limit:
+            failed.append(f"{tid}: {accs[tid]['e2e']} not within {limit} pt of JAX {ref}")
+    if failed:
+        raise AssertionError("serve: " + "; ".join(failed))
+    print(f"serve-phase: {time.perf_counter() - t_phase:.3f} s wall", flush=True)
+    launches = dict(fused_assign=c["fused_assign"], assemble_block=c["assemble_block"])
+    return launches, captured["block"], (dirs[0], alone1, ill["ill_posed_windows"])
+
+
+def _synthesize_serve(out):
+    sys.path.insert(0, HERE)
+    from traceweaver_tpu_torch.alibaba.synthesize import synthesize_corpus
+
+    dirs = synthesize_corpus(out, **SERVE_CORPUS)
+    return dirs, [serve_bodies(d) for d in dirs], [serve_truth(d) for d in dirs]
+
+
+class SynthJob(StreamRerun):
+    """``serve-cg-4t``'s corpus synthesized in a spawned process of its
+    own; :meth:`result` waits for its graph directories, POST bodies and
+    ground truths."""
+
+    def __init__(self, out):
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        self.job = self.pool.apply_async(_synthesize_serve, (out,))
+
+
+def cpu_serve(graph_dir, threads):
+    """Worker: tenant ``t0`` of ``serve-cg-4t`` alone under a pump of one
+    window on the CPU, on ``threads`` threads; returns its sink accuracy
+    and rows. ``graph_dir`` None synthesizes graph 0 first."""
+    sys.path.insert(0, HERE)
+    import tempfile
+
+    import torch
+
+    from traceweaver_tpu_torch.alibaba.synthesize import synthesize_corpus
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        if graph_dir is None:
+            # graph 0 is the same graph whatever the graph count
+            (graph_dir,) = synthesize_corpus(os.path.join(tmp, "corpus"),
+                                             **dict(SERVE_CORPUS, n_graphs=1))
+        path, _, _, _ = serve_alone(serve_bodies(graph_dir), os.path.join(tmp, "s"), "cpu",
+                                    pump_windows=1)
+        acc = serve_sink_accuracy(path, serve_truth(graph_dir))
+    acc["wall_s"] = time.perf_counter() - t0
+    return acc
+
+
+class ServeRerun(StreamRerun):
+    """:func:`cpu_serve` in a spawned process of its own, on two threads,
+    like :class:`StreamRerun`."""
+
+    def __init__(self, graph_dir, threads: int = 2):
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        self.job = self.pool.apply_async(cpu_serve, (graph_dir, threads))
+
+
+def serve_verdict(card, serve, cpu):
+    """The C.1 rule for a serve run whose card met ill-posed windows: the
+    port's CPU run of ``t0`` alone under a pump of one window equals
+    JAX's (or the recorded ``SERVE_PORT_CPU``) exactly, and the card's
+    same run reads JAX within ``ILL_POSED_MAX_PT`` with >=
+    ``ILL_POSED_MIN_PAIRS`` of every service's rows equal to the CPU
+    run's. Returns what failed."""
+    _, card_alone, ill = serve
+    ref = SERVE_JAX["alone1"]["t0"]["e2e"]
+    want = SERVE_PORT_CPU if SERVE_PORT_CPU is not None else ref
+    pairs = rows_agreement(cpu, card_alone)
+    low = {s: v for s, v in pairs.items() if v < ILL_POSED_MIN_PAIRS}
+    print("serve-card-vs-cpu " + json.dumps(dict(
+        config="serve-cg-4t", tenant="t0", pump_windows=1, alone_card=card_alone["e2e"],
+        alone_cpu=cpu["e2e"], alone_jax_cpu=ref, alone_cpu_recorded=SERVE_PORT_CPU,
+        card_ill_posed_windows=ill, cpu_wall_s=cpu["wall_s"], card_vs_cpu_rows=pairs,
+        rule=f"CPU equals {'the recorded port CPU' if SERVE_PORT_CPU else 'JAX'}, card "
+             f"within {ILL_POSED_MAX_PT} pt of JAX, >= {ILL_POSED_MIN_PAIRS} rows",
+        card=card)), flush=True)
+    if cpu["e2e"] != want:
+        return f"serve: the port on the CPU reads {cpu['e2e']}, not {want} (JAX {ref})"
+    if abs(card_alone["e2e"] - ref) > ILL_POSED_MAX_PT or low:
+        return (f"serve: t0 alone on the card {card_alone['e2e']} vs JAX {ref}, rows "
+                f"under {ILL_POSED_MIN_PAIRS} {low}, with {ill} ill-posed windows")
     return ""
 
 
@@ -2945,38 +3820,45 @@ def executor_phase(card, root):
             (dirs, gt_runs, gtfree_runs, own_rerun))
 
 
-def rerun_checks(card, root, dirs, gt_runs, gtfree_runs, own_rerun, ladder=(),
-                 stream=None, stream_rerun=None):
-    """The flagship of every exp5 graph on the CPU (:class:`CpuReruns`),
-    ground-truth-free too where ``own_rerun`` names the graph, then the
+def rerun_submit(reruns, root, dirs, own_rerun):
+    """Submit the flagship of every exp5 graph on the CPU to ``reruns`` (a
+    :class:`CpuReruns`), ground-truth-free too where ``own_rerun`` names
+    the graph; returns the two ``{graph: future}`` maps."""
+    names = [os.path.basename(d) for d in dirs]
+    cpu_gtfree = {name: reruns.submit(d, n, os.path.join(root, "cpu-gtfree", name),
+                                      gt_free=True)
+                  for n, (name, d) in enumerate(zip(names, dirs)) if name in own_rerun}
+    cpu_gt = {name: reruns.submit(d, n, os.path.join(root, "cpu", name))
+              for n, (name, d) in enumerate(zip(names, dirs))}
+    return cpu_gt, cpu_gtfree
+
+
+def rerun_checks(card, root, submitted, dirs, gt_runs, gtfree_runs, own_rerun,
+                 ladder=(), ladder_futs=(), stream=None, stream_rerun=None, serve=None,
+                 serve_rerun=None):
+    """Wait for the CPU reruns (``submitted`` by :func:`rerun_submit`,
+    ``ladder_futs`` by :func:`ladder_submit`), then the
     two-sided flagship checks of both exp5 loops against those runs, and
     the ground-truth-free flagship within one point of the
     ground-truth-DAG one on every graph with no ill-posed window;
     :func:`ladder_verdict` of every ladder call in ``ladder``; and, when
     the card's ``stream`` (from :func:`stream_phase`) met ill-posed
     windows, :func:`stream_verdict` against the CPU run of the stream
-    that ``stream_rerun`` (a :class:`StreamRerun`) holds."""
+    that ``stream_rerun`` (a :class:`StreamRerun`) holds, and likewise
+    :func:`serve_verdict` against ``serve_rerun`` (a
+    :class:`ServeRerun`)."""
     t0 = time.perf_counter()
     names = [os.path.basename(d) for d in dirs]
-    reruns = CpuReruns()
-    ok = False
-    try:
-        ladder_futs = [ladder_submit(reruns, root, r) for r in ladder]
-        cpu_gtfree = {name: reruns.submit(d, n, os.path.join(root, "cpu-gtfree", name),
-                                          gt_free=True)
-                      for n, (name, d) in enumerate(zip(names, dirs)) if name in own_rerun}
-        cpu_gt = {name: reruns.submit(d, n, os.path.join(root, "cpu", name))
-                  for n, (name, d) in enumerate(zip(names, dirs))}
-        cpu_gt = {name: fut.result() for name, fut in cpu_gt.items()}
-        cpu_gtfree = {name: fut.result() for name, fut in cpu_gtfree.items()}
-        ladder_cpu = [f.result() for f in ladder_futs]
-        stream_cpu = stream_rerun.result() if stream_rerun is not None else None
-        ok = True
-    finally:
-        reruns.close(cancel=not ok)
+    cpu_gt = {name: fut.result() for name, fut in submitted[0].items()}
+    cpu_gtfree = {name: fut.result() for name, fut in submitted[1].items()}
+    ladder_cpu = [f.result() for f in ladder_futs]
+    stream_cpu = stream_rerun.result() if stream_rerun is not None else None
+    serve_cpu = serve_rerun.result() if serve_rerun is not None else None
     failed = [ladder_verdict(card, r, c) for r, c in zip(ladder, ladder_cpu)]
     if stream_cpu is not None:
         failed.append(stream_verdict(card, stream, stream_cpu))
+    if serve_cpu is not None:
+        failed.append(serve_verdict(card, serve, serve_cpu))
     for name in names:
         failed.append(card_vs_cpu("gt-dag", name, gt_runs[name][0], gt_runs[name][1],
                                   EXP5_JAX_ACCURACY[name][FLAGSHIP],
@@ -3003,8 +3885,9 @@ def rerun_checks(card, root, dirs, gt_runs, gtfree_runs, own_rerun, ladder=(),
             failed.append(f"gt-free {name}: {got} is not within 1 pt of the "
                           f"ground-truth-DAG flagship {gt_flag}")
     print(f"executor-cpu-reruns: {len(cpu_gt) + len(cpu_gtfree) + len(ladder_cpu)} runs"
-          f"{' and the stream' if stream_cpu is not None else ''} in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+          f"{' and the stream' if stream_cpu is not None else ''}"
+          f"{' and t0 served alone' if serve_cpu is not None else ''} waited for "
+          f"{time.perf_counter() - t0:.3f} s after the card phases", flush=True)
     failed = [f for f in failed if f]
     if failed:
         raise AssertionError("; ".join(failed))
@@ -3163,6 +4046,8 @@ def main() -> int:
                     "synth-async-8k and one synth-fleet-8svc solve")
     ap.add_argument("--stream", action="store_true", help="run only the stream "
                     "phase (stream-cg-8k) and its K1 block's check")
+    ap.add_argument("--serve", action="store_true", help="run only the serve "
+                    "phase (serve-cg-4t) and its K1 block's check")
     args = ap.parse_args()
 
     import torch
@@ -3210,6 +4095,16 @@ def main() -> int:
                     raise AssertionError(failed)
         print(card, flush=True)
         return 0
+    if args.serve:
+        with tempfile.TemporaryDirectory() as tmp:
+            _, blk, state = serve_phase(card, tmp)
+            check_case("serve-block", blk, 1e-3, posed_only=True)
+            if state[2]:
+                failed = serve_verdict(card, state, cpu_serve(state[0], 8))
+                if failed:
+                    raise AssertionError(failed)
+        print(card, flush=True)
+        return 0
     if args.slice_root:
         print(f"package: {os.path.dirname(os.path.dirname(K.__file__))}", flush=True)
         _, real_block, _, _ = slice_phase(card)
@@ -3228,22 +4123,44 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
     t_smoke = time.perf_counter()
-    launches, real_block, slice_sweep, slice_peak = slice_phase(card)
-    fleet_launches, fleet_block, probs, fleet_wall, fleet_sweep, fleet_peak = \
-        fleet_phase(card)
-    bf16_launches, bf16_blocks = precision_phase(
-        card, probs, {"synth-async-8k": slice_peak, "synth-fleet-8svc": fleet_peak})
     with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as later:
+        # The CPU reruns run beside the card phases: last, as they ran
+        # before the serve phase came, the smoke would not end in its
+        # time. The stream's and t0-served-alone's start now (their
+        # corpora are synthesized in their processes), the exp5 loop's
+        # and the ladder's as their card phases end; a phase's ill-posed
+        # windows decide whether its rerun is read. The serve corpus is
+        # synthesized beside the first card phases too.
+        stream_rerun_any = later.enter_context(StreamRerun(None))
+        serve_rerun_any = later.enter_context(ServeRerun(None))
+        serve_corpus = later.enter_context(SynthJob(os.path.join(tmp, "serve")))
+        launches, real_block, slice_sweep, slice_peak = slice_phase(card)
+        fleet_launches, fleet_block, probs, fleet_wall, fleet_sweep, fleet_peak = \
+            fleet_phase(card)
+        bf16_launches, bf16_blocks = precision_phase(
+            card, probs, {"synth-async-8k": slice_peak, "synth-fleet-8svc": fleet_peak})
         fleet_profile(probs, fleet_wall, card)
         del probs
         fault_run(tmp, card)
+        print(f"phase-clock: first phases done at {time.perf_counter() - t_smoke:.1f} s",
+              flush=True)
         executor_launches, gtfree_launches, executor_blocks, rerun_state = \
             executor_phase(card, tmp)
+        print(f"phase-clock: executor done at {time.perf_counter() - t_smoke:.1f} s",
+              flush=True)
+        reruns = later.enter_context(CpuReruns(workers=6))
+        submitted = rerun_submit(reruns, tmp, rerun_state[0], rerun_state[3])
+        ladder_launches, ladder_reruns_needed = ladder_phase(card, tmp)
+        ladder_futs = [ladder_submit(reruns, tmp, r) for r in ladder_reruns_needed]
+        print(f"phase-clock: ladder done at {time.perf_counter() - t_smoke:.1f} s",
+              flush=True)
         stream_launches, executor_blocks["stream-block"], stream_state = \
             stream_phase(card, tmp)
-        stream_rerun = (later.enter_context(StreamRerun(stream_state[0]))
-                        if stream_state[3] else None)
-        ladder_launches, ladder_reruns_needed = ladder_phase(card, tmp)
+        stream_rerun = stream_rerun_any if stream_state[3] else None
+        serve_launches, executor_blocks["serve-block"], serve_state = \
+            serve_phase(card, tmp, serve_corpus)
+        serve_rerun = serve_rerun_any if serve_state[2] else None
+        print(f"phase-clock: serve done at {time.perf_counter() - t_smoke:.1f} s", flush=True)
         scorecard_launches = scorecard_phase(card)
         K.reset_launches()
         worst, worst_bf16 = kernel_phase(real_block, fleet_block, executor_blocks,
@@ -3258,9 +4175,11 @@ def main() -> int:
         score_time = assembly_timing("slice-score-build", slice_sweep, card)
         fleet_score_time = assembly_timing("fleet-score-build", fleet_sweep, card)
         del slice_sweep, fleet_sweep, bf16_blocks
-        # the CPU work last, so that no timed phase shares the host with it
-        rerun_checks(card, tmp, *rerun_state, ladder=ladder_reruns_needed,
-                     stream=stream_state, stream_rerun=stream_rerun)
+        print(f"phase-clock: card phases done at {time.perf_counter() - t_smoke:.1f} s",
+              flush=True)
+        rerun_checks(card, tmp, submitted, *rerun_state, ladder=ladder_reruns_needed,
+                     ladder_futs=ladder_futs, stream=stream_state,
+                     stream_rerun=stream_rerun, serve=serve_state, serve_rerun=serve_rerun)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s after the build", flush=True)
     print("kernels: " + json.dumps({
         "fused_assign": launches["fused_assign"],
@@ -3275,6 +4194,8 @@ def main() -> int:
         "ladder_fused_assign": ladder_launches,
         "stream_fused_assign": stream_launches["fused_assign"],
         "stream_assemble_block": stream_launches["assemble_block"],
+        "serve_fused_assign": serve_launches["fused_assign"],
+        "serve_assemble_block": serve_launches["assemble_block"],
         "bf16_fused_assign": bf16_launches["fused_assign"],
         "bf16_sinkhorn": bf16_launches["sinkhorn"],
         "bf16_fleet_fused_assign": bf16_launches["fleet_fused_assign"],
@@ -3298,6 +4219,7 @@ def main() -> int:
                     gtfree_launches=gtfree_launches[name],
                     scorecard_launches=scorecard_launches if name == "fused_assign" else 0,
                     stream_launches=stream_launches.get(name, 0),
+                    serve_launches=serve_launches.get(name, 0),
                     executor_shapes={k: list(v["S"].shape)
                                      for k, v in executor_blocks.items()},
                     **fleet)
@@ -3340,6 +4262,8 @@ def main() -> int:
                                      if precision == "f32" else 0),
                     stream_launches=(stream_launches["assemble_block"]
                                      if precision == "f32" else 0),
+                    serve_launches=(serve_launches["assemble_block"]
+                                    if precision == "f32" else 0),
                     fleet_shape=fleet_score_time[precision]["shape"],
                     **{f"fleet_{k}": ft[k] for k in (
                         "ms", "plain_ms", "bound_ms", "bound_by", "launches_per_sweep")})

@@ -13,6 +13,7 @@ these numbers (minus one point). Run on the CPU:
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config alibaba-exp5-ladder-hard
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config stream-cg-8k
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config stream-cg-8k-batch
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config serve-cg-4t
 
 ``TW_PRECISION=bf16`` and ``TW_SCORE_GEMM=1`` in the environment give the
 JAX package's bf16 and GEMM score paths on any config.
@@ -55,6 +56,19 @@ store, and prints one JSON line: the streamed end-to-end accuracy, the
 window, late and shed counts, and the batch accuracy.
 ``stream-cg-8k-batch`` runs that batch executor alone, in a process
 that has run no stream.
+
+``serve-cg-4t`` synthesizes four call graphs (seed 10, 8192 traces, 20
+ms apart) and serves them through the JAX package's ``TenantService`` in
+this process, tenant ``t<i>`` posting graph ``i`` in bodies of 256
+traces in root start-time order (``chip_smoke.serve_bodies``), one
+thread a tenant, with the serve CLI's defaults (continuous admission,
+two tickets in flight, the WAL) and the stream's geometry (20 s
+windows, 4 s overlap, 2 s watermark); then tenant ``t0`` alone under the
+fixed pump, eight windows a pump and then one. Each part prints one
+JSON line with every tenant's window, span and trace counts and the
+accuracy of its sink (``chip_smoke.serve_sink_accuracy``). ``--part
+shared``, ``alone`` or ``alone1`` runs one of them; ``TW_DEVCOLS=0`` in
+front gives the host packer's readings, which the port is held to.
 """
 
 from __future__ import annotations
@@ -251,6 +265,82 @@ def stream_config(out_root: str, stream: bool = True) -> None:
         batch_e2e=batch_acc, wall_s=wall, backend=jax.default_backend())), flush=True)
 
 
+def serve_config(out_root: str, part: str = "both") -> None:
+    """``serve-cg-4t`` through the JAX package's ``TenantService``: the
+    shared run of four tenants (continuous admission) and, with ``part``
+    ``"alone"`` or ``"both"``, tenant ``t0`` alone under the fixed pump.
+    The Alibaba self-loop ids draw from the global RNG, seeded 10 before
+    each run."""
+    import random
+    import threading
+
+    import traceweaver_tpu.runtime.executor  # noqa: F401 (the ingest cycle)
+    from traceweaver_tpu.alibaba.synthesize import synthesize_corpus
+    from traceweaver_tpu.serve import ServeConfig, TenantService
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as CS
+
+    t0 = time.perf_counter()
+    dirs = synthesize_corpus(os.path.join(out_root, "corpus"), **CS.SERVE_CORPUS)
+    bodies = [CS.serve_bodies(d) for d in dirs]
+    truths = [CS.serve_truth(d) for d in dirs]
+    print(json.dumps(dict(config="serve-cg-4t-corpus", posts=[len(b) for b in bodies],
+                          synth_s=time.perf_counter() - t0)), flush=True)
+
+    def run(tag, tenants, continuous, pump_windows=CS.SERVE_SETTINGS["pump_windows"]):
+        random.seed(10)
+        state = os.path.join(out_root, tag)
+        cfg = ServeConfig(state_dir=state, verbose=False, continuous=continuous,
+                          **dict(CS.SERVE_SETTINGS, pump_windows=pump_windows))
+        svc = TenantService(cfg)
+        t_run = time.perf_counter()
+
+        def post(i):
+            for body in bodies[i]:
+                svc.wal_ingest(CS.SERVE_TENANTS[i], body, raw=body)
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in tenants]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        svc.flush()
+        while svc.total_backlog() or svc.in_flight_windows():
+            time.sleep(0.05)
+        wall = time.perf_counter() - t_run
+        st = svc.stats()
+        svc.drain()
+        out = {}
+        for i in tenants:
+            tid = CS.SERVE_TENANTS[i]
+            t = st["tenants"][tid]
+            acc = CS.serve_sink_accuracy(os.path.join(state, tid, "traces.jsonl"),
+                                         truths[i])
+            acc.pop("rows_by_key")
+            acc.pop("window_of")
+            out[tid] = dict(
+                posts=int(t["counters"].get("posts", 0)), consumed=t["consumed"],
+                emitted_windows=t["emitted_windows"], solved_windows=t["solved_windows"],
+                spans_emitted=t["spans_emitted"], traces_emitted=t["traces_emitted"],
+                late_dropped=t["late_dropped"], late_rerouted=t["late_rerouted"],
+                shed_spilled=t["shed_spilled"],
+                shed_dropped_windows=t["shed_dropped_windows"],
+                deadletter_windows=t["deadletter_windows"], **acc)
+        print(json.dumps(dict(
+            config="serve-cg-4t", part=tag, continuous=continuous, tenants=out,
+            dispatch=st["dispatch"], ring=st["ring"], wall_s=wall,
+            devcols_fallbacks=st["fleet"].get("devcols_fallbacks", 0.0),
+            backend=jax.default_backend())), flush=True)
+
+    if part in ("shared", "both"):
+        run("shared", range(len(dirs)), True)
+    if part in ("alone", "both"):
+        run("t0-alone", [0], False)
+    if part in ("alone1", "both"):
+        run("t0-alone-pump1", [0], False, pump_windows=1)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="synth-async-8k",
@@ -258,7 +348,10 @@ def main() -> None:
                              "alibaba-exp5-15000", "alibaba-cg-8k",
                              "alibaba-exp5-gtfree", "alibaba-cg-8k-gtfree",
                              "alibaba-exp5-ladder", "alibaba-exp5-ladder-hard",
-                             "stream-cg-8k", "stream-cg-8k-batch"))
+                             "stream-cg-8k", "stream-cg-8k-batch", "serve-cg-4t"))
+    ap.add_argument("--part", default="both", choices=("both", "shared", "alone", "alone1"),
+                    help="serve-cg-4t: the shared run, t0 alone under the pump of "
+                         "eight windows or of one, or all three")
     ap.add_argument("--traces", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
@@ -269,11 +362,13 @@ def main() -> None:
     ap.add_argument("--rungs", default=None,
                     help="comma-separated compress factors of a ladder config")
     args = ap.parse_args()
-    if args.config.startswith(("alibaba", "stream")):
+    if args.config.startswith(("alibaba", "stream", "serve")):
         import tempfile
 
         with tempfile.TemporaryDirectory() as tmp:
-            if args.config.startswith("stream-cg-8k"):
+            if args.config == "serve-cg-4t":
+                serve_config(args.out or tmp, args.part)
+            elif args.config.startswith("stream-cg-8k"):
                 stream_config(args.out or tmp, stream=args.config == "stream-cg-8k")
             elif "-ladder" in args.config:
                 graphs = (None if args.graphs is None

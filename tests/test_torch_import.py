@@ -91,6 +91,14 @@ MIRRORS = {
     "traceweaver_tpu_torch.stream.scheduler": "traceweaver_tpu/stream/scheduler.py",
     "traceweaver_tpu_torch.stream.checkpoint": "traceweaver_tpu/stream/checkpoint.py",
     "traceweaver_tpu_torch.stream.service": "traceweaver_tpu/stream/service.py",
+    "traceweaver_tpu_torch.stream.wal": "traceweaver_tpu/stream/wal.py",
+    "traceweaver_tpu_torch.ops.devcols": "traceweaver_tpu/ops/devcols.py",
+    "traceweaver_tpu_torch.ingest.wire": "traceweaver_tpu/ingest/wire.py",
+    "traceweaver_tpu_torch.serve": "traceweaver_tpu/serve",
+    "traceweaver_tpu_torch.serve.ring": "traceweaver_tpu/serve/ring.py",
+    "traceweaver_tpu_torch.serve.tenancy": "traceweaver_tpu/serve/tenancy.py",
+    "traceweaver_tpu_torch.serve.continuous": "traceweaver_tpu/serve/continuous.py",
+    "traceweaver_tpu_torch.serve.http": "traceweaver_tpu/serve/http.py",
 }
 
 

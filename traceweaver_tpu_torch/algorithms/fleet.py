@@ -53,9 +53,33 @@ decode fetched; ``conf_device=True`` adds the margin and entropy
 channels to every dispatch.
 
 The JAX package's ``TW_*`` knobs are keyword arguments of
-:func:`solve_fleet` with the knobs' defaults. Not ported yet:
-device-resident columns, mesh sharding, AOT notes and tenancy (none of
-them changes an output).
+:func:`solve_fleet` with the knobs' defaults. Not ported yet: mesh
+sharding and AOT notes (neither changes an output).
+
+Device-resident columns (``devcols=True``, the default, as ``TW_DEVCOLS``
+is in the JAX package; :mod:`traceweaver_tpu_torch.ops.devcols`): the
+pack thread resolves each group's partitions onto the device's column
+rings, appending only spans not resident yet (``h2d_bytes_ring``), and
+packs int32 index arrays in place of the six window tensors; every
+dispatch, compacted redispatch and refit gathers fresh window tensors
+on the device from the rings (``h2d_bytes_index``, with the skip and
+force tensors in ``h2d_bytes_shipped``). A group with any partition the
+rings cannot hold exactly (non-integral µs, an origin outside the int32
+epoch span, a partition larger than a ring) packs on the host instead,
+counted in ``devcols_fallbacks``. The gathered tensors equal the host
+packer's bit for bit, and the port pads neither the batch rows nor the
+tables of a resident group (the JAX package pads both to powers of two
+to bound its compiled shapes; the port compiles nothing), so both paths
+hand the solver identical inputs. A ``devcols`` fault makes the
+supervisor rebuild the rings from their host mirrors before it retries
+(``devcols_ring_rebuilds``).
+
+Tenancy (the serve tier's): ``FleetItem.tenant`` tags an item with its
+tenant. The id column rides pack, compaction and decode on the host and
+never reaches the device; it fills the per-tenant buckets
+``tenant_windows_packed``, ``tenant_windows_redispatched`` and
+``tenant_windows_decoded`` of the stats (packed equals decoded), which
+untagged callers never see.
 
 Each item may carry a self-trace window key (``FleetItem.trace_key``,
 :mod:`traceweaver_tpu_torch.obs.selftrace`): with a tracer installed,
@@ -91,6 +115,7 @@ from traceweaver_tpu_torch.algorithms.weaver_torch import (
     DEFAULT_TOPK,
     WeaverTorch,
     _bucket,
+    _pack_problem_devcols,
     candidate_ranges,
     dists_from_tables,
     in_columns,
@@ -109,6 +134,8 @@ from traceweaver_tpu_torch.obs import profile as _profile
 from traceweaver_tpu_torch.obs import quality as _quality
 from traceweaver_tpu_torch.obs import selftrace as _selftrace
 from traceweaver_tpu_torch.obs.registry import get_registry as _get_registry
+from traceweaver_tpu_torch.obs.registry import serve_families as _serve_families
+from traceweaver_tpu_torch.ops import devcols as _devcols
 from traceweaver_tpu_torch.ops.precision import score_itemsize, validate_precision
 from traceweaver_tpu_torch.runtime import faults as _faults
 from traceweaver_tpu_torch.spans import NA
@@ -126,6 +153,8 @@ MERGE_BUDGET = {"cpu": 1 << 20, "cuda": 1 << 24}
 # window-axis keys of a packed fleet batch, dispatch argument order
 _BATCH_KEYS = ("in_start", "in_end", "in_valid", "out_start", "out_end",
                "out_valid", "skip_cap", "force_skip")
+# the host-shipped part of a resident (devcols) group's batch
+_DEVCOLS_BATCH_KEYS = ("skip_cap", "force_skip")
 # per-problem tables, dispatch argument order (after the batch keys)
 _TABLE_KEYS = ("pred_mask", "root_mask", "is_last",
                "edge_wt", "edge_mu", "edge_sd",
@@ -148,6 +177,8 @@ class _Run:
     budget_bytes: int
     faults: Optional[_faults.FaultPlan]
     plan_cache: Optional[PlanCache]
+    devcols: bool = False
+    ring_capacity: int = _devcols.RING_CAPACITY
 
 
 # registry mirrors of the stats ledger: every _Stats update also lands
@@ -165,6 +196,8 @@ _OBS_LADDER = _OBS.counter(
     "tw_fault_ladder_events_total",
     "solve-supervisor degradation-ladder rungs walked",
     labels=("key", "rung"))
+_OBS_TENANT = _serve_families()["tenant_windows"]
+_OBS_DISPATCH_S = _serve_families()["dispatch_s"]
 
 
 class _Stats:
@@ -210,6 +243,18 @@ class _Stats:
             return
         with self._lock:
             self.d.setdefault(key, []).append(event)
+
+    def bucket(self, key: str, subkey: str, val: float = 1.0) -> None:
+        """Accumulate into the ``{subkey: count}`` dict under ``key`` (the
+        per-tenant ledger, ``tenant_windows_packed`` and the rest);
+        written only for tenant-tagged items, so untagged callers' stats
+        are unchanged."""
+        _OBS_TENANT.inc(val, key=key, tenant=subkey)
+        if self.d is None:
+            return
+        with self._lock:
+            d = self.d.setdefault(key, {})
+            d[subkey] = d.get(subkey, 0.0) + val
 
 
 def _as_stats(stats) -> _Stats:
@@ -276,13 +321,16 @@ class FleetItem:
     against one cache tell them apart with it). ``in_cols``/``out_cols``
     are prebuilt columns of the sorted partitions (the stream hands its
     windows over so), used in place of a second build when they match.
-    ``trace_key`` is the item's self-trace window key."""
+    ``trace_key`` is the item's self-trace window key. ``tenant`` (the
+    serve tier's) tags the item with its tenant: a host-side id column
+    through pack, compaction and decode that fills the per-tenant stats
+    buckets and keys the item's device-resident columns."""
 
     def __init__(self, svc, in_span_partitions, out_span_partitions,
                  true_assignments, dag=None,
                  method="MaxScoreBatchSubsetWithSkips", store=None,
                  warm_dists=None, plan_key=None, in_cols=None, out_cols=None,
-                 trace_key=None):
+                 trace_key=None, tenant=None):
         self.svc = svc
         self.in_span_partitions = in_span_partitions
         self.out_span_partitions = out_span_partitions
@@ -295,6 +343,7 @@ class FleetItem:
         self.in_cols = in_cols
         self.out_cols = out_cols
         self.trace_key = trace_key
+        self.tenant = tenant
 
 
 def _plan_key(item: FleetItem) -> str:
@@ -419,6 +468,8 @@ def solve_fleet(
     device=None,
     fused_kernel: bool = True,
     score_gemm: bool = False,
+    devcols: bool = True,
+    ring_capacity: int = _devcols.RING_CAPACITY,
 ) -> List[Tuple]:
     """Solve every item, fusing eligible ones into one dispatch per
     shape class. Returns one FindAssignments 6-tuple per item, in input
@@ -440,8 +491,11 @@ def solve_fleet(
     ``faults`` (a :class:`~traceweaver_tpu_torch.runtime.faults.FaultPlan`
     in place of ``TW_FAULTS``), ``pipeline`` (``TW_PIPELINE``; False is
     the serial reference flow), ``decode_workers``
-    (``TW_DECODE_WORKERS``, the pipeline's flow workers) and
-    ``conf_device`` (``TW_CONF_DEVICE``).
+    (``TW_DECODE_WORKERS``, the pipeline's flow workers),
+    ``conf_device`` (``TW_CONF_DEVICE``), ``devcols`` (``TW_DEVCOLS``:
+    gather the window tensors on the device from the resident column
+    rings, see the module docstring) and ``ring_capacity``
+    (``TW_DEVCOLS_RING``, slots a ring).
 
     ``item_cells`` (a list sized to ``len(items)``) receives each item's
     padded-cell count; ``quarantined`` receives the indices of items the
@@ -556,7 +610,8 @@ def solve_fleet(
                sweep_warm=sweep_warm, retry_max=retry_max,
                retry_backoff_s=retry_backoff_s,
                budget_bytes=fleet_budget_elems * 4, faults=faults,
-               plan_cache=plan_cache)
+               plan_cache=plan_cache, devcols=bool(devcols),
+               ring_capacity=int(ring_capacity))
     ctx = dict(all_spans=all_spans, all_processes=all_processes,
                solver_kwargs=solver_kwargs,
                quarantined=quarantined if quarantined is not None else [],
@@ -639,6 +694,10 @@ def _enter_ladder(err, pg, spec, results, st, run, ctx):
 def _degrade_group(err, pg, spec, results, st, run, ctx):
     """The degradation ladder of one failed group:
 
+    0. **ring-rebuild**: a ``devcols`` fault means the resident rings can
+       no longer be trusted, and a poisoned ring would corrupt every
+       later gather from it, so the group's rings are rebuilt from their
+       host mirrors before every retry (:func:`_rebuild_rings`);
     1. **retry**: up to ``retry_max`` redispatches, the k-th after
        ``retry_backoff_s * 2**k`` seconds;
     2. **bisect**: split the group in half and re-enter the ladder per
@@ -651,6 +710,13 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
     Every rung is counted, appended to ``fault_ladder`` and stamped on
     the group's window self-traces."""
     rung_keys = _group_keys(spec.group)
+
+    def maybe_rebuild(e: BaseException) -> None:
+        dc = pg.get("devcols_items")
+        if dc and _is_devcols_fault(e):
+            _rebuild_rings([r for it in dc for r in (it["ring_in"], it["ring_out"])], st)
+
+    maybe_rebuild(err)
     for attempt in range(run.retry_max):
         if run.retry_backoff_s > 0:
             time.sleep(run.retry_backoff_s * (2 ** attempt))
@@ -665,6 +731,7 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
             if not _faults.is_transient_fault(e):
                 raise
             err = e
+            maybe_rebuild(err)
 
     if len(spec.group) > 1:
         st.add("fault_bisections")
@@ -673,7 +740,7 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
         mid = len(spec.group) // 2
         for half in (spec.group[:mid], spec.group[mid:]):
             half_spec = _make_spec(half, score_itemsize(run.hypers["precision"]))
-            half_pg = _pack_group(half_spec, st)
+            half_pg = _pack_group(half_spec, st, run)
             try:
                 _attempt_group(half_pg, half_spec, results, st, run, ctx)
             except Exception as e:  # noqa: BLE001
@@ -738,7 +805,7 @@ def _solve_groups_serial(specs, results, st, run, ctx):
                 finish(entry)
             pending, total_live = [], 0
         total_live += spec.cost
-        pg = _pack_group(spec, st)
+        pg = _pack_group(spec, st, run)
         try:
             _fault_check("dispatch", st, run.faults)
             pend = _dispatch_packed(pg, spec, st, run)
@@ -801,7 +868,7 @@ def _solve_groups_pipelined(specs, results, st, run, ctx, workers: int):
                                    thread_name_prefix="tw-fleet-flow")
     ok = False
     try:
-        pack_futs = [pack_pool.submit(_pack_group, spec, st) for spec in specs]
+        pack_futs = [pack_pool.submit(_pack_group, spec, st, run) for spec in specs]
         flow_futs = []
         for spec, fut in zip(specs, pack_futs):
             pg = fut.result()
@@ -822,31 +889,144 @@ def _solve_groups_pipelined(specs, results, st, run, ctx, workers: int):
         flow_pool.shutdown(wait=True, cancel_futures=not ok)
 
 
-def _pack_group(spec: _GroupSpec, st: _Stats):
+def _rebuild_rings(rings, st: _Stats) -> None:
+    """The supervisor's ring-rebuild rung: each distinct ring's device
+    buffer is rewritten from its host mirror, every slot where it was
+    (:meth:`~traceweaver_tpu_torch.ops.devcols.ColumnRing.rebuild`), so
+    the index arrays of groups in flight stay valid; the re-shipped
+    arena is billed to ``h2d_bytes_ring`` and the rung lands in the
+    ladder list, the ladder counter and the event sink."""
+    seen = {id(r): r for r in rings}
+    for ring in seen.values():
+        st.add("h2d_bytes_ring", float(ring.rebuild()))
+    if seen:
+        st.add("devcols_ring_rebuilds", float(len(seen)))
+        st.note("fault_ladder", "ring-rebuild")
+
+
+def _is_devcols_fault(err: BaseException) -> bool:
+    """Did the failure come from the ``devcols`` fault site? Only those
+    implicate the rings' contents."""
+    return isinstance(err, _faults.FaultError) and "'devcols'" in str(err)
+
+
+def _resolve_group_devcols(group, st: _Stats, run: _Run):
+    """Resolve every item of a group onto its (tenant, service) column
+    rings on the device, appending only spans not resident yet. Returns
+    one ``(in_slots, out_slots, ring_in, ring_out, live)`` a item
+    (``live``: the lowest sequence the item names in each ring), or None
+    when any partition cannot ride the resident path (non-integral µs, a
+    window origin outside the rings' int32 epoch span, a partition
+    larger than a ring) or a later item's appends evicted an earlier
+    item's slots twice over: the whole group then packs on the host, so
+    one group never mixes the two paths."""
+    for _ in range(2):
+        resolved = _resolve_items(group, st, run)
+        if resolved is None:
+            return None
+        if all(r[2].is_live(r[4][0]) and r[3].is_live(r[4][1]) for r in resolved):
+            return resolved
+        # a re-epoch or the wrap evicted an earlier item's slots: once
+        # more, on the settled epoch
+        st.add("devcols_reresolves")
+    return None
+
+
+def _resolve_items(group, st: _Stats, run: _Run):
+    store = _devcols.get_store()
+    resolved = []
+    for i, item, prep, windows, ranges, skip_caps, _, _ in group:
+        in_cols, out_cols = prep.get("in_cols"), prep.get("out_cols")
+        if in_cols is None or out_cols is None or not windows:
+            return None
+        ring_in = store.ring(item.tenant, item.svc, "in", run.device, run.ring_capacity)
+        ring_out = store.ring(item.tenant, item.svc, "out", run.device, run.ring_capacity)
+        scope = (item.tenant, item.svc)
+        try:
+            # fault site "devcols", resolve flavour: a failed append leaves
+            # the ring untrusted, so the rings are rebuilt from their host
+            # mirrors before the resolve goes on
+            _fault_check("devcols", st, run.faults)
+        except _faults.FaultError:
+            _rebuild_rings((ring_in, ring_out), st)
+        got = ring_in.resolve(in_cols, ledger=st.add, scope=scope)
+        if got is None:
+            return None
+        in_slots, live_in = got
+        out_slots, live_out = {}, _devcols._NO_SEQ
+        for ep in prep["out_eps"]:
+            got = ring_out.resolve(out_cols[ep], endpoint=ep, ledger=st.add,
+                                       scope=scope)
+            if got is None:
+                return None
+            out_slots[ep] = got[0]
+            live_out = min(live_out, got[1])
+        # the window origins must be representable against both rings'
+        # epochs (the gathers subtract them in int32)
+        origins = in_cols.start[[lo for lo, _ in windows]]
+        for ring in (ring_in, ring_out):
+            if ring.epoch is None:
+                return None
+            if np.any(np.abs(origins - ring.epoch) >= _devcols._INT32_SPAN):
+                return None
+        resolved.append((in_slots, out_slots, ring_in, ring_out, (live_in, live_out)))
+    return resolved
+
+
+def _pack_group(spec: _GroupSpec, st: _Stats, run: _Run):
     """Host packing of one group (numpy): concatenated window tensors
     (each item's rows cut to its exact window count), stacked tables,
-    the refit row map and the group's neighbour bounds."""
+    the refit row map, the group's neighbour bounds and the host-side
+    tenancy column. With ``run.devcols`` the items are resolved onto the
+    device's column rings first and pack index arrays
+    (:func:`_pack_problem_devcols`); only the skip and force tensors
+    concatenate on the host, and the dispatch gathers the window
+    tensors. A group the rings cannot hold packs on the host
+    (``devcols_fallbacks``)."""
     t0 = time.perf_counter()
     w0 = _selftrace.now_us()
-    batch_parts: Dict[str, List[np.ndarray]] = {k: [] for k in _BATCH_KEYS}
     table_rows: Dict[str, List[np.ndarray]] = {k: [] for k in _TABLE_KEYS}
     per_item_pack = []
     param_idx: List[int] = []
-    for p, (i, item, prep, windows, ranges, skip_caps, _, _) in enumerate(spec.group):
-        packed = pack_problem(
-            prep["in_spans"], item.out_span_partitions, prep["out_eps"],
-            prep["dists"], prep["in_ep"], item.dag,
-            force_skip_ids=prep["force_skip_ids"], parallel=False,
-            windows=windows, pad_w=spec.W_pad, pad_m=spec.M_pad,
-            pad_e=spec.E_pad, ranges=ranges, skip_caps=skip_caps,
-            in_cols=prep["in_cols"], out_cols=prep["out_cols"])
+    # per-window tenant indices into a group-local table (never shipped)
+    tenant_table = sorted({item.tenant for _, item, *_ in spec.group
+                           if item.tenant is not None})
+    tenant_of = {t: ti for ti, t in enumerate(tenant_table)}
+    tenant_idx: List[int] = []
+    dc_resolved = None
+    if run.devcols:
+        dc_resolved = _resolve_group_devcols(spec.group, st, run)
+        if dc_resolved is None:
+            st.add("devcols_fallbacks")
+    batch_keys = _DEVCOLS_BATCH_KEYS if dc_resolved is not None else _BATCH_KEYS
+    batch_parts: Dict[str, List[np.ndarray]] = {k: [] for k in batch_keys}
+    devcols_items: List[Dict] = []
+    for p, plan in enumerate(spec.group):
+        i, item, prep, windows = plan[:4]
+        if dc_resolved is not None:
+            in_slots, out_slots, ring_in, ring_out, live = dc_resolved[p]
+            packed = _pack_problem_devcols(
+                prep["in_spans"], item.out_span_partitions, prep["out_eps"],
+                prep["dists"], prep["in_ep"], item.dag, in_slots, out_slots,
+                ring_in, ring_out, **_pack_kw(plan, spec))
+        else:
+            packed = _host_pack(plan, spec)
         n_w = len(windows)
-        for key in _BATCH_KEYS:
+        for key in batch_keys:
             batch_parts[key].append(packed.arrays[key][:n_w])
+        if dc_resolved is not None:
+            dc = packed.devcols
+            devcols_items.append(dict(
+                n_w=n_w, ring_in=dc["ring_in"], ring_out=dc["ring_out"], live=live,
+                in_idx=dc["in_idx"][:n_w], out_idx=dc["out_idx"][:n_w],
+                origin_in=dc["origin_in"][:n_w], origin_out=dc["origin_out"][:n_w]))
         packed.truncate_rows(n_w)
         for key in _TABLE_KEYS:
             table_rows[key].append(packed.arrays[key])
         param_idx.extend([p] * n_w)
+        tenant_idx.extend([tenant_of.get(item.tenant, -1)] * n_w)
+        if item.tenant is not None:
+            st.bucket("tenant_windows_packed", item.tenant, float(n_w))
         per_item_pack.append((i, item, prep, packed, n_w))
 
     batch = {k: np.concatenate(v, axis=0) for k, v in batch_parts.items()}
@@ -875,7 +1055,114 @@ def _pack_group(spec: _GroupSpec, st: _Stats):
                 pidx=np.asarray(param_idx, dtype=np.int32),
                 window_rows=window_rows, window_valid=window_valid,
                 per_item_pack=per_item_pack, max_preds=max_preds,
-                max_succs=max_succs, n_rows=row0, trace_keys=trace_keys)
+                max_succs=max_succs, n_rows=row0, trace_keys=trace_keys,
+                tenant_table=tenant_table,
+                tenant_col=np.asarray(tenant_idx, dtype=np.int32),
+                devcols_items=devcols_items if dc_resolved is not None else None)
+
+
+def _pack_kw(plan, spec: _GroupSpec) -> Dict:
+    """The packer keywords of one planned item in its group's geometry."""
+    _, _, prep, windows, ranges, skip_caps, _, _ = plan
+    return dict(force_skip_ids=prep["force_skip_ids"], parallel=False,
+                windows=windows, pad_w=spec.W_pad, pad_m=spec.M_pad,
+                pad_e=spec.E_pad, ranges=ranges, skip_caps=skip_caps,
+                in_cols=prep["in_cols"], out_cols=prep["out_cols"])
+
+
+def _host_pack(plan, spec: _GroupSpec):
+    """One planned item through the host packer."""
+    _, item, prep = plan[:3]
+    return pack_problem(prep["in_spans"], item.out_span_partitions, prep["out_eps"],
+                        prep["dists"], prep["in_ep"], item.dag, **_pack_kw(plan, spec))
+
+
+def _make_assembler(pg, spec: _GroupSpec, st: _Stats, run: _Run):
+    """The device-assembly closure of one resident group:
+    ``assemble(active, pad)`` returns the eight window tensors in
+    ``_BATCH_KEYS`` order for the rows ``active`` (None: all, else
+    ascending indices) plus ``pad`` all-invalid rows, in place of
+    ``_place`` at every dispatch site (warm, redispatch, refit, retry).
+    Each item gathers its rows from its own rings; each call gathers
+    fresh tensors (a failed attempt's can never poison a retry) and
+    ships only the int32 index arrays (``h2d_bytes_index``) and the skip
+    and force tensors (``h2d_bytes_shipped``).
+
+    When a gather finds its slots evicted since the resolve (the rings'
+    working set outgrew them), the group packs on the host for this and
+    every later call, counted in ``devcols_fallbacks``: the same tensors,
+    shipped."""
+    dc_items, batch = pg["devcols_items"], pg["batch"]
+    bounds = np.cumsum([0] + [it["n_w"] for it in dc_items])
+    host: Dict[str, np.ndarray] = {}
+
+    def host_batch() -> Dict[str, np.ndarray]:
+        if not host:
+            st.add("devcols_fallbacks")
+            parts: Dict[str, List[np.ndarray]] = {k: [] for k in _BATCH_KEYS}
+            for plan in spec.group:
+                packed = _host_pack(plan, spec)
+                for k in _BATCH_KEYS:
+                    parts[k].append(packed.arrays[k][:len(plan[3])])
+            host.update({k: np.concatenate(v) for k, v in parts.items()})
+        return host
+
+    def pad_rows(arr, pad, fill):
+        if not pad:
+            return arr
+        return np.concatenate([arr, np.full((pad,) + arr.shape[1:], fill, dtype=arr.dtype)])
+
+    def assemble(active: Optional[np.ndarray], pad: int) -> Tuple:
+        # fault site "devcols", gather flavour: it surfaces from the
+        # dispatch attempt, and the ladder's first move for it is the
+        # ring rebuild, so every retry gathers from trusted rings
+        _fault_check("devcols", st, run.faults)
+        if host:
+            return _host_rows(host, active, pad, st, run.device)
+        parts = []
+        n_index = 0
+        for it, r0, r1 in zip(dc_items, bounds[:-1], bounds[1:]):
+            rows = (slice(None) if active is None
+                    else active[(active >= r0) & (active < r1)] - r0)
+            si, so = it["in_idx"][rows], it["out_idx"][rows]
+            if si.shape[0] == 0:
+                continue
+            oi, oo = it["origin_in"][rows], it["origin_out"][rows]
+            n_index += si.nbytes + so.nbytes + oi.nbytes + oo.nbytes
+            got = _devcols.assemble_resident(it["ring_in"], it["ring_out"], si, so,
+                                             oi, oo, live=it["live"])
+            if got is None:
+                host_batch()
+                return _host_rows(host, active, pad, st, run.device)
+            parts.append(got)
+        st.add("h2d_bytes_index", float(n_index))
+        outs = [torch.cat([p[k] for p in parts]) if len(parts) > 1 else parts[0][k]
+                for k in range(6)]
+        if pad:
+            outs = [torch.cat([o, torch.zeros((pad,) + o.shape[1:], dtype=o.dtype,
+                                              device=o.device)]) for o in outs]
+        sel = slice(None) if active is None else active
+        skip_cap = pad_rows(batch["skip_cap"][sel], pad, 0)
+        force_skip = pad_rows(batch["force_skip"][sel], pad, False)
+        st.add("h2d_bytes_shipped", float(skip_cap.nbytes + force_skip.nbytes))
+        return tuple(outs) + (torch.as_tensor(skip_cap, device=run.device),
+                              torch.as_tensor(force_skip, device=run.device))
+
+    assemble.n_rows = int(bounds[-1])
+    return assemble
+
+
+def _host_rows(host: Dict[str, np.ndarray], active, pad: int, st: _Stats, dev) -> Tuple:
+    """A host-packed batch's rows ``active`` plus ``pad`` all-invalid
+    rows, shipped (``h2d_bytes_shipped``)."""
+    arrs = {}
+    for k in _BATCH_KEYS:
+        a = host[k] if active is None else host[k][active]
+        if pad:
+            a = np.concatenate([a, np.zeros((pad,) + a.shape[1:], dtype=a.dtype)])
+        arrs[k] = a
+    st.add("h2d_bytes_shipped", float(sum(a.nbytes for a in arrs.values())))
+    return tuple(torch.as_tensor(arrs[k], device=dev) for k in _BATCH_KEYS)
 
 
 def _place(arrs: Dict[str, np.ndarray], pidx: np.ndarray, dev, st: _Stats):
@@ -895,6 +1182,13 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
     the dispatch time is taken (billed to ``plan_fit_s``)."""
     dev = run.device
     hypers = dict(run.hypers, max_preds=pg["max_preds"], max_succs=pg["max_succs"])
+    dc_items = pg.get("devcols_items")
+    assemble = (_make_assembler(pg, spec, st, run)
+                if dc_items is not None else None)
+    # the tenancy column rides the ticket so the compacted flow can
+    # attribute straggler redispatches per tenant
+    tenant_table = pg.get("tenant_table") or None
+    tenant_col = pg.get("tenant_col") if tenant_table else None
     use_compact = (run.compaction and run.sweep_warm < run.n_sweeps
                    and pg["n_rows"] > 1)
     flow_wait: List[float] = []
@@ -911,9 +1205,11 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
                 pg["batch"], pg["pidx"], pg["params"], pg["window_rows"],
                 pg["window_valid"], spec.n_passes, run.n_sweeps, run.sweep_warm,
                 hypers, st, dev, run.faults, flow_wait=flow_wait,
-                refit_sink=refit_sink, trace_keys=trace_keys)
+                refit_sink=refit_sink, trace_keys=trace_keys, assemble=assemble,
+                tenant_col=tenant_col, tenant_table=tenant_table)
         else:
-            common = _place(pg["batch"], pg["pidx"], dev, st)
+            common = (_place(pg["batch"], pg["pidx"], dev, st) if assemble is None
+                      else assemble(None, 0) + (torch.as_tensor(pg["pidx"], device=dev),))
             tables = _tables_on(pg["params"], dev)
             if spec.n_passes == 2:
                 out, _ = solve_em_fleet(
@@ -923,7 +1219,9 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
             else:
                 out, _ = solve_windows_fleet(*common, *tables,
                                              n_sweeps=run.n_sweeps, **hypers)
-    st.add("dispatch_s", time.perf_counter() - t0 - sum(flow_wait))
+    dispatch_s = time.perf_counter() - t0 - sum(flow_wait)
+    st.add("dispatch_s", dispatch_s)
+    _OBS_DISPATCH_S.observe(dispatch_s)
     _trace_stage(trace_keys, "dispatch", w0)
     if refit_sink:
         # the device already fitted the next round's plan: keep it
@@ -942,15 +1240,38 @@ def _tables_on(params: Dict[str, np.ndarray], dev) -> Tuple[torch.Tensor, ...]:
 
 
 def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
-                    faults=None, flow_wait=None, trace_keys=()) -> np.ndarray:
+                    faults=None, flow_wait=None, trace_keys=(), assemble=None,
+                    tenant_col=None, tenant_table=None) -> np.ndarray:
     """One solve pass as a warm dispatch of ``warm`` sweeps plus a full
     redispatch of only the unconverged windows. Returns the packed
     ``[B, E, W, 3 + topk]`` block on the host; ``batch``/``pidx`` are
-    host numpy, ``tables`` numpy or tensors."""
+    host numpy, ``tables`` numpy or tensors. With ``assemble`` (a
+    resident group) both dispatches gather their window tensors from the
+    rings; ``tenant_col`` attributes the redispatched windows per
+    tenant (``tenant_windows_redispatched``)."""
     st = _as_stats(stats)
     tables = tuple(torch.as_tensor(t, device=device) for t in tables)
+
+    def placed(rows, pad):
+        if assemble is not None:
+            p = np.asarray(pidx) if rows is None else np.asarray(pidx)[rows]
+            if pad:
+                p = np.concatenate([p, np.zeros(pad, dtype=p.dtype)])
+            return assemble(rows, pad) + (torch.as_tensor(p, device=device),)
+        if rows is None:
+            return _place(batch, pidx, device, st)
+        # padding rows are all-invalid windows: no valid spans or columns,
+        # decoded by nobody
+        gathered = {k: np.concatenate([batch[k][rows],
+                                       np.zeros((pad,) + batch[k].shape[1:],
+                                                dtype=batch[k].dtype)])
+                    for k in _BATCH_KEYS}
+        pidx_active = np.concatenate([np.asarray(pidx)[rows],
+                                      np.zeros(pad, dtype=np.asarray(pidx).dtype)])
+        return _place(gathered, pidx_active, device, st)
+
     with _profile.annotate("tw:fleet:warm-dispatch"):
-        out_warm, flags = solve_windows_fleet(*_place(batch, pidx, device, st),
+        out_warm, flags = solve_windows_fleet(*placed(None, 0),
                                               *tables, n_sweeps=warm, **hypers)
     st.add("d2h_flag_fetches", 1.0)
     w0 = _selftrace.now_us()
@@ -961,20 +1282,19 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
     active = np.flatnonzero(~converged)
     st.add("compact_windows_total", float(converged.shape[0]))
     st.add("compact_windows_redispatched", float(active.size))
+    if tenant_col is not None and active.size:
+        ids, counts = np.unique(np.asarray(tenant_col)[active], return_counts=True)
+        for t_i, c in zip(ids.tolist(), counts.tolist()):
+            if t_i >= 0:
+                st.bucket("tenant_windows_redispatched", tenant_table[t_i], float(c))
     if active.size == 0:
         return _fetch(out_warm, st, faults, flow_wait=flow_wait)
     # stragglers rerun from sweep 0, padded to a power of two with
-    # all-invalid rows (no valid spans or columns: decoded by nobody)
+    # all-invalid rows
     pad = _bucket(int(active.size), minimum=1) - int(active.size)
-    gathered = {k: np.concatenate([batch[k][active],
-                                   np.zeros((pad,) + batch[k].shape[1:],
-                                            dtype=batch[k].dtype)])
-                for k in _BATCH_KEYS}
-    pidx_active = np.concatenate([np.asarray(pidx)[active],
-                                  np.zeros(pad, dtype=np.asarray(pidx).dtype)])
     w0 = _selftrace.now_us()
     with _profile.annotate("tw:fleet:redispatch"):
-        out_full, _ = solve_windows_fleet(*_place(gathered, pidx_active, device, st),
+        out_full, _ = solve_windows_fleet(*placed(active, pad),
                                           *tables, n_sweeps=n_sweeps, **hypers)
     _trace_stage(trace_keys, "redispatch", w0)
     out = _fetch(out_warm, st, faults, flow_wait=flow_wait).copy()
@@ -985,31 +1305,39 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
 def _solve_group_compacted(batch, pidx, params, window_rows, window_valid,
                            n_passes, n_sweeps, warm, hypers, stats, device,
                            faults=None, flow_wait=None,
-                           refit_sink=None, trace_keys=()) -> np.ndarray:
+                           refit_sink=None, trace_keys=(), assemble=None,
+                           tenant_col=None, tenant_table=None) -> np.ndarray:
     """The compacted counterpart of one group dispatch: a compacted pass
     0, for two-pass groups :func:`refit_fleet_params` on pass 0's merged
     assignments (the refit :func:`solve_em_fleet` runs), then a
     compacted pass 1. ``refit_sink`` (a list) receives the refit tables
-    for the plan cache."""
+    for the plan cache. With ``assemble`` every dispatch and the refit's
+    samples gather from the resident rings."""
     st = _as_stats(stats)
     tables = _tables_on(params, device)
+    kw = dict(assemble=assemble, tenant_col=tenant_col, tenant_table=tenant_table)
     out0 = _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, st,
-                           device, faults, flow_wait, trace_keys)
+                           device, faults, flow_wait, trace_keys, **kw)
     if n_passes == 1:
         return out0
 
     def on(a):
         return torch.as_tensor(a, device=device)
 
+    if assemble is not None:
+        bi = dict(zip(_BATCH_KEYS, assemble(None, 0)))
+    else:
+        bi = {k: on(batch[k]) for k in ("in_start", "in_end", "in_valid",
+                                        "out_start", "out_end")}
     new_tables = refit_fleet_params(
         on(out0[..., _layout.CH_ASSIGN]),
-        *(on(batch[k]) for k in ("in_start", "in_end", "in_valid",
-                                 "out_start", "out_end")),
+        *(bi[k] for k in ("in_start", "in_end", "in_valid", "out_start", "out_end")),
         on(pidx), on(window_rows), on(window_valid), *tables[:2], *tables[3:])
     if refit_sink is not None:
         refit_sink.append(new_tables)
     return _compacted_pass(batch, pidx, tables[:3] + tuple(new_tables), n_sweeps,
-                           warm, hypers, st, device, faults, flow_wait, trace_keys)
+                           warm, hypers, st, device, faults, flow_wait, trace_keys,
+                           **kw)
 
 
 def _decode_group(pend, results, st: _Stats, run: _Run, ctx) -> None:
@@ -1026,6 +1354,9 @@ def _decode_group(pend, results, st: _Stats, run: _Run, ctx) -> None:
         rows = o[row:row + n_w]
         ch = _layout.split_packed(rows, confidence=conf_device)
         row += n_w
+        if item.tenant is not None:
+            # the tenancy column's decode end: packed equals decoded
+            st.bucket("tenant_windows_decoded", item.tenant, float(n_w))
         out_eps = prep["out_eps"]
         in_ids = prep["in_cols"].ids.tolist()
         n_in = prep["n_in"]

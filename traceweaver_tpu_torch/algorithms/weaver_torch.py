@@ -584,7 +584,15 @@ class EndpointIds:
 
 @dataclass
 class PackedProblem:
-    """Dense window tensors (numpy) + the id maps to decode device output."""
+    """Dense window tensors (numpy) + the id maps to decode device output.
+
+    ``devcols`` (the fleet's device-resident path) replaces the six big
+    window tensors with ring-slot index arrays and the owning column
+    rings (:class:`~traceweaver_tpu_torch.ops.devcols.ColumnRing`): the window
+    tensors are gathered on the device
+    (:func:`traceweaver_tpu_torch.ops.devcols.assemble_windows`) and
+    never exist in host memory; ``arrays`` then holds only the skip and
+    force tensors and the problem tables."""
 
     arrays: Dict[str, np.ndarray]
     out_eps: List[str]
@@ -592,9 +600,12 @@ class PackedProblem:
     in_ids: np.ndarray
     out_ids: List[EndpointIds]
     n_in: int
+    devcols: Optional[Dict] = None
 
     @property
     def M(self) -> int:
+        if self.devcols is not None:
+            return int(self.devcols["out_idx"].shape[2])
         return int(self.arrays["out_start"].shape[2])
 
     def out_id_array(self, e: int) -> np.ndarray:
@@ -797,6 +808,124 @@ def pack_problem(
     return PackedProblem(arrays=arrays, out_eps=out_eps, windows=windows,
                          in_ids=in_cols.ids, out_ids=out_ids,
                          n_in=len(in_cols))
+
+
+def _pack_problem_devcols(
+    in_spans: List[Span],
+    out_span_partitions: Dict[str, List[Span]],
+    out_eps: List[str],
+    dists: Dict[Tuple[str, str], EdgeDist],
+    in_ep: str,
+    dag: Optional[DAG],
+    in_slots: np.ndarray,
+    out_slots: Dict[str, np.ndarray],
+    ring_in,
+    ring_out,
+    force_skip_ids: Optional[Dict[str, set]] = None,
+    max_window: int = DEFAULT_MAX_WINDOW,
+    parallel: bool = False,
+    windows: Optional[List[Tuple[int, int]]] = None,
+    pad_w: Optional[int] = None,
+    pad_b: Optional[int] = None,
+    pad_m: Optional[int] = None,
+    pad_e: Optional[int] = None,
+    ranges: Optional[np.ndarray] = None,
+    skip_caps: Optional[np.ndarray] = None,
+    in_cols: Optional[SpanArray] = None,
+    out_cols: Optional[Dict[str, SpanArray]] = None,
+) -> PackedProblem:
+    """The device-resident body of :func:`pack_problem` (the fleet's
+    ``devcols`` path; the JAX package's ``_pack_problem_devcols``): the
+    same windows, candidate ranges, skip caps, id maps and problem
+    tables, but in place of the six dense window tensors it emits int32
+    ring-slot index arrays (``in_idx [B, W]``, ``out_idx [B, E, M]``, -1
+    for no span) and each window's origin relative to each ring's epoch;
+    the window tensors are gathered on the device at dispatch.
+
+    ``in_slots`` / ``out_slots[ep]`` map each sorted partition position
+    to its live ring slot (the slots of :meth:`ColumnRing.resolve`),
+    resolved by the caller before packing."""
+    E = len(out_eps)
+    E_pad = max(E, pad_e or E)
+    if in_cols is None:
+        in_cols = in_columns(in_spans)
+    if out_cols is None:
+        out_cols = out_columns(out_span_partitions, out_eps)
+    if windows is None:
+        windows = perfect_cut_windows_cols(in_cols, max_window)
+    n_windows = len(windows)
+    B = _bucket(max(n_windows, pad_b or 1), minimum=1)
+    W = _bucket(max(max(hi - lo for lo, hi in windows), pad_w or 1))
+
+    if ranges is None:
+        out_starts_np = {ep: out_cols[ep].start for ep in out_eps}
+        ranges = candidate_ranges(in_cols, windows, out_eps, out_starts_np)
+    M = _bucket(max(int((ranges[:, :, 1] - ranges[:, :, 0]).max(initial=1)),
+                    pad_m or 1))
+
+    skip_cap = np.zeros((B, E_pad), dtype=np.float32)
+    force_skip = np.zeros((B, E_pad, W), dtype=bool)
+    in_idx = np.full((B, W), -1, dtype=np.int32)
+    out_idx = np.full((B, E_pad, M), -1, dtype=np.int32)
+    origin_in = np.zeros(B, dtype=np.int32)
+    origin_out = np.zeros(B, dtype=np.int32)
+
+    los = np.fromiter((lo for lo, _ in windows), np.int64, n_windows)
+    his = np.fromiter((hi for _, hi in windows), np.int64, n_windows)
+    n_w = his - los
+    origins = in_cols.start[los]
+    origin_in[:n_windows] = ring_in.rel32(origins)
+    origin_out[:n_windows] = ring_out.rel32(origins)
+
+    jw = np.arange(W)
+    w_valid = jw[None, :] < n_w[:, None]
+    w_src = np.where(w_valid, los[:, None] + jw[None, :], 0)
+    in_idx[:n_windows][w_valid] = in_slots[w_src][w_valid]
+
+    jm = np.arange(M)
+    r0 = ranges[:, :, 0]
+    m_w = ranges[:, :, 1] - r0
+    out_ids: List[EndpointIds] = []
+    for e, ep in enumerate(out_eps):
+        cols = out_cols[ep]
+        c_valid = jm[None, :] < m_w[:, e][:, None]
+        c_src = np.where(c_valid, r0[:, e][:, None] + jm[None, :], 0)
+        out_idx[:n_windows, e][c_valid] = out_slots[ep][c_src][c_valid]
+        r0_pad = np.zeros(B, dtype=np.int64)
+        cnt_pad = np.zeros(B, dtype=np.int64)
+        r0_pad[:n_windows] = r0[:, e]
+        cnt_pad[:n_windows] = m_w[:, e]
+        out_ids.append(EndpointIds(cols.ids, r0_pad, cnt_pad, M))
+
+    if skip_caps is not None:
+        skip_cap[:n_windows, :E] = skip_caps
+    else:
+        skip_cap[:n_windows, :E] = np.maximum(n_w[:, None] - m_w, 0)
+
+    if force_skip_ids:
+        in_ids_arr = in_cols.ids
+        for e, ep in enumerate(out_eps):
+            fs = force_skip_ids.get(ep, set())
+            if not fs:
+                continue
+            for b in range(n_windows):
+                lo, hi = int(los[b]), int(his[b])
+                mask = np.fromiter((i in fs for i in in_ids_arr[lo:hi]),
+                                   bool, hi - lo)
+                n_forced = int(mask.sum())
+                if n_forced:
+                    force_skip[b, e, :hi - lo] = mask
+                skip_cap[b, e] = max(skip_cap[b, e], n_forced)
+
+    arrays = dict(
+        skip_cap=skip_cap, force_skip=force_skip,
+        **_problem_tables(out_eps, E_pad, dists, in_ep, dag, parallel),
+    )
+    return PackedProblem(
+        arrays=arrays, out_eps=out_eps, windows=windows,
+        in_ids=in_cols.ids, out_ids=out_ids, n_in=len(in_cols),
+        devcols=dict(in_idx=in_idx, out_idx=out_idx, origin_in=origin_in,
+                     origin_out=origin_out, ring_in=ring_in, ring_out=ring_out))
 
 
 def plan_find_assignments(

@@ -50,9 +50,12 @@ FIX_ROOT_OPS: Dict[int, Optional[str]] = {
 }
 
 
-def _random_id(n: int = 16, suffix: str = "") -> str:
+def _random_id(n: int = 16, suffix: str = "", rng=None) -> str:
+    """A random id (the self-loop services' names), drawn from ``rng``
+    (a :class:`random.Random`) or the global RNG."""
     alphabet = string.ascii_letters + string.digits
-    return "".join(random.choice(alphabet) for _ in range(n)) + suffix
+    choice = (rng or random).choice
+    return "".join(choice(alphabet) for _ in range(n)) + suffix
 
 
 class MalformedSpan(ValueError):
@@ -148,6 +151,7 @@ def _records_to_spans(
     self_loop_map: Dict[str, List[str]],
     service_loop_map: Dict[str, str],
     alibaba: bool,
+    rng=None,
 ) -> Optional[Tuple[Dict[SpanId, Span], List[str]]]:
     """Build Span objects from one trace's records. Returns
     ``(spans, final_process_ids)`` — the per-record process ids after
@@ -190,7 +194,7 @@ def _records_to_spans(
             if rec.caller is not None and rec.caller == rec.callee:
                 sanitized = sid[:-7] if sid.endswith(".client") else sid
                 if sanitized not in self_loop_map:
-                    new_callee = _random_id(suffix="-loop")
+                    new_callee = _random_id(suffix="-loop", rng=rng)
                     self_loop_map[sanitized] = [rec.callee, new_callee]
                     service_loop_map[new_callee] = rec.callee
                 if rec.span_kind == "server":
@@ -305,6 +309,7 @@ def _assemble_trace(
     self_loop_map: Dict[str, List[str]],
     service_loop_map: Dict[str, str],
     raw_processes: Dict[str, str],
+    rng=None,
 ) -> Optional[Tuple[Dict[SpanId, Span], Dict[str, str], bool]]:
     """Post-parse pipeline for one trace: record→Span conversion, process-table construction, fix-mode repair,
     root detection. ``raw_processes`` is the file's pid→service table
@@ -314,7 +319,7 @@ def _assemble_trace(
     """
     alibaba = FIX_ROOT_OPS[fix] is None
     parsed = _records_to_spans(records, self_loop_map, service_loop_map,
-                               alibaba)
+                               alibaba, rng=rng)
     if parsed is None:
         return None
     spans, final_pids = parsed
@@ -345,6 +350,7 @@ def parse_trace_payload(
     service_loop_map: Dict[str, str],
     strict: bool = False,
     counters: Optional[Dict[str, int]] = None,
+    rng=None,
 ) -> List[Optional[Tuple[str, Dict[SpanId, Span], Dict[str, str]]]]:
     """Parse one Jaeger-JSON payload (``{"data": [...]}``), the core of
     :func:`parse_trace_file`.
@@ -355,7 +361,9 @@ def parse_trace_payload(
     Malformed span records (missing ids/refs/timestamps, non-numeric
     durations) are skipped and counted under
     ``counters["malformed_spans"]`` — a dead-letter counter, never a
-    mid-stream crash; ``strict=True`` restores the raise.
+    mid-stream crash; ``strict=True`` restores the raise. ``rng`` (a
+    :class:`random.Random`) draws the Alibaba self-loop services' ids in
+    place of the global RNG (the serve tier gives each tenant its own).
     """
     if not isinstance(payload, dict) or not isinstance(
             payload.get("data"), list):
@@ -389,7 +397,7 @@ def parse_trace_payload(
         }
         results.append(_finish_trace(trace_id, records, raw_processes, fix,
                                      self_loop_map, service_loop_map,
-                                     counters))
+                                     counters, rng=rng))
     return results
 
 
@@ -399,14 +407,14 @@ def _count(counters: Optional[Dict[str, int]], key: str) -> None:
 
 
 def _finish_trace(trace_id, records, raw_processes, fix, self_loop_map,
-                  service_loop_map, counters):
+                  service_loop_map, counters, rng=None):
     """One trace's parsed records through :func:`_assemble_trace`:
     ``(trace_id, spans, processes)``, or None for a dropped trace (an
     Alibaba-mode time-containment violation, counted apart from rootless
     traces: the file loader treats a drop as poisoning its whole file)
     or a rootless one."""
     assembled = _assemble_trace(records, fix, self_loop_map,
-                                service_loop_map, raw_processes)
+                                service_loop_map, raw_processes, rng=rng)
     if assembled is None:
         _count(counters, "dropped_traces")
         return None

@@ -1,6 +1,7 @@
 """ctypes bindings of the port's C++ Jaeger-JSON loader (mirrors
-``traceweaver_tpu/native/__init__.py``, the part ingest needs:
-``parse_files``, ``NativeCorpus``, ``root_start_time``, ``last_error``).
+``traceweaver_tpu/native/__init__.py``, the part ingest and the serve
+tier's wire parse need: ``parse_files``, ``parse_payload``,
+``NativeCorpus``, ``root_start_time``, ``last_error``).
 
 The sources are the port's own copies, ``src/loader.cc`` and
 ``src/json.hpp``. They are built at first use with ``g++ -std=c++17 -O3
@@ -84,6 +85,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.tw_last_error.restype = ctypes.c_char_p
     lib.tw_parse_files.restype = ctypes.c_void_p
     lib.tw_parse_files.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_long]
+    lib.tw_parse_payload.restype = ctypes.c_void_p
+    lib.tw_parse_payload.argtypes = [ctypes.c_char_p, ctypes.c_long]
     lib.tw_corpus_free.argtypes = [ctypes.c_void_p]
     lib.tw_corpus_free.restype = None
     for name in ("tw_num_spans", "tw_num_traces", "tw_num_strings",
@@ -236,6 +239,22 @@ def parse_files(paths: Sequence[str]) -> NativeCorpus:
         raise NativeLoaderError(
             f"native parse of {len(paths)} file(s) failed: {last_error()}")
     return NativeCorpus(lib, handle, len(paths))
+
+
+def parse_payload(raw: bytes) -> Optional[NativeCorpus]:
+    """Parse one Jaeger-JSON POST body (bytes, the serve tier's wire path)
+    into a :class:`NativeCorpus`, malformed records flagged as
+    :func:`parse_files` flags them. None when the body is not JSON or has
+    no ``data`` array: the documented route to the Python wire parser,
+    which raises the caller's error. A failed build or ``dlopen`` raises
+    :class:`NativeLoaderError`."""
+    lib = get_lib()
+    if not raw:
+        return None
+    handle = lib.tw_parse_payload(raw, len(raw))
+    if not handle:
+        return None
+    return NativeCorpus(lib, handle, 1)
 
 
 def root_start_time(path: str) -> float:

@@ -3,7 +3,8 @@
 // Python side turns into Span objects without a Python JSON parser.
 //
 // The port's copy of the JAX package's native/src/loader.cc (its
-// tw_parse_files, tw_root_start_time and accessors), with one change: a
+// tw_parse_files, tw_parse_payload, tw_root_start_time and accessors),
+// with one change: a
 // malformed trace or span record does not fail the whole parse. It is
 // kept in the corpus with a flag (tw_trace_malformed, tw_span_malformed),
 // so the Python side skips and counts it, or raises under --strict,
@@ -260,6 +261,30 @@ tw::Corpus* tw_parse_files(const char* const* paths, long n) {
       tw::extract_trace(trace, static_cast<int>(i), corpus);
     docs[i] = tw::Json();  // free the DOM as we go
   }
+  return corpus;
+}
+
+// Parse one Jaeger-JSON POST body already in memory (the serve tier's
+// accepted wire bytes) into a corpus: the extraction and interning of
+// tw_parse_files with one "file" at index 0, malformed records flagged as
+// there. Returns nullptr (see tw_last_error) when the body is not JSON or
+// has no data[] array; the Python caller then runs its own wire parser,
+// which raises the same error.
+tw::Corpus* tw_parse_payload(const char* data, long n) {
+  tw::Json doc;
+  tw::JsonParser parser(data, static_cast<size_t>(n));
+  if (!parser.parse(&doc)) {
+    tw::g_last_error = std::string("payload: ") + parser.error();
+    return nullptr;
+  }
+  const tw::Json* entries = doc.find("data");
+  if (!entries || !entries->is_arr()) {
+    tw::g_last_error = "payload: no data[] array";
+    return nullptr;
+  }
+  auto* corpus = new tw::Corpus();
+  corpus->intern("");
+  for (const tw::Json& trace : entries->arr) tw::extract_trace(trace, 0, corpus);
   return corpus;
 }
 

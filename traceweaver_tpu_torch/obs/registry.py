@@ -342,3 +342,89 @@ def stream_families(registry: Optional[MetricsRegistry] = None) -> Dict[str, _Fa
             "micro-batch watchdog outcomes (timeouts/retries/poisoned windows)",
             labels=("outcome",)),
     )
+
+
+def serve_families(registry: Optional[MetricsRegistry] = None) -> Dict[str, _Family]:
+    """The serve tier's families (declared in the JAX package's
+    ``serve/tenancy.py``, ``serve/continuous.py``, ``serve/http.py``,
+    ``stream/wal.py``'s callers, ``ingest/wire.py`` and
+    ``ops/devcols.py``), keyed by their role: ``tenant_ledger`` (every
+    per-tenant counter bump), ``pump`` (the service's pump and ring
+    ledger), ``dispatcher_degraded`` (1 while the continuous dispatcher is
+    dead and serving runs the fixed pump), ``wire_ingest`` (span POSTs by
+    parse path), ``wire_engine`` (columnar payloads by parse engine),
+    ``inflight`` (dispatch-ring tickets outstanding), ``overlap``
+    (percent of ring dispatch wall that overlapped another ticket),
+    ``retry_after`` (the ``Retry-After`` seconds of 429 answers),
+    ``admission`` (continuous admission outcomes), ``batch_fill``
+    (windows a continuous dispatch), ``error_body`` (error replies by
+    body source), ``ring_fill`` (a device-resident column ring's live
+    share) and ``ring_events`` (column-ring appends, re-epochs, wrap
+    gaps, rebuilds, ineligible partitions), ``tenant_windows`` (the
+    fleet's per-tenant window buckets) and ``dispatch_s`` (a group's
+    dispatch launch time)."""
+    reg = registry if registry is not None else get_registry()
+    return dict(
+        tenant_ledger=reg.counter(
+            "tw_serve_tenant_ledger_total",
+            "per-tenant serve counters mirror (posts/ingest/quarantine/...)",
+            labels=("tenant", "key")),
+        pump=reg.counter(
+            "tw_serve_pump_total",
+            "tenancy pump ledger mirror (shared/isolated solves, windows, ...)",
+            labels=("key",)),
+        dispatcher_degraded=reg.gauge(
+            "tw_serve_dispatcher_degraded",
+            "1 while the continuous dispatcher thread has crashed and serve is "
+            "degraded to the fixed inline pump"),
+        wire_ingest=reg.counter(
+            "tw_wire_ingest_total",
+            "span POSTs by parse path: columnar (ingest/wire.py) or object "
+            "(parse_trace_payload: strict mode, repair-shim fixes, converter "
+            "payloads)",
+            labels=("path",)),
+        wire_engine=reg.counter(
+            "tw_wire_parse_total",
+            "columnar wire payloads parsed, by engine (native|python)",
+            labels=("engine",)),
+        inflight=reg.gauge(
+            "tw_serve_inflight",
+            "dispatch-ring tickets currently outstanding"),
+        overlap=reg.gauge(
+            "tw_serve_overlap_pct",
+            "percent of ring device-dispatch wall that ran concurrently with "
+            "another ticket (100*(1 - union/busy))"),
+        retry_after=reg.histogram(
+            "tw_serve_retry_after_seconds",
+            "Retry-After seconds advertised on 429 backpressure responses",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)),
+        admission=reg.counter(
+            "tw_serve_admission_total",
+            "continuous-batching admission outcomes (urgent/fill/deferred "
+            "windows)",
+            labels=("outcome",)),
+        batch_fill=reg.histogram(
+            "tw_serve_dispatch_fill_windows",
+            "windows admitted per continuous dispatch"),
+        error_body=reg.counter(
+            "tw_serve_error_body_total",
+            "error replies by body source: hit = cached bytes reused, "
+            "render = json.dumps ran on the request thread",
+            labels=("event",)),
+        ring_fill=reg.gauge(
+            "tw_devcols_ring_fill",
+            "device-resident column ring occupancy (live entries / capacity)",
+            labels=("ring",)),
+        ring_events=reg.counter(
+            "tw_devcols_events_total",
+            "column-ring lifecycle events (appends/re-epochs/evictions/"
+            "ineligible batches)",
+            labels=("kind",)),
+        tenant_windows=reg.counter(
+            "tw_tenant_windows_total",
+            "per-tenant fleet window buckets (packed/redispatched/decoded)",
+            labels=("key", "tenant")),
+        dispatch_s=reg.histogram(
+            "tw_dispatch_seconds",
+            "per-group fleet dispatch launch time (host side)"),
+    )

@@ -1,5 +1,5 @@
 """The command line of the port (mirrors ``traceweaver_tpu/runtime/cli.py``,
-its batch path and its ``stream``, ``events``, ``query`` and
+its batch path and its ``stream``, ``serve``, ``events``, ``query`` and
 ``scorecard`` subcommands).
 
 The JAX CLI's 17 batch flags, so the ``exps/exp*`` argument lists run
@@ -23,12 +23,17 @@ loopback while the run lasts; 0 binds a free port) and ``--events``
         --overlap_s 4 --out traces.jsonl [--checkpoint ck.pkl] \
         [--compare_batch] [--device cpu] [--precision bf16] \
         [--selftrace journey.json]
+    python -m traceweaver_tpu_torch.runtime.cli serve --port 8321 \
+        --state-dir state/ [--resume] [--no-continuous] [--device cpu]
     python -m traceweaver_tpu_torch.runtime.cli events run.jsonl
     python -m traceweaver_tpu_torch.runtime.cli query out/e2e_....pickle
     python -m traceweaver_tpu_torch.runtime.cli scorecard --traces 32
 
-With no card and no ``--device`` the batch run and ``stream`` exit
-non-zero before loading anything. ``stream``'s ``--selftrace PATH``
+With no card and no ``--device`` the batch run, ``stream`` and
+``serve`` exit non-zero before loading anything. ``serve`` prints
+``[serve] listening on http://HOST:PORT`` once bound (``--port 0`` binds
+a free port) and drains on SIGTERM or SIGINT; the JAX CLI's persistent
+XLA cache and AOT warmup have no counterpart. ``stream``'s ``--selftrace PATH``
 (the JAX CLI's ``TW_SELFTRACE``) writes the windows' own journeys as
 Jaeger JSON when the stream drains.
 """
@@ -366,9 +371,100 @@ def stream_main(argv) -> int:
     return 0
 
 
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m traceweaver_tpu_torch.runtime.cli serve",
+        description="Multi-tenant reconstruction service: HTTP Jaeger-JSON "
+                    "span ingestion per tenant, shared fleet dispatches, live "
+                    "delay-culprit queries.")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8321,
+                   help="listen port (TW_SERVE_PORT; 0 = a free port)")
+    p.add_argument("--state-dir", default=None,
+                   help="per-tenant sinks, checkpoints and write-ahead logs; "
+                        "with --resume, existing tenants resume from them")
+    p.add_argument("--resume", action="store_true",
+                   help="resume every tenant found in --state-dir")
+    p.add_argument("--fix", type=int, default=5,
+                   help="ingest FIX mode of posted payloads (5 = Alibaba "
+                        "format, ingest every rooted trace)")
+    p.add_argument("--window_s", type=float, default=60.0)
+    p.add_argument("--overlap_s", type=float, default=5.0)
+    p.add_argument("--watermark_s", type=float, default=2.0)
+    p.add_argument("--grace_s", type=float, default=0.0)
+    p.add_argument("--max-tenants", type=int, default=100,
+                   help="tenant cap (TW_SERVE_MAX_TENANTS)")
+    p.add_argument("--strict", action="store_true",
+                   help="malformed span records -> HTTP 400 instead of the "
+                        "skip-and-count default")
+    p.add_argument("--continuous", dest="continuous", action="store_true",
+                   default=True,
+                   help="continuous-batching dispatch: event-driven admission "
+                        "with a seal-to-emit SLO (the default, "
+                        "TW_SERVE_CONTINUOUS)")
+    p.add_argument("--no-continuous", dest="continuous", action="store_false",
+                   help="the fixed threshold pump instead")
+    p.add_argument("--slo-p99-ms", type=float, default=2000.0,
+                   help="per-tenant seal-to-emit p99 SLO in ms "
+                        "(TW_SERVE_SLO_P99_MS)")
+    p.add_argument("--device", default=None,
+                   help="device of the solves (default: the CUDA card; 'cpu' "
+                        "runs the plain versions on the CPU)")
+    p.add_argument("--precision", default="f32",
+                   help="score-block precision: f32 or bf16 (TW_PRECISION)")
+    p.add_argument("--events", default=None,
+                   help="append serve, fault-ladder and SLO records to this "
+                        "JSONL file")
+    p.add_argument("--quiet", action="store_true")
+    return p
+
+
+def serve_main(argv) -> int:
+    """The ``serve`` subcommand; returns the exit code."""
+    from traceweaver_tpu_torch.algorithms.weaver_torch import resolve_device
+    from traceweaver_tpu_torch.serve import ServeConfig, TenantService, run_server
+
+    args = build_serve_parser().parse_args(argv)
+    try:
+        device = resolve_device(args.device)
+        cfg = ServeConfig(
+            window_us=args.window_s * 1e6, overlap_us=args.overlap_s * 1e6,
+            ooo_bound_us=args.watermark_s * 1e6, grace_us=args.grace_s * 1e6,
+            fix=args.fix, strict=args.strict, verbose=not args.quiet,
+            state_dir=args.state_dir, max_tenants=args.max_tenants,
+            continuous=args.continuous, slo_p99_ms=args.slo_p99_ms,
+            precision=args.precision)
+    except (ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.continuous and not args.quiet:
+        print("[serve] continuous batching: event-driven admission, seal->emit "
+              "p99 SLO %.0f ms (--no-continuous: the fixed pump)"
+              % cfg.slo_p99_ms, flush=True)
+    if args.resume:
+        if not (args.state_dir and os.path.isdir(args.state_dir)):
+            print(f"--resume: no state dir at {args.state_dir!r}", file=sys.stderr)
+            return 2
+        service = TenantService.resume(cfg, device=device)
+        if not args.quiet and service.tenants:
+            print("[serve] resumed %d tenant(s): %s"
+                  % (len(service.tenants), ", ".join(sorted(service.tenants))),
+                  flush=True)
+    else:
+        service = TenantService(cfg, device=device)
+    # /metrics is on the serve port itself, so no exporter of its own
+    _, log, _ = _obs_setup(None, args.events)
+    try:
+        run_server(service, args.host, args.port, verbose=not args.quiet)
+    finally:
+        _obs_finish(None, log)
+    return 0
+
+
 #: subcommand -> (module, function) run with the remaining arguments
 SUBCOMMANDS = {
     "stream": ("traceweaver_tpu_torch.runtime.cli", "stream_main"),
+    "serve": ("traceweaver_tpu_torch.runtime.cli", "serve_main"),
     "events": ("traceweaver_tpu_torch.obs.events", "tail_main"),
     "query": ("traceweaver_tpu_torch.query.delay_culprit", "main"),
     "scorecard": ("traceweaver_tpu_torch.metrics.scorecard", "main"),

@@ -19,7 +19,14 @@ Sites (anything else raises):
 - ``checkpoint`` — a stream checkpoint's save or load
   (:mod:`traceweaver_tpu_torch.stream.checkpoint`);
 - ``source``   — a stream source read (the streaming reconstructor's run
-  loop retries the same position).
+  loop retries the same position);
+- ``devcols``  — a device-resident column ring's resolve or a group's
+  gather from the rings (:mod:`traceweaver_tpu_torch.ops.devcols`); the
+  supervisor rebuilds the rings from their host mirrors before it
+  retries;
+- ``wal``      — a write-ahead log append (half the frame is written
+  first, a torn append whose client gets no ack) or its fsync
+  (:mod:`traceweaver_tpu_torch.stream.wal`).
 
 One seeded RNG is shared across sites, so a ``(spec, seed)`` pair gives
 one fixed draw sequence.
@@ -50,7 +57,7 @@ from typing import Dict, Optional
 import torch
 
 #: every legal injection site
-SITES = ("dispatch", "fetch", "host", "checkpoint", "source")
+SITES = ("dispatch", "fetch", "host", "checkpoint", "source", "devcols", "wal")
 
 #: what the CUDA caching allocator says when it runs out of memory
 _ALLOCATOR_OOM = "CUDA out of memory"

@@ -23,8 +23,8 @@ out-of-order stream; this package is that mode:
 - :mod:`service`: the driver that wires them and emits stitched traces.
 
 CLI: ``python -m traceweaver_tpu_torch.runtime.cli stream --source
-replay:<corpus-dir> ...``. The JAX package's write-ahead log
-(``stream/wal.py``) serves its serving layer and is not ported yet.
+replay:<corpus-dir> ...``. :mod:`wal`, the write-ahead ingest log,
+serves the serve tier (:mod:`traceweaver_tpu_torch.serve`).
 """
 
 from traceweaver_tpu_torch.stream.checkpoint import (  # noqa: F401

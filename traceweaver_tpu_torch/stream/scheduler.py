@@ -130,6 +130,22 @@ class MicroBatchScheduler:
         return list(self.pending) + list(self.spill)
 
     # -- consumer side ----------------------------------------------------
+    def take(self, bufs: List[WindowBuffer]) -> List[WindowBuffer]:
+        """Remove exactly the given buffers from the queues (identity
+        match) and return them in the given order: the serve tier's
+        admission takes the windows it picked from :meth:`ready`. Buffers
+        no longer queued (drained by a concurrent flush) are skipped, so
+        admission races solve a window at most once."""
+        chosen = {id(b): k for k, b in enumerate(bufs)}
+        taken: List[WindowBuffer] = []
+        for q in (self.pending, self.spill):
+            kept = [b for b in q if id(b) not in chosen]
+            taken.extend(b for b in q if id(b) in chosen)
+            q.clear()
+            q.extend(kept)
+        taken.sort(key=lambda b: chosen[id(b)])
+        return taken
+
     def _solve_once(self, batch: List[WindowBuffer]) -> List:
         """One solve attempt, under the watchdog when configured. The
         watchdog runs the solve on a single persistent worker thread and

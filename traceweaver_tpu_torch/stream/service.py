@@ -286,10 +286,12 @@ class StreamingReconstructor:
         return problems
 
     # -- solve ------------------------------------------------------------
-    def prepare_batch_items(self, bufs: List[WindowBuffer]):
+    def prepare_batch_items(self, bufs: List[WindowBuffer], tenant=None):
         """The fleet items of a micro-batch: ``(per_buf, items, owners)``,
         the per-window problem lists, the flat ``FleetItem`` list and each
-        item's window index."""
+        item's window index. ``tenant`` tags the items with their tenant
+        (the serve tier merges several tenants' batches into one shared
+        ``solve_fleet`` call); the stream leaves it None."""
         from traceweaver_tpu_torch.algorithms.fleet import FleetItem
 
         per_buf: List[List[_WindowProblem]] = []
@@ -303,7 +305,7 @@ class StreamingReconstructor:
                 items.append(FleetItem(
                     wp.service, {wp.in_ep: wp.in_spans}, wp.out_parts,
                     wp.truth, wp.dag, store=self.live, warm_dists=warm,
-                    in_cols=wp.in_cols, out_cols=wp.out_cols,
+                    in_cols=wp.in_cols, out_cols=wp.out_cols, tenant=tenant,
                     # the fleet's pack thread and flow workers stamp this
                     # window's self-trace through the item
                     trace_key=self._trace_key(buf.k)))

@@ -141,7 +141,7 @@ def parse_source_spec(spec: str, fix: int = 0, max_traces: int = 1000,
     if spec.startswith("collector:"):
         raise ValueError(
             f"source {spec!r}: the collector ingress (strace/eBPF capture) "
-            "is not ported yet (ROADMAP A.3, capture ingress); use "
+            "is not ported yet (ROADMAP A, capture ingress); use "
             "replay:<corpus-dir>")
     if not spec.startswith("replay:"):
         raise ValueError(
