@@ -11,6 +11,9 @@ against their plain versions.
                                              # to OUT
     python3 chip_smoke.py --stream           # only the stream phase
     python3 chip_smoke.py --serve            # only the serve phase
+    python3 chip_smoke.py --capture          # only the capture phase and
+                                             # the native schemes' check
+    python3 chip_smoke.py --adapt            # only the adapt phase
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -204,6 +207,37 @@ Phases, each of which raises on failure (non-zero exit):
    eight cold windows break exact-mass ties (ROADMAP C.3) that flip whole
    windows between any two roundings (``PERF.md`` section 6). The corpus is
    synthesized in a process of its own beside the first card phases;
+5e. capture: config ``capture-8k`` (the capture workload of
+   ``traceweaver_tpu_torch.synth.capture``: 8192 frontend -> search
+   HTTP/2 traces 10 ms apart, captured by ``strace -f -ttt`` on two hosts
+   with their own clocks, one reconnect without close at trace 4096)
+   through ``cli stream --source collector:<dir>`` on the card at
+   ``stream-cg-8k``'s geometry, clean, under ``skew:1.0:max=1`` and under
+   ``capture:0.04`` (fault seed 1; ``capture`` lines), every launch counter
+   reset just before each call and read just after: the events, windows,
+   loss counters, loss rate, re-keyed streams, confidence discount and
+   detected skew (to 1 us) must equal the JAX package's
+   (``CAPTURE_JAX``), K1 and the assembly kernel must launch in each leg,
+   and the accuracy reads JAX's within half a point where no window was
+   ill-posed, else within 7 points with >= 90% of the rows as the port's
+   CPU run's (``CAPTURE_PORT_CPU``); then the capture posted as one
+   ``{"sources": ...}`` bundle to a serve tenant over HTTP, once flushed
+   and drained and once abandoned after the ack and recovered from its
+   WAL: the sinks must be equal byte for byte (``capture-serve``). The
+   native schemes run on ``alibaba-cg-8k``'s graph 0 in a process of
+   their own beside the card phases: FCFS and vPath through
+   ``native.run_scheme`` must equal the port's Python baselines on every
+   service (``schemes``);
+5f. adapt: configs ``adapt-burst-60`` and ``adapt-burst-60x1024`` (the
+   shifted burst corpus: 60 bursts of 8 or 1024 requests 0.8 ms apart,
+   call delay 150 -> 950 us at burst 30) through ``cli stream --source
+   synth:adapt-burst...`` on the card, 1 s windows, no overlap, a 1 ms
+   bound, drift window 64, each without and with ``--adapt`` (``adapt``
+   lines: per-window accuracy, before the shift and in the last ten
+   windows, drift alerts, refits, fallbacks, the final PSI), held to the
+   JAX package's readings (``ADAPT_JAX``; at 1024 requests JAX does not
+   recover, and neither may the port); the refits' own K1 and assembly
+   launches are counted around ``maybe_adapt`` and must be more than 0;
 6. kernels: each kernel against its plain PyTorch version on the card,
    on random blocks (ragged, all-masked, padded rows, skip-heavy, tol 0
    and 1e-3; rows not a multiple of the cluster size, fewer rows than
@@ -213,8 +247,9 @@ Phases, each of which raises on failure (non-zero exit):
    chain group ([32, 1025, 2049]) and from the executor phase (the
    largest K1 block of the exp5 loop, of ground-truth-free discovery (a
    block of >= 256 windows, from the exp5 loop and ``alibaba-cg-8k``)
-   and of ``alibaba-cg-8k``, and the stream's and the serve run's
-   largest, less their ill-posed windows: windows with an
+   and of ``alibaba-cg-8k``, and the stream's, the serve run's, the
+   capture legs' and the adapt runs' largest, less their ill-posed
+   windows: windows with an
    incoming span that has no feasible child and no skip room, whose
    plans are rounding noise);
    ``two-streams``: K1 and K2 launched
@@ -225,7 +260,8 @@ Phases, each of which raises on failure (non-zero exit):
    phase ([8, 1025, 2049] and [32, 1025, 2049]) against their plain bf16
    versions under the same rule; the assembly kernel against its plain
    version on every block of the first forward and backward sweeps of
-   the slice's and the fleet's chains, at f32 and bf16 (``score-check``
+   the slice's and the fleet's chains, of the capture's clean leg and of
+   the adapt runs' refit, at f32 and bf16 (``score-check``
    lines: feasible counts and argmax exactly, the entries that differ
    and their largest difference, tolerance 1e-5 relative plus 1e-4
    absolute at f32 and one bf16 ulp at bf16); then each kernel's time,
@@ -235,7 +271,9 @@ Phases, each of which raises on failure (non-zero exit):
 
 ``--stream`` runs only the stream phase and its K1 block's check (and
 the CPU stream where the card met ill-posed windows); ``--serve`` the
-same for the serve phase.
+same for the serve phase. ``--capture`` and ``--adapt`` run only their
+phases, their K1 blocks' and assembly calls' checks, and for
+``--capture`` the native schemes' check.
 
 ``--assembly`` runs only the assembly's check and timing, on the first
 sweeps of one ``synth-async-8k`` and one ``synth-fleet-8svc`` solve,
@@ -807,6 +845,57 @@ SERVE_JAX = dict(
 # 66.24755859375; tests/test_torch_serve_cg4t.py, ROADMAP C.3), which no
 # check reads: that CPU run takes 1438 s on the card's machine
 SERVE_PORT_CPU = 96.56982421875
+# capture-8k: bench.py's capture workload (frontend -> search over HTTP/2,
+# one reconnect without close mid-capture) at 8192 traces, through
+# ``cli stream --source collector:<dir>`` at stream-cg-8k's geometry;
+# three legs under fault seed 1, as the JAX package's capture leg
+CAPTURE_TRACES = 8192
+CAPTURE_ARGS = ["--window_s", "20", "--overlap_s", "4", "--watermark_s", "2",
+                "--checkpoint_every", "10000"]
+CAPTURE_LEGS = (("clean", None), ("skew", "skew:1.0:max=1"), ("lossy", "capture:0.04"))
+CAPTURE_SERVE = dict(window_us=20e6, overlap_us=4e6, ooo_bound_us=2e6, grace_us=0.0)
+# JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config capture-8k
+CAPTURE_JAX = {
+    "clean": dict(events=24576, windows=7, accuracy=100.0, loss={}, loss_rate=0.0,
+                  rekeyed=1, skew_us={"frontend": 0.0, "search": -50.0}, conf_discount=1.0),
+    "skew": dict(events=24576, windows=7, accuracy=100.0, loss={}, loss_rate=0.0,
+                 rekeyed=1, skew_us={"frontend": 0.0, "search": -250050.0},
+                 conf_discount=1.0),
+    "lossy": dict(events=35, windows=3, accuracy=66.66666666666666,
+                  loss={"dropped_chunk": 49092, "half_open": 18}, loss_rate=0.3396,
+                  rekeyed=1, skew_us={"frontend": 0.0, "search": -50.0},
+                  conf_discount=0.6604),
+}
+# the port's CPU run of each leg (``--device cpu``, the same argv): its
+# accuracy equals JAX's; the digest of its sink's service rows
+# (:func:`sink_rows_digest`) is what the card's rows are held to where a
+# leg meets ill-posed windows. The clean and skewed legs' CPU rows are
+# the ground truth (100%); the lossy leg's three rows are kept whole
+CAPTURE_PORT_CPU = {"clean": "dfbd7c440af57817817c347330b00dc4663a2031", "skew": "70baebcdad3eec918593c5ba01a576bac0a1c734", "lossy": "a592c2f344a3504c1f74d8e7520995e4822144b1"}
+CAPTURE_LOSSY_CPU_ROWS = [[107624999, {"frontend": {"search": []}}], [107625000, {"frontend": {"search": [[["t0000", "frontend/7.0.1s"], ["t0000", "frontend/9.0.1c"]], [["t0001", "frontend/7.0.3s"], ["t0001", "frontend/9.0.3c"]], [["t0002", "frontend/7.0.5s"], ["Skip", "Skip"]]]}}], [107625002, {}]]
+# adapt-burst: bench.py's shifted burst corpus through ``cli stream``
+# with and without ``--adapt`` (1 s windows, no overlap, a 1 ms bound,
+# drift window 64); 60 bursts, the shift at 30, 8 or 1024 requests a burst
+ADAPT_ARGS = ["--window_s", "1", "--overlap_s", "0", "--watermark_s", "0.001",
+              "--conf_drift_window", "64", "--checkpoint_every", "10000"]
+ADAPT_CONFIGS = (("adapt-burst-60", 8), ("adapt-burst-60x1024", 1024))
+ADAPT_SHIFT, ADAPT_TAIL = 30, 10
+# JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config adapt-burst-60
+# [--n_req 1024]; the port's CPU runs read the same windows. At 1024
+# requests a burst JAX does not recover: the aliased assignment is as
+# confident as the right one, so no PSI excursion and no refit
+_DEGRADED = [1.0] * 30 + [0.0] * 30
+ADAPT_JAX = {
+    ("adapt-burst-60", False): dict(window_acc=_DEGRADED, drift_alerts=2, refits=0,
+                                    fallbacks=0, final_psi=0.1304068447400635),
+    ("adapt-burst-60", True): dict(window_acc=[1.0] * 30 + [0.0] * 15 + [1.0] * 15,
+                                   drift_alerts=2, refits=1, fallbacks=0,
+                                   final_psi=0.1304068447400635),
+    ("adapt-burst-60x1024", False): dict(window_acc=_DEGRADED, drift_alerts=0, refits=0,
+                                         fallbacks=0, final_psi=0.0),
+    ("adapt-burst-60x1024", True): dict(window_acc=_DEGRADED, drift_alerts=0, refits=0,
+                                        fallbacks=0, final_psi=0.0),
+}
 # discovery solves a service's every window in a few launches; the
 # flagship's fleet blocks hold tens of windows
 DISCOVERY_MIN_WINDOWS = 256
@@ -4035,6 +4124,461 @@ def ladder_main(card, out) -> None:
         raise AssertionError("; ".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# capture-8k and adapt-burst: capture ingress and the drift-to-adapt ladder
+# ---------------------------------------------------------------------------
+
+def sink_rows(path):
+    """A stream sink's service rows: ``[(window, services), ...]``."""
+    with open(path) as f:
+        return [(r["window"], r["services"]) for r in map(json.loads, f)]
+
+
+def sink_rows_digest(rows) -> str:
+    import hashlib
+
+    return hashlib.sha1(json.dumps(rows, sort_keys=True).encode()).hexdigest()
+
+
+def _row_pairs(rows):
+    """``{(window, service, endpoint, in id): out id}`` of sink rows."""
+    return {(w, svc, ep, tuple(i)): tuple(o) for w, services in rows
+            for svc, eps in services.items() for ep, pairs in eps.items()
+            for i, o in pairs}
+
+
+@contextlib.contextmanager
+def assembly_capture_first(kept, n_calls=ASSEMBLY_CALLS):
+    """:func:`assembly_capture` for paths whose block shapes are not
+    known in advance: the first ``n_calls`` calls of the first thread and
+    window shape the path assembles (not the GEMM form)."""
+    import traceweaver_tpu_torch.algorithms.weaver_torch as wt
+
+    real, lock, owner = wt.assemble_block, threading.Lock(), []
+
+    def keep(*args, precision="f32", gemm=False):
+        key = (threading.get_ident(), tuple(args[4].shape), args[7].shape[1])
+        with lock:
+            if not gemm and len(kept) < n_calls and (not owner or owner[0] == key):
+                owner[:] = [key]
+                kept.append(args)
+        return real(*args, precision=precision, gemm=gemm)
+
+    wt.assemble_block = keep
+    try:
+        yield kept
+    finally:
+        wt.assemble_block = real
+
+
+def _cli_stream(argv, keep):
+    """``cli.main(["stream", ...])`` in this process, output captured;
+    appends ``(service, summary)`` to ``keep``. Returns what it printed."""
+    import io
+
+    from traceweaver_tpu_torch.runtime import cli
+    from traceweaver_tpu_torch.stream import StreamingReconstructor
+
+    real_run = StreamingReconstructor.run
+
+    def keep_service(self, *args, **kw):
+        keep.append((self, real_run(self, *args, **kw)))
+        return keep[-1][1]
+
+    StreamingReconstructor.run = keep_service
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            rc = cli.main(["stream", *argv])
+    finally:
+        StreamingReconstructor.run = real_run
+    if rc != 0:
+        raise AssertionError(f"cli stream {argv} exited {rc}: {printed.getvalue()[-2000:]}")
+    return printed.getvalue()
+
+
+def _add(total, counts):
+    for k in ("fused_assign", "assemble_block"):
+        total[k] = total.get(k, 0) + counts.get(k, 0)
+
+
+def capture_phase(card, root):
+    """Config ``capture-8k``: the capture workload's strace logs (two
+    hosts, one clock each) through ``cli stream --source
+    collector:<dir>`` on the card, clean, under ``skew:1.0:max=1`` and
+    under ``capture:0.04`` (fault seed 1), every launch counter reset
+    just before each call and read just after; then the same capture
+    posted as one ``{"sources": ...}`` bundle to a serve tenant over
+    HTTP, abandoned after the ack (no drain, no checkpoint) and recovered
+    from its WAL, whose sink must equal an uninterrupted tenant's byte
+    for byte. Each leg's events, windows, loss counters, loss rate,
+    detected skew (to 1 us), re-keyed streams and confidence discount
+    must equal the JAX package's (``CAPTURE_JAX``); its accuracy reads
+    JAX's within half a point where no window was ill-posed, else within
+    ``ILL_POSED_MAX_PT`` with >= ``ILL_POSED_MIN_PAIRS`` of its rows as
+    the port's CPU run's (``CAPTURE_PORT_CPU``). Returns the launches, the
+    largest K1 block and the first assembly calls."""
+    import torch
+
+    from traceweaver_tpu_torch.synth.capture import capture_workload
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    logs = capture_workload(CAPTURE_TRACES)
+    d = os.path.join(root, "capture-logs")
+    os.makedirs(d, exist_ok=True)
+    for name, text in logs.items():
+        with open(os.path.join(d, f"{name}.log"), "w") as f:
+            f.write(text)
+    gen_s = time.perf_counter() - t0
+    n_lines = sum(text.count("\n") + 1 for text in logs.values())
+    launches, captured, calls, failed = {}, {}, [], []
+    for leg, spec in CAPTURE_LEGS:
+        sink = os.path.join(root, f"capture-{leg}.jsonl")
+        argv = (["--source", f"collector:{d}", *CAPTURE_ARGS, "--out", sink]
+                + (["--faults", spec, "--faults_seed", "1"] if spec else []))
+        runs, ill, c = [], {}, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with assembly_capture_first(calls if leg == "clean" else []):
+            printed, _, _, _ = drive(lambda: _cli_stream(argv, runs), True, captured,
+                                     largest=True, ill=ill, counts=c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        ((svc, s),) = runs
+        cap = s["capture"]
+        rows = sink_rows(sink)
+        confs, discount = [], None
+        with open(sink) as f:
+            for rec in map(json.loads, f):
+                tw = rec.get("tw.confidence") or {}
+                confs += [t["conf"] for t in (tw.get("traces") or {}).values() if t]
+                if tw.get("capture") is not None:
+                    discount = tw["capture"]["discount"]
+        want = CAPTURE_JAX[leg]
+        skews = [v for v in cap.get("skew_us", {}).values() if v]
+        line = dict(
+            config="capture-8k", leg=leg, faults=spec, fault_seed=1 if spec else None,
+            device=s["device"], strace_lines=n_lines, events=s["consumed"],
+            windows=s["emitted_windows"], accuracy=s["accuracy"]["e2e"],
+            accuracy_jax=want["accuracy"], loss=cap["loss"], loss_rate=cap["loss_rate"],
+            rekeyed=cap["rekeyed_streams"], skew_us=cap.get("skew_us"),
+            skew_detected_us=max(skews, key=abs) if skews else None,
+            conf_mean=sum(confs) / len(confs) if confs else None, conf_discount=discount,
+            wall_s=wall, events_per_s=s["consumed"] / wall,
+            solve_s=s["stats"].get("solve_s", 0.0),
+            fused_assign_launches=c["fused_assign"],
+            assemble_block_launches=c["assemble_block"],
+            plain_assembly_on_card=c["plain_assembly_on_card"],
+            ill_posed_windows=ill["ill_posed_windows"], k1_windows=ill["windows"],
+            sink_rows_digest=sink_rows_digest(rows), peak_mem_bytes=peak,
+            generate_s=gen_s if leg == "clean" else None, card=card)
+        print("capture " + json.dumps(line), flush=True)
+        _add(launches, c)
+        tag = f"capture {leg}"
+        for key, got in (("events", line["events"]), ("windows", line["windows"]),
+                         ("loss", line["loss"]), ("loss_rate", line["loss_rate"]),
+                         ("rekeyed", line["rekeyed"]), ("conf_discount", discount)):
+            if got != want[key]:
+                failed.append(f"{tag}: {key} {got} != JAX {want[key]}")
+        for src, off in want["skew_us"].items():
+            if abs(cap["skew_us"].get(src, 0.0) - off) > 1.0:
+                failed.append(f"{tag}: skew of {src} {cap['skew_us'].get(src)} us is not "
+                              f"within 1 us of JAX's {off}")
+        if c["fused_assign"] <= 0 or c["assemble_block"] <= 0:
+            failed.append(f"{tag}: K1 {c['fused_assign']} and the assembly kernel "
+                          f"{c['assemble_block']} launches")
+        if c["plain_assembly_on_card"]:
+            failed.append(f"{tag}: the assembly's plain version ran on the card")
+        if "[stream] capture:" not in printed:
+            failed.append(f"{tag}: cli stream printed no capture line")
+        acc = line["accuracy"]
+        if ill["ill_posed_windows"] == 0:
+            if abs(acc - want["accuracy"]) > 0.5:
+                failed.append(f"{tag}: {acc} is not within 0.5 pt of JAX {want['accuracy']}")
+        else:
+            # the CPU run's rows: kept whole for the lossy leg, the ground
+            # truth (a call carries its request's trace id) for the others
+            same = line["sink_rows_digest"] == CAPTURE_PORT_CPU[leg]
+            got = _row_pairs(rows)
+            if leg == "lossy":
+                ref = _row_pairs(CAPTURE_LOSSY_CPU_ROWS)
+                hits = [got.get(k) == v for k, v in ref.items()]
+            else:
+                hits = [v[0] == k[3][0] for k, v in got.items()]
+            pairs = 1.0 if same else sum(hits) / max(1, len(hits))
+            print("capture-card-vs-cpu " + json.dumps(dict(
+                leg=leg, ill_posed_windows=ill["ill_posed_windows"], rows_equal=same,
+                card_vs_cpu_pairs=pairs, card=card)), flush=True)
+            if abs(acc - want["accuracy"]) > ILL_POSED_MAX_PT or pairs < ILL_POSED_MIN_PAIRS:
+                failed.append(f"{tag}: {acc} vs JAX {want['accuracy']}, {pairs} of the rows "
+                              f"as the CPU run's, with ill-posed windows")
+    if failed:
+        raise AssertionError("capture: " + "; ".join(failed))
+    serve_s = capture_serve_leg(logs, root, card, launches)
+    print(f"capture-phase: {time.perf_counter() - t_phase:.3f} s wall "
+          f"(serve leg {serve_s:.3f} s)", flush=True)
+    return launches, captured["block"], calls
+
+
+def capture_serve_leg(logs, root, card, launches):
+    """The capture posted as one ``{"sources": ...}`` bundle to tenant
+    ``cap`` of an in-process serve tier (``make_server``, the serve CLI's
+    fixed pump) over HTTP: once flushed and drained, once abandoned right
+    after the ack (its files closed, no drain, no checkpoint) and
+    recovered by ``TenantService.resume`` from the WAL, then flushed and
+    drained. The two sinks must be equal byte for byte, with the WAL's
+    ``capture`` record replayed and no replay error."""
+    import torch
+
+    from traceweaver_tpu_torch.serve import ServeConfig, TenantService, make_server
+
+    body = json.dumps({"sources": logs}).encode()
+
+    def cfg(state):
+        return ServeConfig(state_dir=state, continuous=False, verbose=False,
+                           **CAPTURE_SERVE)
+
+    def post(svc):
+        server = make_server(svc, port=0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            code, out, _ = _http("POST", f"http://127.0.0.1:{server.port}"
+                                 "/api/v1/tenants/cap/capture", body)
+        finally:
+            server.shutdown()
+            server.server_close()
+        if code != 200:
+            raise AssertionError(f"capture serve: POST answered {code} {out[:300]!r}")
+        return json.loads(out)
+
+    t0 = time.perf_counter()
+    whole = os.path.join(root, "capture-serve-whole")
+    svc = TenantService(cfg(whole))
+    ack, c = None, {}
+
+    def run_whole():
+        nonlocal ack
+        ack = post(svc)
+        svc.flush("cap")
+        svc.drain()
+
+    drive(run_whole, True, counts=c)
+    _add(launches, c)
+    killed = os.path.join(root, "capture-serve-killed")
+    svc_k = TenantService(cfg(killed))
+    post(svc_k)
+    for t in svc_k.tenants.values():  # abandoned: nothing drained or checkpointed
+        t.close()
+    resumed = TenantService.resume(cfg(killed))
+    t = resumed.tenants["cap"]
+    replayed, errors = t.counters.get("wal_replayed", 0), t.counters.get("wal_replay_errors", 0)
+    resumed.flush("cap")
+    resumed.drain()
+    torch.cuda.synchronize()
+    with open(os.path.join(whole, "cap", "traces.jsonl"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(killed, "cap", "traces.jsonl"), "rb") as f:
+        got = f.read()
+    wall = time.perf_counter() - t0
+    print("capture-serve " + json.dumps(dict(
+        config="capture-8k", bundle_bytes=len(body), ack=ack, wal_replayed=replayed,
+        wal_replay_errors=errors, sink_bytes=len(want), sink_identical=got == want,
+        fused_assign_launches=c["fused_assign"],
+        assemble_block_launches=c["assemble_block"], wall_s=wall, card=card)), flush=True)
+    if got != want or replayed != 1 or errors or not want:
+        raise AssertionError(f"capture serve: recovered sink equal {got == want} "
+                             f"({len(got)} of {len(want)} bytes), WAL replayed {replayed}, "
+                             f"errors {errors}")
+    if c["fused_assign"] <= 0 or c["assemble_block"] <= 0:
+        raise AssertionError(f"capture serve: launches {c}")
+    return wall
+
+
+def adapt_phase(card, root):
+    """Configs ``adapt-burst-60`` and ``adapt-burst-60x1024`` through
+    ``cli stream --source synth:adapt-burst...`` on the card, each without
+    and with ``--adapt``, every launch counter reset just before each call
+    and read just after, and the refit's own launches counted around
+    ``maybe_adapt``. Per-window accuracy (the JAX package's grading of the
+    sink) before the shift and in the tail, drift alerts, refits,
+    fallbacks and the final PSI are held to JAX's (``ADAPT_JAX``): with no
+    ill-posed window the windows equal JAX's and the pre-shift and tail
+    accuracies read within half a point, with some within
+    ``ILL_POSED_MAX_PT`` and >= ``ILL_POSED_MIN_PAIRS`` of the windows
+    equal (the port's CPU runs read JAX's windows). ``adapt-burst-60`` with
+    ``--adapt`` must raise a drift alert and land a refit that launched K1
+    and the assembly kernel. Returns the launches (and the refit's), the
+    largest K1 block and the refit's first assembly calls."""
+    import torch
+
+    import traceweaver_tpu_torch.stream.service as S
+    from traceweaver_tpu_torch.ops import cuda_sinkhorn as K
+    from traceweaver_tpu_torch.ops import scores as SC
+    from traceweaver_tpu_torch.synth.capture import adapt_window_accuracies
+
+    t_phase = time.perf_counter()
+    launches, refit_launches, captured, calls, failed = {}, {}, {}, [], []
+    real_adapt = S.StreamingReconstructor.maybe_adapt
+
+    def counted_adapt(self):
+        before = (K.LAUNCHES["fused_assign"], SC.LAUNCHES["assemble_block"])
+        with assembly_capture_first(calls):
+            n = real_adapt(self)
+        if n:
+            refit_launches["fused_assign"] = refit_launches.get("fused_assign", 0) + \
+                K.LAUNCHES["fused_assign"] - before[0]
+            refit_launches["assemble_block"] = refit_launches.get("assemble_block", 0) + \
+                SC.LAUNCHES["assemble_block"] - before[1]
+            refit_launches["refits"] = refit_launches.get("refits", 0) + n
+        return n
+
+    for config, n_req in ADAPT_CONFIGS:
+        for adapt_on in (False, True):
+            sink = os.path.join(root, f"{config}-{int(adapt_on)}.jsonl")
+            argv = ["--source", f"synth:adapt-burst?n_bursts=60&shift_at={ADAPT_SHIFT}"
+                    f"&n_req={n_req}", *ADAPT_ARGS, "--out", sink] + (
+                        ["--adapt"] if adapt_on else [])
+            runs, ill, c = [], {}, {}
+            run_refits = dict(refit_launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            S.StreamingReconstructor.maybe_adapt = counted_adapt
+            try:
+                printed, _, _, _ = drive(lambda: _cli_stream(argv, runs), True, captured,
+                                         largest=True, ill=ill, counts=c)
+            finally:
+                S.StreamingReconstructor.maybe_adapt = real_adapt
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ((svc, s),) = runs
+            with open(sink) as f:
+                accs = adapt_window_accuracies(f, n_req)
+            keys = sorted(accs)
+            window_acc = [accs[k] for k in keys]
+            pre = sum(accs[k] for k in keys if k < ADAPT_SHIFT) / ADAPT_SHIFT
+            tail = sum(window_acc[-ADAPT_TAIL:]) / ADAPT_TAIL
+            want = ADAPT_JAX[(config, adapt_on)]
+            w_pre = sum(want["window_acc"][:ADAPT_SHIFT]) / ADAPT_SHIFT
+            w_tail = sum(want["window_acc"][-ADAPT_TAIL:]) / ADAPT_TAIL
+            ad = s["adapt"]
+            psi = svc.drift.last_psi("frontend")
+            line = dict(
+                config=config, adapt=adapt_on, device=s["device"], events=s["consumed"],
+                windows=len(keys), pre=pre, tail=tail, pre_jax=w_pre, tail_jax=w_tail,
+                window_acc=window_acc,
+                windows_equal_jax=sum(a == b for a, b in zip(window_acc, want["window_acc"])),
+                drift_alerts=s["confidence"]["drift_alerts"],
+                refits=ad.get("refits_done", 0), fallbacks=ad.get("fallbacks", 0),
+                actions={k: ad[k] for k in ("refits_scheduled", "refits_done",
+                                            "refits_failed", "fallbacks", "restores",
+                                            "recoveries")} if ad.get("enabled") else None,
+                final_psi=psi, final_psi_jax=want["final_psi"],
+                gauge_rearmed=psi is not None and psi <= 0.25,
+                wall_s=wall, events_per_s=s["consumed"] / wall,
+                solve_s=s["stats"].get("solve_s", 0.0),
+                fused_assign_launches=c["fused_assign"],
+                assemble_block_launches=c["assemble_block"],
+                plain_assembly_on_card=c["plain_assembly_on_card"],
+                refit_launches={k: v - run_refits.get(k, 0)
+                                for k, v in refit_launches.items()} if adapt_on else None,
+                ill_posed_windows=ill["ill_posed_windows"], k1_windows=ill["windows"],
+                card=card)
+            print("adapt " + json.dumps(line), flush=True)
+            _add(launches, c)
+            tag = f"{config} adapt={adapt_on}"
+            if c["fused_assign"] <= 0 or c["assemble_block"] <= 0 \
+                    or c["plain_assembly_on_card"]:
+                failed.append(f"{tag}: launches {c}")
+            for key in ("drift_alerts", "refits", "fallbacks"):
+                if line[key] != want[key]:
+                    failed.append(f"{tag}: {key} {line[key]} != JAX {want[key]}")
+            if ill["ill_posed_windows"] == 0:
+                if window_acc != want["window_acc"] or abs(pre - w_pre) > 0.005 \
+                        or abs(tail - w_tail) > 0.005:
+                    failed.append(f"{tag}: windows {window_acc} != JAX {want['window_acc']}")
+            elif (line["windows_equal_jax"] < ILL_POSED_MIN_PAIRS * len(keys)
+                  or abs(pre - w_pre) * 100 > ILL_POSED_MAX_PT
+                  or abs(tail - w_tail) * 100 > ILL_POSED_MAX_PT):
+                failed.append(f"{tag}: windows {window_acc} vs JAX's with ill-posed windows")
+            if adapt_on and "[stream] adapt:" not in printed:
+                failed.append(f"{tag}: cli stream printed no adapt line")
+    if refit_launches.get("refits", 0) < 1 or refit_launches.get("fused_assign", 0) <= 0 \
+            or refit_launches.get("assemble_block", 0) <= 0:
+        failed.append(f"adapt-burst-60: the refits launched {refit_launches}")
+    if failed:
+        raise AssertionError("adapt: " + "; ".join(failed))
+    print(f"adapt-phase: {time.perf_counter() - t_phase:.3f} s wall", flush=True)
+    launches["refit_fused_assign"] = refit_launches.get("fused_assign", 0)
+    launches["refit_assemble_block"] = refit_launches.get("assemble_block", 0)
+    return launches, captured["block"], calls
+
+
+def schemes_check(graph_dir, card) -> dict:
+    """The native schemes on ``alibaba-cg-8k``'s graph 0: FCFS and vPath
+    through ``native.run_scheme`` must assign every span of every
+    solvable service as the port's Python baselines do (as the JAX
+    package's ``tests/test_native.py`` holds its own). Returns the
+    ``schemes`` line."""
+    import random
+
+    import traceweaver_tpu_torch.algorithms as algos
+    from traceweaver_tpu_torch import native
+    from traceweaver_tpu_torch.ingest import build_service_problem, load_corpus
+
+    t0 = time.perf_counter()
+    random.seed(10)
+    store = load_corpus(graph_dir, fix=5, max_traces=8192, cache=False)
+    out, secs = {}, {"native": 0.0, "python": 0.0}
+    for svc in sorted(store.out_spans_by_process):
+        prob = build_service_problem(store, svc, deepcopy=False)
+        if prob.skipped:
+            continue
+        for scheme, cls in (("fcfs", "FCFS"), ("vpath", "VPath")):
+            t1 = time.perf_counter()
+            got = native.scheme_assignments(scheme, prob.in_span_partitions,
+                                            prob.out_span_partitions)
+            t2 = time.perf_counter()
+            exp = getattr(algos, cls)(store.all_spans, store.all_processes).FindAssignments(
+                cls, svc, {k: list(v) for k, v in prob.in_span_partitions.items()},
+                {k: list(v) for k, v in prob.out_span_partitions.items()}, False, [], {})
+            secs["native"] += t2 - t1
+            secs["python"] += time.perf_counter() - t2
+            out[f"{svc}/{scheme}"] = all(got[ep] == dict(exp[ep])
+                                         for ep in prob.out_span_partitions)
+    line = dict(config="alibaba-cg-8k", graph=0, equal=out, seconds=secs,
+                wall_s=time.perf_counter() - t0, card=card)
+    if not out or not all(out.values()):
+        raise AssertionError(f"schemes: native run_scheme parts from the baselines: {line}")
+    return line
+
+
+def _schemes_worker():
+    """Worker: synthesize ``alibaba-cg-8k``'s graph 0 and run
+    :func:`schemes_check` on it, off the card."""
+    sys.path.insert(0, HERE)
+    import tempfile
+
+    from traceweaver_tpu_torch.alibaba.synthesize import synthesize_corpus
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (d,) = synthesize_corpus(tmp, n_graphs=1, traces_per_graph=8192, seed=10)
+        return schemes_check(d, nvidia_smi())
+
+
+class SchemesJob(StreamRerun):
+    """:func:`_schemes_worker` in a spawned process of its own, beside the
+    card phases; :meth:`result` waits for it (it raises what failed)."""
+
+    def __init__(self):
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        self.job = self.pool.apply_async(_schemes_worker)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--slice-root", help="run only the slice and fleet phases, "
@@ -4048,6 +4592,12 @@ def main() -> int:
                     "phase (stream-cg-8k) and its K1 block's check")
     ap.add_argument("--serve", action="store_true", help="run only the serve "
                     "phase (serve-cg-4t) and its K1 block's check")
+    ap.add_argument("--capture", action="store_true", help="run only the capture "
+                    "phase (capture-8k), its K1 block's and assembly calls' checks "
+                    "and the native schemes' check")
+    ap.add_argument("--adapt", action="store_true", help="run only the adapt phase "
+                    "(adapt-burst-60, adapt-burst-60x1024) and its K1 block's and "
+                    "refit's assembly calls' checks")
     args = ap.parse_args()
 
     import torch
@@ -4105,6 +4655,19 @@ def main() -> int:
                     raise AssertionError(failed)
         print(card, flush=True)
         return 0
+    if args.capture or args.adapt:
+        with tempfile.TemporaryDirectory() as tmp:
+            if args.capture:
+                _, blk, calls = capture_phase(card, tmp)
+                check_case("capture-block", blk, 1e-3, posed_only=True)
+                assembly_check("capture-score-build", calls)
+                print("schemes " + json.dumps(_schemes_worker()), flush=True)
+            if args.adapt:
+                _, blk, calls = adapt_phase(card, tmp)
+                check_case("adapt-block", blk, 1e-3, posed_only=True)
+                assembly_check("adapt-refit-score-build", calls)
+        print(card, flush=True)
+        return 0
     if args.slice_root:
         print(f"package: {os.path.dirname(os.path.dirname(K.__file__))}", flush=True)
         _, real_block, _, _ = slice_phase(card)
@@ -4134,6 +4697,7 @@ def main() -> int:
         stream_rerun_any = later.enter_context(StreamRerun(None))
         serve_rerun_any = later.enter_context(ServeRerun(None))
         serve_corpus = later.enter_context(SynthJob(os.path.join(tmp, "serve")))
+        schemes_job = later.enter_context(SchemesJob())
         launches, real_block, slice_sweep, slice_peak = slice_phase(card)
         fleet_launches, fleet_block, probs, fleet_wall, fleet_sweep, fleet_peak = \
             fleet_phase(card)
@@ -4161,12 +4725,19 @@ def main() -> int:
             serve_phase(card, tmp, serve_corpus)
         serve_rerun = serve_rerun_any if serve_state[2] else None
         print(f"phase-clock: serve done at {time.perf_counter() - t_smoke:.1f} s", flush=True)
+        capture_launches, executor_blocks["capture-block"], capture_calls = \
+            capture_phase(card, tmp)
+        adapt_launches, executor_blocks["adapt-block"], adapt_calls = adapt_phase(card, tmp)
+        print(f"phase-clock: capture and adapt done at {time.perf_counter() - t_smoke:.1f} s",
+              flush=True)
         scorecard_launches = scorecard_phase(card)
         K.reset_launches()
         worst, worst_bf16 = kernel_phase(real_block, fleet_block, executor_blocks,
                                          bf16_blocks)
         score_err = max(assembly_check("slice-score-build", slice_sweep),
-                        assembly_check("fleet-score-build", fleet_sweep))
+                        assembly_check("fleet-score-build", fleet_sweep),
+                        assembly_check("capture-score-build", capture_calls),
+                        assembly_check("adapt-refit-score-build", adapt_calls))
         checks = dict(K.LAUNCHES)
         timing = kernel_timing(real_block)
         fleet_timing = kernel_timing(fleet_block)
@@ -4180,6 +4751,7 @@ def main() -> int:
         rerun_checks(card, tmp, submitted, *rerun_state, ladder=ladder_reruns_needed,
                      ladder_futs=ladder_futs, stream=stream_state,
                      stream_rerun=stream_rerun, serve=serve_state, serve_rerun=serve_rerun)
+        print("schemes " + json.dumps(schemes_job.result()), flush=True)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s after the build", flush=True)
     print("kernels: " + json.dumps({
         "fused_assign": launches["fused_assign"],
@@ -4196,6 +4768,12 @@ def main() -> int:
         "stream_assemble_block": stream_launches["assemble_block"],
         "serve_fused_assign": serve_launches["fused_assign"],
         "serve_assemble_block": serve_launches["assemble_block"],
+        "capture_fused_assign": capture_launches["fused_assign"],
+        "capture_assemble_block": capture_launches["assemble_block"],
+        "adapt_fused_assign": adapt_launches["fused_assign"],
+        "adapt_assemble_block": adapt_launches["assemble_block"],
+        "adapt_refit_fused_assign": adapt_launches["refit_fused_assign"],
+        "adapt_refit_assemble_block": adapt_launches["refit_assemble_block"],
         "bf16_fused_assign": bf16_launches["fused_assign"],
         "bf16_sinkhorn": bf16_launches["sinkhorn"],
         "bf16_fleet_fused_assign": bf16_launches["fleet_fused_assign"],
@@ -4220,6 +4798,9 @@ def main() -> int:
                     scorecard_launches=scorecard_launches if name == "fused_assign" else 0,
                     stream_launches=stream_launches.get(name, 0),
                     serve_launches=serve_launches.get(name, 0),
+                    capture_launches=capture_launches.get(name, 0),
+                    adapt_launches=adapt_launches.get(name, 0),
+                    adapt_refit_launches=adapt_launches.get(f"refit_{name}", 0),
                     executor_shapes={k: list(v["S"].shape)
                                      for k, v in executor_blocks.items()},
                     **fleet)
@@ -4264,6 +4845,12 @@ def main() -> int:
                                      if precision == "f32" else 0),
                     serve_launches=(serve_launches["assemble_block"]
                                     if precision == "f32" else 0),
+                    capture_launches=(capture_launches["assemble_block"]
+                                      if precision == "f32" else 0),
+                    adapt_launches=(adapt_launches["assemble_block"]
+                                    if precision == "f32" else 0),
+                    adapt_refit_launches=(adapt_launches["refit_assemble_block"]
+                                          if precision == "f32" else 0),
                     fleet_shape=fleet_score_time[precision]["shape"],
                     **{f"fleet_{k}": ft[k] for k in (
                         "ms", "plain_ms", "bound_ms", "bound_by", "launches_per_sweep")})

@@ -14,6 +14,8 @@ these numbers (minus one point). Run on the CPU:
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config stream-cg-8k
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config stream-cg-8k-batch
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config serve-cg-4t
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config capture-8k [--traces 40]
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config adapt-burst-60 [--n_req 1024]
 
 ``TW_PRECISION=bf16`` and ``TW_SCORE_GEMM=1`` in the environment give the
 JAX package's bf16 and GEMM score paths on any config.
@@ -341,6 +343,135 @@ def serve_config(out_root: str, part: str = "both") -> None:
         run("t0-alone-pump1", [0], False, pump_windows=1)
 
 
+CAPTURE_WINDOWS = dict(window_us=20e6, overlap_us=4e6, ooo_bound_us=2e6)
+CAPTURE_LEGS = (("clean", None), ("skew", "skew:1.0:max=1"), ("lossy", "capture:0.04"))
+
+
+def capture_config(n_traces: int) -> None:
+    """``capture-8k``: ``bench.py``'s capture workload at ``n_traces``
+    traces through the JAX package's collector ingress and stream, at
+    ``stream-cg-8k``'s geometry, clean, under ``skew:1.0:max=1`` and under
+    ``capture:0.04`` (fault seed 1, as ``bench.py run_capture_leg``). One
+    JSON line per leg."""
+    import tempfile
+
+    import bench
+    from traceweaver_tpu.collector.source import CollectorSource
+    from traceweaver_tpu.runtime import faults as faults_mod
+    from traceweaver_tpu.stream.service import StreamConfig, StreamingReconstructor, TraceSink
+
+    os.environ["TW_RETRY_BACKOFF_S"] = "0"
+    logs = bench._capture_workload(n_traces)
+    for leg, spec in CAPTURE_LEGS:
+        faults_mod.reset()
+        if spec:
+            with faults_mod.override(spec, seed=1):
+                src = CollectorSource(logs)
+        else:
+            src = CollectorSource(logs)
+        with tempfile.TemporaryDirectory() as tmp:
+            sink = os.path.join(tmp, "out.jsonl")
+            svc = StreamingReconstructor(src, StreamConfig(
+                checkpoint_every=10_000, verbose=False, **CAPTURE_WINDOWS),
+                sink=TraceSink(sink))
+            t0 = time.perf_counter()
+            summary = svc.run()
+            wall = time.perf_counter() - t0
+            confs, discount = [], None
+            with open(sink) as f:
+                for raw in f:
+                    tw = json.loads(raw).get("tw.confidence") or {}
+                    confs += [t["conf"] for t in (tw.get("traces") or {}).values()
+                              if t is not None]
+                    if tw.get("capture") is not None:
+                        discount = tw["capture"]["discount"]
+        q = summary.get("capture", {})
+        skews = [v for v in q.get("skew_us", {}).values() if v]
+        print(json.dumps(dict(
+            config="capture-8k", traces=n_traces, leg=leg, faults=spec,
+            events=len(src), windows=summary["emitted_windows"],
+            spans_emitted=int(summary["stats"].get("spans_emitted", 0)),
+            late_rerouted=summary["late_rerouted"], late_dropped=summary["late_dropped"],
+            accuracy=summary["accuracy"]["e2e"],
+            per_service=summary["accuracy"]["per_service"],
+            loss=q.get("loss", {}), loss_rate=q.get("loss_rate"),
+            rekeyed=q.get("rekeyed_streams"), skew_us=q.get("skew_us"),
+            skew_detected_us=max(skews, key=abs) if skews else None,
+            conf_mean=sum(confs) / len(confs) if confs else None,
+            conf_discount=discount, wall_s=wall, backend=jax.default_backend())),
+            flush=True)
+    faults_mod.reset()
+
+
+def adapt_config(n_bursts: int, n_req: int) -> None:
+    """``adapt-burst-60`` (``n_req`` 8, ``bench.py run_adapt_leg``'s
+    recorded leg) and ``adapt-burst-60x1024``: the shifted burst corpus
+    through the JAX package's stream with ``TW_ADAPT`` 0 (control) and 1,
+    1 s windows, no overlap, a 1 ms bound, drift window 64. One JSON line
+    per run with the per-window accuracies."""
+    import tempfile
+
+    import bench
+    from traceweaver_tpu.stream.service import StreamConfig, StreamingReconstructor, TraceSink
+    from traceweaver_tpu.stream.sources import IterableSource
+
+    os.environ["TW_RETRY_BACKOFF_S"] = "0"
+    os.environ["TW_CONF_DRIFT_WINDOW"] = "64"
+    shift_at = max(4, n_bursts // 2)
+    tail_n = max(6, n_bursts // 6)
+    for adapt_on in (False, True):
+        os.environ["TW_ADAPT"] = "1" if adapt_on else "0"
+        events, _ = bench._adapt_burst_events(n_bursts, shift_at, n_req=n_req)
+        with tempfile.TemporaryDirectory() as tmp:
+            sink = os.path.join(tmp, "out.jsonl")
+            svc = StreamingReconstructor(IterableSource(events), StreamConfig(
+                window_us=1e6, overlap_us=0.0, ooo_bound_us=1e3,
+                checkpoint_every=10_000, verbose=False), sink=TraceSink(sink))
+            t0 = time.perf_counter()
+            summary = svc.run()
+            wall = time.perf_counter() - t0
+            with open(sink) as f:
+                lines = f.readlines()
+        accs = _adapt_accs(lines, n_req)
+        keys = sorted(accs)
+        pre = [accs[k] for k in keys if k < shift_at]
+        tail = [accs[k] for k in keys[-tail_n:]]
+        psi = svc.drift.last_psi("frontend") if svc.drift else None
+        ad = summary["adapt"]
+        print(json.dumps(dict(
+            config="adapt-burst-%d%s" % (n_bursts, "" if n_req == 8 else "x%d" % n_req),
+            adapt=adapt_on, events=len(events), windows=len(accs),
+            window_acc=[accs[k] for k in keys],
+            pre=sum(pre) / len(pre) if pre else None,
+            tail=sum(tail) / len(tail) if tail else None,
+            drift_alerts=summary["confidence"]["drift_alerts"],
+            refits=ad.get("refits_done", 0), fallbacks=ad.get("fallbacks", 0),
+            actions={k: ad[k] for k in ("refits_scheduled", "refits_done",
+                                        "refits_failed", "fallbacks", "restores",
+                                        "recoveries")} if ad.get("enabled") else None,
+            final_psi=psi, wall_s=wall, backend=jax.default_backend())), flush=True)
+
+
+def _adapt_accs(lines, n_req):
+    """Per-window accuracy of an adapt-burst sink (``bench.py``'s grading)."""
+    skip_sid = "r%02d" % (n_req - 1)
+    accs = {}
+    for line in lines:
+        rec = json.loads(line)
+        rows = rec.get("services", {}).get("frontend", {}).get("search", [])
+        if not rows:
+            continue
+        ok = 0
+        for in_id, out_id in rows:
+            is_real = isinstance(out_id, list) and str(out_id[0]).startswith("b")
+            if in_id[0].endswith(skip_sid):
+                ok += not is_real
+            else:
+                ok += is_real and out_id[0] == in_id[0]
+        accs[rec["window"]] = ok / len(rows)
+    return accs
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="synth-async-8k",
@@ -348,12 +479,15 @@ def main() -> None:
                              "alibaba-exp5-15000", "alibaba-cg-8k",
                              "alibaba-exp5-gtfree", "alibaba-cg-8k-gtfree",
                              "alibaba-exp5-ladder", "alibaba-exp5-ladder-hard",
-                             "stream-cg-8k", "stream-cg-8k-batch", "serve-cg-4t"))
+                             "stream-cg-8k", "stream-cg-8k-batch", "serve-cg-4t",
+                             "capture-8k", "adapt-burst-60"))
     ap.add_argument("--part", default="both", choices=("both", "shared", "alone", "alone1"),
                     help="serve-cg-4t: the shared run, t0 alone under the pump of "
                          "eight windows or of one, or all three")
     ap.add_argument("--traces", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n_req", type=int, default=8,
+                    help="adapt-burst-60: requests a burst (1024: adapt-burst-60x1024)")
     ap.add_argument("--out", default=None,
                     help="corpus directory of the alibaba configs "
                          "(default: a temporary one)")
@@ -362,6 +496,12 @@ def main() -> None:
     ap.add_argument("--rungs", default=None,
                     help="comma-separated compress factors of a ladder config")
     args = ap.parse_args()
+    if args.config == "capture-8k":
+        capture_config(args.traces)
+        return
+    if args.config == "adapt-burst-60":
+        adapt_config(60, args.n_req)
+        return
     if args.config.startswith(("alibaba", "stream", "serve")):
         import tempfile
 

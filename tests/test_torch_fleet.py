@@ -570,7 +570,7 @@ def test_parse_faults_rejects_bad_specs():
     assert tfaults.parse_faults("") is None
     plan = tfaults.parse_faults("fetch:0.5:max=2", seed=3)
     assert plan.sites["fetch"].max == 2 and plan.seed == 3
-    for bad in ("dispatch", "capture:0.1", "dispatch:2", "dispatch:0.1:min=1",
+    for bad in ("dispatch", "migrate:0.1", "dispatch:2", "dispatch:0.1:min=1",
                 "host:0.1,host:0.2"):
         with pytest.raises(ValueError):
             tfaults.parse_faults(bad)

@@ -99,6 +99,22 @@ MIRRORS = {
     "traceweaver_tpu_torch.serve.tenancy": "traceweaver_tpu/serve/tenancy.py",
     "traceweaver_tpu_torch.serve.continuous": "traceweaver_tpu/serve/continuous.py",
     "traceweaver_tpu_torch.serve.http": "traceweaver_tpu/serve/http.py",
+    "traceweaver_tpu_torch.collector": "traceweaver_tpu/collector/__init__.py",
+    "traceweaver_tpu_torch.collector._rfc7541": "traceweaver_tpu/collector/_rfc7541.py",
+    "traceweaver_tpu_torch.collector.hpack": "traceweaver_tpu/collector/hpack.py",
+    "traceweaver_tpu_torch.collector.http2": "traceweaver_tpu/collector/http2.py",
+    "traceweaver_tpu_torch.collector.strace": "traceweaver_tpu/collector/strace.py",
+    "traceweaver_tpu_torch.collector.threading_model":
+        "traceweaver_tpu/collector/threading_model.py",
+    "traceweaver_tpu_torch.collector.skew": "traceweaver_tpu/collector/skew.py",
+    "traceweaver_tpu_torch.collector.source": "traceweaver_tpu/collector/source.py",
+    "traceweaver_tpu_torch.collector.ebpf": "traceweaver_tpu/collector/ebpf.py",
+    "traceweaver_tpu_torch.collector.strace_runner":
+        "traceweaver_tpu/collector/strace_runner.py",
+    "traceweaver_tpu_torch.adapt": "traceweaver_tpu/adapt/__init__.py",
+    "traceweaver_tpu_torch.adapt.controller": "traceweaver_tpu/adapt/controller.py",
+    "traceweaver_tpu_torch.adapt.refit": "traceweaver_tpu/adapt/refit.py",
+    "traceweaver_tpu_torch.synth.capture": "bench.py",
 }
 
 
@@ -214,3 +230,25 @@ def test_bf16_refused():
     assert validate_precision("bf16") == "bf16"
     with pytest.raises(ValueError):
         validate_precision("bf61")
+
+
+def test_known_event_kinds_list_every_kind_the_port_emits():
+    """Every ``emit("<kind>", ...)`` of the port's event sink names a kind
+    that ``obs/events.py`` ``KNOWN_KINDS`` lists (``cli events --kind``'s
+    help)."""
+    import re
+
+    from traceweaver_tpu_torch.obs.events import KNOWN_KINDS
+
+    root = os.path.join(REPO, "traceweaver_tpu_torch")
+    emitted = set()
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            if f.endswith(".py"):
+                text = open(os.path.join(d, f)).read()
+                emitted |= set(re.findall(r"\bemit\(\s*\"([a-z_]+)\"", text))
+    assert {"fault_injected", "confidence_drift", "serve", "slo_breach",
+            "capture_loss", "capture_churn", "clock_skew", "adapt"} <= emitted
+    assert emitted <= set(KNOWN_KINDS), emitted - set(KNOWN_KINDS)
+    # the fleet's supervisor emits its ladder under a variable kind
+    assert "fault_ladder" in KNOWN_KINDS

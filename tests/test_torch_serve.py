@@ -342,10 +342,13 @@ def test_readyz_metrics_and_not_ported_routes(tmp_path):
         for fam in ("tw_devcols_ring_fill", "tw_serve_tenant_ledger_total",
                     'key="wal_appends"', "tw_tenant_windows_total"):
             assert fam in metrics, fam
-        for route, item in (("capture", "capture ingress"), ("migrate_out", "fleet_serve"),
-                            ("migrate_in", "fleet_serve")):
+        for route, item in (("migrate_out", "fleet_serve"), ("migrate_in", "fleet_serve")):
             code, out, _ = http("POST", base + f"/api/v1/tenants/a/{route}", {"x": 1})
             assert code == 501 and item in out["error"] and "ROADMAP" in out["error"]
+        # the capture route is ported: a JSON body without a sources
+        # bundle is the client's error
+        code, out, _ = http("POST", base + "/api/v1/tenants/a/capture", {"x": 1})
+        assert code == 400 and "sources" in out["error"]
         svc.begin_drain()
         code, out, _ = http("GET", base + "/readyz")
         assert code == 503 and out["draining"] is True

@@ -1,14 +1,17 @@
-"""ctypes bindings of the port's C++ Jaeger-JSON loader (mirrors
-``traceweaver_tpu/native/__init__.py``, the part ingest and the serve
-tier's wire parse need: ``parse_files``, ``parse_payload``,
-``NativeCorpus``, ``root_start_time``, ``last_error``).
+"""ctypes bindings of the port's C++ library (mirrors
+``traceweaver_tpu/native/__init__.py``): the Jaeger-JSON loader that
+ingest and the serve tier's wire parse need (``parse_files``,
+``parse_payload``, ``NativeCorpus``, ``root_start_time``,
+``last_error``) and the native reconstruction schemes (``run_scheme``:
+FCFS, vPath and the old vPath over packed arrays).
 
-The sources are the port's own copies, ``src/loader.cc`` and
-``src/json.hpp``. They are built at first use with ``g++ -std=c++17 -O3
--fPIC -shared -pthread`` (the JAX package's ``native/Makefile`` flags)
-into ``traceweaver_tpu_torch/_build/``, under a file name keyed by a
-digest of the sources and flags; an ``fcntl`` lock lets parallel
-processes share one build, and a thread lock guards the library handle.
+The sources are the port's own copies, ``src/loader.cc``,
+``src/schemes.cc`` and ``src/json.hpp``. They are built into one library
+at first use with ``g++ -std=c++17 -O3 -fPIC -shared -pthread`` (the JAX
+package's ``native/Makefile`` flags) into ``traceweaver_tpu_torch/_build/``,
+under a file name keyed by a digest of the sources and flags; an
+``fcntl`` lock lets parallel processes share one build, and a thread lock
+guards the library handle.
 
 Unlike the JAX module nothing here degrades quietly: a failed build, a
 failed ``dlopen`` or a parse that returns null raises
@@ -28,11 +31,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 _SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
-SOURCES = (os.path.join(_SRC_DIR, "loader.cc"), os.path.join(_SRC_DIR, "json.hpp"))
+SOURCES = (os.path.join(_SRC_DIR, "loader.cc"), os.path.join(_SRC_DIR, "json.hpp"),
+           os.path.join(_SRC_DIR, "schemes.cc"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "_build")
 CXX = "g++"
 CXX_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared", "-pthread"]
+
+#: scheme name -> the library's entry point (``src/schemes.cc``)
+SCHEMES = {"fcfs": "tw_fcfs_assign", "vpath": "tw_vpath_assign",
+           "vpath_old": "tw_vpath_old_assign"}
 
 _lock = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -66,7 +74,8 @@ def build() -> str:
             if os.path.exists(lib):
                 return lib
             tmp = f"{lib}.{os.getpid()}.tmp"
-            cmd = [CXX, *CXX_FLAGS, SOURCES[0], "-o", tmp]
+            cmd = [CXX, *CXX_FLAGS, *[p for p in SOURCES if p.endswith(".cc")],
+                   "-o", tmp]
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True,
                                       timeout=600)
@@ -115,6 +124,12 @@ def _configure(lib: ctypes.CDLL) -> None:
         fn.argtypes = [ctypes.c_void_p]
     lib.tw_root_start_time.restype = ctypes.c_double
     lib.tw_root_start_time.argtypes = [ctypes.c_char_p]
+    for name in SCHEMES.values():
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = [_c_double_p, _c_double_p, _c_int32_p, ctypes.c_long,
+                       _c_double_p, _c_double_p, _c_int32_p, _c_int32_p,
+                       ctypes.c_long, ctypes.c_long, _c_int32_p]
 
 
 def get_lib() -> ctypes.CDLL:
@@ -261,3 +276,59 @@ def root_start_time(path: str) -> float:
     """Root-span start time of a trace file (+inf when it has no rooted
     span or cannot be parsed)."""
     return get_lib().tw_root_start_time(os.fsencode(path))
+
+
+def run_scheme(name: str, in_start, in_end, in_trace, out_start, out_end,
+               out_ep, out_trace, n_eps: int) -> np.ndarray:
+    """Run a native scheme (``fcfs``, ``vpath`` or ``vpath_old``) on one
+    service's packed problem: the incoming spans' starts, ends and
+    interned trace ids, and the outgoing spans' starts, ends, endpoint
+    indices and trace ids. Returns ``assign[n_eps, n_in]``, the outgoing
+    span index assigned to each incoming span at each endpoint, or -1.
+    Unlike the JAX module's, it never returns None: a library that cannot
+    be built or loaded raises :class:`NativeLoaderError`."""
+    fn = getattr(get_lib(), SCHEMES[name])
+    f64 = [np.ascontiguousarray(a, dtype=np.float64)
+           for a in (in_start, in_end, out_start, out_end)]
+    i32 = [np.ascontiguousarray(a, dtype=np.int32) for a in (in_trace, out_ep, out_trace)]
+    n_in, n_out = len(f64[0]), len(f64[2])
+    assign = np.full((n_eps, n_in), -1, dtype=np.int32)
+    fn(f64[0].ctypes.data_as(_c_double_p), f64[1].ctypes.data_as(_c_double_p),
+       i32[0].ctypes.data_as(_c_int32_p), n_in,
+       f64[2].ctypes.data_as(_c_double_p), f64[3].ctypes.data_as(_c_double_p),
+       i32[1].ctypes.data_as(_c_int32_p), i32[2].ctypes.data_as(_c_int32_p),
+       n_out, n_eps, assign.ctypes.data_as(_c_int32_p))
+    return assign
+
+
+def scheme_assignments(name: str, in_span_partitions, out_span_partitions) -> Dict:
+    """One service's assignments by a native scheme, in the plugin
+    contract's form ``{out_ep: {in_span_id: out_span_id or NA}}``: the
+    single incoming partition and every outgoing one packed into
+    :func:`run_scheme`'s arrays (trace ids interned in order of first
+    sight, the packing ``tests/test_native.py`` uses)."""
+    from traceweaver_tpu_torch.spans import NA
+
+    (in_spans,) = in_span_partitions.values()
+    eps = list(out_span_partitions)
+    trace_ids: Dict[str, int] = {}
+
+    def tid(trace) -> int:
+        return trace_ids.setdefault(trace, len(trace_ids))
+
+    in_cols = ([float(s.start_mus) for s in in_spans],
+               [float(s.end_mus) for s in in_spans],
+               [tid(s.trace_id) for s in in_spans])
+    out_start, out_end, out_ep, out_trace, out_ids = [], [], [], [], []
+    for e, ep in enumerate(eps):
+        for s in out_span_partitions[ep]:
+            out_start.append(float(s.start_mus))
+            out_end.append(float(s.end_mus))
+            out_ep.append(e)
+            out_trace.append(tid(s.trace_id))
+            out_ids.append(s.GetId())
+    assign = run_scheme(name, *in_cols, out_start, out_end, out_ep, out_trace,
+                        n_eps=len(eps))
+    return {ep: {s.GetId(): (out_ids[assign[e, i]] if assign[e, i] >= 0 else NA)
+                 for i, s in enumerate(in_spans)}
+            for e, ep in enumerate(eps)}

@@ -63,6 +63,13 @@ class EventLog:
 KNOWN_KINDS = (
     "fault_ladder",       # solve-supervisor rungs (retry/bisect/host/quarantine)
     "fault_injected",     # injected faults (runtime/faults.py)
+    "confidence_drift",   # a drift watcher's PSI excursion (obs/quality.py)
+    "slo_breach",         # a seal-to-emit p99 excursion (stream/service.py)
+    "serve",              # serve-tier lifecycle (WAL replay, dispatcher, drain)
+    "capture_loss",       # capture ingress losses (collector/source.py)
+    "capture_churn",      # connections re-keyed mid-capture
+    "clock_skew",         # a fit of the capture sources' clock offsets
+    "adapt",              # adaptation-ladder actuations (adapt/controller.py)
 )
 
 _ACTIVE: Optional[EventLog] = None

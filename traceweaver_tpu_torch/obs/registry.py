@@ -344,6 +344,51 @@ def stream_families(registry: Optional[MetricsRegistry] = None) -> Dict[str, _Fa
     )
 
 
+def capture_families(registry: Optional[MetricsRegistry] = None) -> Dict[str, _Family]:
+    """The capture ingress's families (declared in the JAX package's
+    ``collector/source.py``), keyed by their role: ``loss`` (losses per
+    source and reason), ``spans`` (spans delivered), ``rekeyed``
+    (connections re-keyed mid-capture) and ``skew`` (the fitted clock
+    offset of each source)."""
+    reg = registry if registry is not None else get_registry()
+    return dict(
+        loss=reg.counter(
+            "tw_capture_loss_total",
+            "capture ingress losses per source and reason; the span-shaped "
+            "reasons drive the per-source loss rate that discounts "
+            "emitted-trace confidence",
+            labels=("source", "reason")),
+        spans=reg.counter(
+            "tw_capture_spans_total",
+            "spans the capture ingress delivered to the stream layer, per source",
+            labels=("source",)),
+        rekeyed=reg.counter(
+            "tw_capture_rekeyed_total",
+            "connections re-keyed mid-capture (fd reuse / reconnect without "
+            "an observed close), per source",
+            labels=("source",)),
+        skew=reg.gauge(
+            "tw_clock_skew_us",
+            "fitted per-source clock offset vs the reference capture clock "
+            "(subtracted from every timestamp before watermarking)",
+            labels=("source",)),
+    )
+
+
+def adapt_families(registry: Optional[MetricsRegistry] = None) -> Dict[str, _Family]:
+    """The adaptation controller's family (declared in the JAX package's
+    ``adapt/controller.py``): ``actions``, one count per actuation of a
+    key's ladder, labelled by key and rung."""
+    reg = registry if registry is not None else get_registry()
+    return dict(
+        actions=reg.counter(
+            "tw_adapt_actions_total",
+            "adaptation-ladder actuations (refit scheduled/landed/failed, "
+            "fallback enter/exit, recovery) per drifting service key",
+            labels=("service", "rung")),
+    )
+
+
 def serve_families(registry: Optional[MetricsRegistry] = None) -> Dict[str, _Family]:
     """The serve tier's families (declared in the JAX package's
     ``serve/tenancy.py``, ``serve/continuous.py``, ``serve/http.py``,

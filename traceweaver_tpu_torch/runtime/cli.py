@@ -23,8 +23,15 @@ loopback while the run lasts; 0 binds a free port) and ``--events``
         --overlap_s 4 --out traces.jsonl [--checkpoint ck.pkl] \
         [--compare_batch] [--device cpu] [--precision bf16] \
         [--selftrace journey.json]
+    python -m traceweaver_tpu_torch.runtime.cli stream \
+        --source collector:CAPTURE_DIR --window_s 20 --overlap_s 4 \
+        [--faults skew:1.0:max=1 --faults_seed 1]
+    python -m traceweaver_tpu_torch.runtime.cli stream \
+        --source 'synth:adapt-burst?n_bursts=60&shift_at=30' --window_s 1 \
+        --overlap_s 0 --watermark_s 0.001 --conf_drift_window 64 --adapt
     python -m traceweaver_tpu_torch.runtime.cli serve --port 8321 \
-        --state-dir state/ [--resume] [--no-continuous] [--device cpu]
+        --state-dir state/ [--resume] [--no-continuous] [--device cpu] \
+        [--adapt]
     python -m traceweaver_tpu_torch.runtime.cli events run.jsonl
     python -m traceweaver_tpu_torch.runtime.cli query out/e2e_....pickle
     python -m traceweaver_tpu_torch.runtime.cli scorecard --traces 32
@@ -35,7 +42,13 @@ With no card and no ``--device`` the batch run, ``stream`` and
 a free port) and drains on SIGTERM or SIGINT; the JAX CLI's persistent
 XLA cache and AOT warmup have no counterpart. ``stream``'s ``--selftrace PATH``
 (the JAX CLI's ``TW_SELFTRACE``) writes the windows' own journeys as
-Jaeger JSON when the stream drains.
+Jaeger JSON when the stream drains. ``stream``'s and ``serve``'s
+``--adapt`` (``TW_ADAPT``) arms the drift-to-adapt ladder, with
+``--adapt_cooldown_s``, ``--adapt_probation``, ``--adapt_low_rate`` and
+``--conf_drift_window`` for its knobs; ``stream``'s ``--faults`` and
+``--faults_seed`` (``TW_FAULTS``, ``TW_FAULTS_SEED``) put a fault plan in
+force for the run (the ``capture`` and ``skew`` sites act on a
+``collector:`` source).
 """
 
 from __future__ import annotations
@@ -189,7 +202,12 @@ def build_stream_parser() -> argparse.ArgumentParser:
     p.add_argument("--source", required=True,
                    help="source spec: replay:<corpus-dir>"
                         "[?fix=2&max_traces=200&ooo_ms=50&seed=0] replays "
-                        "a recorded Jaeger corpus")
+                        "a recorded Jaeger corpus; "
+                        "collector:<strace-log|dir|fifo>[?service=name] is "
+                        "the capture ingress (strace/eBPF capture -> HTTP/2 "
+                        "replay -> skew-corrected spans); "
+                        "synth:adapt-burst?n_bursts=N&shift_at=K streams the "
+                        "shifted burst corpus")
     p.add_argument("--fix", type=int, default=0,
                    help="dataset FIX mode for replay sources (overridden "
                         "by a ?fix= query in --source)")
@@ -258,7 +276,47 @@ def build_stream_parser() -> argparse.ArgumentParser:
                    help="write the windows' own pipeline journeys to this "
                         "Jaeger-JSON file when the stream drains (the JAX "
                         "CLI's TW_SELFTRACE)")
+    p.add_argument("--faults", default=None,
+                   help="fault plan in force for the run, site:p[:max=N],... "
+                        "(TW_FAULTS; the capture sites are capture and skew)")
+    p.add_argument("--faults_seed", type=int, default=0,
+                   help="the fault plan's RNG seed (TW_FAULTS_SEED)")
+    _add_adapt_flags(p)
     return p
+
+
+def _add_adapt_flags(p: argparse.ArgumentParser) -> None:
+    """The drift-to-adapt flags of ``stream`` and ``serve``."""
+    from traceweaver_tpu_torch.adapt import controller
+    from traceweaver_tpu_torch.obs.quality import DRIFT_WINDOW
+
+    p.add_argument("--adapt", action="store_true",
+                   help="arm the drift-to-adapt ladder: refit, then wide-prior "
+                        "fallback, with a cooldown (TW_ADAPT; off by default)")
+    p.add_argument("--adapt_cooldown_s", type=float,
+                   default=controller.ADAPT_COOLDOWN_S,
+                   help="hysteresis between a key's actuations (TW_ADAPT_COOLDOWN_S)")
+    p.add_argument("--adapt_probation", type=int,
+                   default=controller.ADAPT_PROBATION,
+                   help="windows a landed refit has to recover (TW_ADAPT_PROBATION)")
+    p.add_argument("--adapt_low_rate", type=float,
+                   default=controller.ADAPT_LOW_RATE,
+                   help="low-confidence share of a window that is an excursion "
+                        "(TW_ADAPT_LOW_RATE)")
+    p.add_argument("--conf_drift_window", type=int, default=DRIFT_WINDOW,
+                   help="the drift watcher's reference and rolling window, in "
+                        "spans (TW_CONF_DRIFT_WINDOW)")
+
+
+def _adapt_controller(args):
+    """The stream's controller from the ``--adapt*`` flags (None: off)."""
+    if not args.adapt:
+        return None
+    from traceweaver_tpu_torch.adapt import AdaptationController
+
+    return AdaptationController(low_rate=args.adapt_low_rate,
+                                probation=args.adapt_probation,
+                                cooldown_s=args.adapt_cooldown_s)
 
 
 def batch_accuracy(store, fix: int, device, precision: str) -> float:
@@ -278,8 +336,8 @@ def stream_main(argv) -> int:
     """The ``stream`` subcommand; returns the exit code."""
     from traceweaver_tpu_torch.algorithms.weaver_torch import resolve_device
     from traceweaver_tpu_torch.ops.precision import validate_precision
+    from traceweaver_tpu_torch.runtime import faults
     from traceweaver_tpu_torch.stream import (
-        StreamConfig,
         StreamingReconstructor,
         TraceSink,
         parse_source_spec,
@@ -296,13 +354,54 @@ def stream_main(argv) -> int:
         print(f"--resume: no checkpoint at {args.checkpoint!r}", file=sys.stderr)
         return 2
     try:
-        source = parse_source_spec(
-            args.source, fix=args.fix, max_traces=args.max_traces,
-            ooo_us=args.ooo_ms * 1000.0, strict=args.strict)
+        plan = faults.parse_faults(args.faults or "", seed=args.faults_seed)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    cfg = StreamConfig(
+    # observability comes up before the source is built: a collector:
+    # source emits its capture_loss, capture_churn and clock_skew records
+    # while it parses the capture
+    exporter, log, tracer = _obs_setup(args.metrics_port, args.events,
+                                       args.selftrace)
+    sink = None
+    try:
+        with faults.override_plan(plan):
+            try:
+                source = parse_source_spec(
+                    args.source, fix=args.fix, max_traces=args.max_traces,
+                    ooo_us=args.ooo_ms * 1000.0, strict=args.strict)
+            except ValueError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 2
+            cfg = _stream_config(args)
+            sink = TraceSink(args.out) if args.out else None
+            kw = dict(sink=sink, device=device, precision=precision,
+                      adapt=_adapt_controller(args),
+                      drift_window=args.conf_drift_window)
+            if args.resume:
+                service = StreamingReconstructor.resume(args.checkpoint, source, **kw)
+            else:
+                service = StreamingReconstructor(source, cfg, **kw)
+            summary = service.run()
+    finally:
+        if sink is not None:
+            sink.close()
+        _obs_finish(exporter, log, tracer, args.selftrace)
+    _print_stream_summary(summary)
+    if "accuracy" in summary:
+        streamed_acc = summary["accuracy"]["e2e"]
+        print("[stream] streamed end-to-end accuracy: %.3f%%" % streamed_acc)
+        if args.compare_batch:
+            batch_acc = batch_accuracy(source.store, args.fix, device, precision)
+            print("[stream] batch executor on identical input: %.3f%% "
+                  "(streamed delta %+.3f pts)" % (batch_acc, streamed_acc - batch_acc))
+    return 0
+
+
+def _stream_config(args):
+    from traceweaver_tpu_torch.stream import StreamConfig
+
+    return StreamConfig(
         window_us=args.window_s * 1e6,
         overlap_us=args.overlap_s * 1e6,
         ooo_bound_us=args.watermark_s * 1e6,
@@ -318,23 +417,9 @@ def stream_main(argv) -> int:
         solve_retries=args.solve_retries,
         slo_p99_ms=args.slo_p99_ms,
     )
-    exporter, log, tracer = _obs_setup(args.metrics_port, args.events,
-                                       args.selftrace)
-    sink = TraceSink(args.out) if args.out else None
-    try:
-        if args.resume:
-            service = StreamingReconstructor.resume(
-                args.checkpoint, source, sink=sink, device=device,
-                precision=precision)
-        else:
-            service = StreamingReconstructor(source, cfg, sink=sink,
-                                             device=device, precision=precision)
-        summary = service.run()
-    finally:
-        if sink is not None:
-            sink.close()
-        _obs_finish(exporter, log, tracer, args.selftrace)
 
+
+def _print_stream_summary(summary) -> None:
     print("[stream] done [%s]: %d events -> %d windows, %d spans emitted, "
           "late %d rerouted / %d dropped, shed %d spilled / %d dropped"
           % (summary["precision"], summary["consumed"],
@@ -361,14 +446,26 @@ def stream_main(argv) -> int:
                  fl["checkpoint_failures"], fl["checkpoint_recovered"],
                  summary["deadletter_windows"], summary["deadletter_spans"],
                  summary["deadletter_bytes"]))
-    if "accuracy" in summary:
-        streamed_acc = summary["accuracy"]["e2e"]
-        print("[stream] streamed end-to-end accuracy: %.3f%%" % streamed_acc)
-        if args.compare_batch:
-            batch_acc = batch_accuracy(source.store, args.fix, device, precision)
-            print("[stream] batch executor on identical input: %.3f%% "
-                  "(streamed delta %+.3f pts)" % (batch_acc, streamed_acc - batch_acc))
-    return 0
+    cap = summary.get("capture")
+    if cap is not None:
+        # the capture ledger (collector: sources only), as /metrics has it
+        print("[stream] capture: %d spans delivered (%d synthetic), loss "
+              "rate %.2f%% %s; %d streams re-keyed; skew %s"
+              % (cap.get("delivered_spans", 0), cap.get("synthetic_spans", 0),
+                 100.0 * cap.get("loss_rate", 0.0),
+                 dict(cap.get("loss", {})) or "{}",
+                 cap.get("rekeyed_streams", 0),
+                 {s: "%+.0fus" % v for s, v in cap.get("skew_us", {}).items()}
+                 or "{}"))
+    ad = summary.get("adapt", {})
+    if ad.get("enabled"):
+        print("[stream] adapt: %d refits scheduled, %d landed, %d failed; "
+              "%d fallbacks, %d restores, %d recoveries; active fallbacks %s; "
+              "%d drift alerts"
+              % (ad["refits_scheduled"], ad["refits_done"], ad["refits_failed"],
+                 ad["fallbacks"], ad["restores"], ad["recoveries"],
+                 ad["active_fallbacks"] or "[]",
+                 summary["confidence"]["drift_alerts"]))
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -416,6 +513,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="append serve, fault-ladder and SLO records to this "
                         "JSONL file")
     p.add_argument("--quiet", action="store_true")
+    _add_adapt_flags(p)
     return p
 
 
@@ -433,7 +531,11 @@ def serve_main(argv) -> int:
             fix=args.fix, strict=args.strict, verbose=not args.quiet,
             state_dir=args.state_dir, max_tenants=args.max_tenants,
             continuous=args.continuous, slo_p99_ms=args.slo_p99_ms,
-            precision=args.precision)
+            precision=args.precision, adapt=args.adapt,
+            adapt_cooldown_s=args.adapt_cooldown_s,
+            adapt_probation=args.adapt_probation,
+            adapt_low_rate=args.adapt_low_rate,
+            conf_drift_window=args.conf_drift_window)
     except (ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

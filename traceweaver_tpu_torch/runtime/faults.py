@@ -24,6 +24,16 @@ Sites (anything else raises):
   gather from the rings (:mod:`traceweaver_tpu_torch.ops.devcols`); the
   supervisor rebuilds the rings from their host mirrors before it
   retries;
+- ``capture``  — a capture ingress payload chunk
+  (:mod:`traceweaver_tpu_torch.collector.source`): a drawn chunk is
+  dropped, not retried, and the rest of that connection direction with
+  it (an HTTP/2 byte stream cannot be resynchronised after a gap), all
+  counted as capture loss;
+- ``skew``     — a capture source's clock: a drawn source's raw stamps
+  are offset by ``skew_chaos_us`` before the ingress sees them, the
+  stimulus the skew estimator must correct. Both capture sites are drawn
+  through :meth:`FaultPlan.should_fail` (state perturbations, not raised
+  errors), so :func:`maybe_fail` never fires for them;
 - ``wal``      — a write-ahead log append (half the frame is written
   first, a torn append whose client gets no ack) or its fsync
   (:mod:`traceweaver_tpu_torch.stream.wal`).
@@ -57,7 +67,8 @@ from typing import Dict, Optional
 import torch
 
 #: every legal injection site
-SITES = ("dispatch", "fetch", "host", "checkpoint", "source", "devcols", "wal")
+SITES = ("dispatch", "fetch", "host", "checkpoint", "source", "devcols",
+         "capture", "skew", "wal")
 
 #: what the CUDA caching allocator says when it runs out of memory
 _ALLOCATOR_OOM = "CUDA out of memory"

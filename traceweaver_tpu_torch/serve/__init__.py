@@ -8,8 +8,8 @@
   isolation and accounting;
 - :mod:`continuous`: event-driven admission (SLO-aware, one size class
   a dispatch, round-robin across tenants) with tickets in flight;
-- :mod:`http`: the stdlib HTTP front door (Jaeger-JSON span POSTs per
-  tenant, live queries over each tenant's ring, stats, ``/metrics``,
+- :mod:`http`: the stdlib HTTP front door (Jaeger-JSON span POSTs and
+  ``strace`` capture POSTs per tenant, live queries over each tenant's ring, stats, ``/metrics``,
   ``/readyz``, graceful SIGTERM drain);
 - :mod:`ring`: the bounded per-tenant ring of emitted traces.
 

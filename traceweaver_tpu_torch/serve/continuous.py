@@ -331,6 +331,7 @@ class ContinuousDispatcher:
                     if ticket is not None:
                         self.service.launch_ticket(ticket)
                         self.service.ring_throttle()
+                    self.service.run_adaptations()
                     continue
                 # serial path (TW_SERVE_INFLIGHT=1, the kill switch):
                 # solve_admitted still drops the service lock around the
@@ -342,6 +343,10 @@ class ContinuousDispatcher:
                 n = self.service.solve_admitted(plan)
                 if n:
                     self.note_solve(time.perf_counter() - t0, n)
+                # the adaptation tick: refits that the retired solve's
+                # emissions scheduled run now, as solves of their own,
+                # before the next admission
+                self.service.run_adaptations()
                 continue
             with self._cond:
                 if not self._stop:

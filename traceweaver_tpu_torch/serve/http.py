@@ -9,6 +9,8 @@ state mutation happens inside :class:`TenantService`'s lock.
 Endpoints::
 
     POST /api/v1/tenants/<id>/spans                Jaeger-JSON {"data": [...]}
+    POST /api/v1/tenants/<id>/capture              strace log text (?source=)
+                                                   or {"sources": {name: text}}
     POST /api/v1/tenants/<id>/flush                seal+solve now (one tenant)
     POST /api/v1/flush                             seal+solve now (all)
     POST /api/v1/reset_latency_window              fresh seal→emit p99 window
@@ -24,10 +26,9 @@ Endpoints::
     GET  /readyz                                   readiness (rolling restarts):
                                                    200, 503 once a drain began
 
-Not ported yet: ``POST .../capture`` (capture ingress) and ``POST
-.../migrate_out`` / ``.../migrate_in`` (``fleet_serve``'s live
-migration). They answer 501 with the ``ROADMAP.md`` item that brings
-them, and fall back to nothing.
+Not ported yet: ``POST .../migrate_out`` / ``.../migrate_in``
+(``fleet_serve``'s live migration). They answer 501 with the
+``ROADMAP.md`` item that brings them, and fall back to nothing.
 
 ``/readyz`` keeps the JAX package's ``TW_AOT=off`` answer
 (``runtime/aot.py readiness``): 200 with ``{"aot": "off", "phase": "off",
@@ -72,7 +73,6 @@ _OBS_ERROR_BODY = serve_families()["error_body"]
 
 #: routes not ported yet -> the ROADMAP.md item that brings them
 NOT_PORTED = {
-    "/capture": "capture ingress (ROADMAP.md A: capture ingress)",
     "/migrate_out": "live migration (ROADMAP.md A: fleet_serve and campaign)",
     "/migrate_in": "live migration (ROADMAP.md A: fleet_serve and campaign)",
 }
@@ -238,6 +238,34 @@ class ServeHandler(BaseHTTPRequestHandler):
                 # appends nothing and is the plain ingest)
                 self._reply(200, self.service.wal_ingest(
                     tenant_id, payload, raw=raw, client_seq=self._client_seq()))
+            elif tenant_id is not None and sub == "/capture":
+                # the capture ingress: raw strace -f [-ttt] log text
+                # (?source= names the capture host; callees it did not
+                # capture become stubs), or a JSON {"sources": {name:
+                # text}} bundle of every host's capture of the window, so
+                # cross-source exchanges join and the skew fit sees pairs
+                raw = self._read_body('an strace log or {"sources": {...}}')
+                if raw is None:
+                    return
+                ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
+                if ctype == "application/json":
+                    try:
+                        bundle = json.loads(raw)
+                    except json.JSONDecodeError as e:
+                        self._error(400, f"invalid JSON: {e}")
+                        return
+                    captures = (bundle or {}).get("sources") if isinstance(bundle, dict) else None
+                    if not isinstance(captures, dict) or not captures:
+                        self._error(400, 'expected {"sources": {name: strace log text}}')
+                        return
+                else:
+                    captures = raw.decode("utf-8", "replace")
+                # the /spans ack discipline: the raw body is WAL-appended
+                # before the 200
+                self._reply(200, self.service.wal_ingest_capture(
+                    tenant_id, captures, raw=raw,
+                    ctype="json" if ctype == "application/json" else "text",
+                    source=query.get("source"), client_seq=self._client_seq()))
             elif tenant_id is not None and sub == "/flush":
                 self.service.tenant(tenant_id, create=False)
                 self._reply(200, self.service.flush(tenant_id))

@@ -40,11 +40,19 @@ seeded from the tenant id, whose state rides the tenant's checkpoint. A
 tenant's sink then does not depend on how its neighbours' POSTs
 interleave with its own, nor on a restart.
 
-Not ported yet, each queued in ``ROADMAP.md``: capture ingestion
-(``ingest_capture``, ``wal_ingest_capture``; capture ingress), live
-migration (``migrate_out``, ``migrate_in``, ``read_crashed_transfer``,
-``tombstone_crashed_tenant``; ``fleet_serve``) and the drift-adaptation
-refits (``run_adaptations``; ``adapt/``).
+Capture ingestion (:meth:`TenantService.ingest_capture`, and
+:meth:`TenantService.wal_ingest_capture` behind ``POST
+/api/v1/tenants/<id>/capture``) runs posted ``strace`` logs through the
+collector ingress (:mod:`traceweaver_tpu_torch.collector.source`) into
+the tenant's stream; its WAL records are of kind ``capture`` and replay
+through the same call. With ``ServeConfig.adapt`` each tenant's stream
+carries a drift-to-adapt controller, whose refits
+:meth:`TenantService.run_adaptations` runs after each pump or solve
+retires (``TW_ADAPT`` and its knobs are ``ServeConfig`` fields).
+
+Not ported yet, queued in ``ROADMAP.md``: live migration
+(``migrate_out``, ``migrate_in``, ``read_crashed_transfer``,
+``tombstone_crashed_tenant``; ``fleet_serve``).
 """
 
 from __future__ import annotations
@@ -60,6 +68,12 @@ from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from traceweaver_tpu_torch.adapt.controller import (
+    ADAPT_COOLDOWN_S,
+    ADAPT_LOW_RATE,
+    ADAPT_PROBATION,
+    AdaptationController,
+)
 from traceweaver_tpu_torch.ingest import wire as _wire
 from traceweaver_tpu_torch.ingest.jaeger import (
     FIX_ROOT_OPS,
@@ -170,7 +184,13 @@ class ServeConfig:
     precision: str = "f32"         # TW_PRECISION
     confidence: bool = True        # TW_CONFIDENCE
     conf_low: float = _quality.CONF_LOW  # TW_CONF_LOW
+    conf_drift_window: int = _quality.DRIFT_WINDOW  # TW_CONF_DRIFT_WINDOW
     faults_seed: int = 0           # TW_FAULTS_SEED
+    # the drift-to-adapt ladder (adapt/), off by default
+    adapt: bool = False            # TW_ADAPT
+    adapt_cooldown_s: float = ADAPT_COOLDOWN_S  # TW_ADAPT_COOLDOWN_S
+    adapt_probation: int = ADAPT_PROBATION      # TW_ADAPT_PROBATION
+    adapt_low_rate: float = ADAPT_LOW_RATE      # TW_ADAPT_LOW_RATE
 
     def __post_init__(self) -> None:
         self.precision = validate_precision(self.precision)
@@ -214,9 +234,13 @@ class Tenant:
             # the tenant owns checkpointing (its checkpoint wraps the
             # service state with ring and counter bookkeeping)
             checkpoint_path=None, verbose=cfg.verbose)
+        ctrl = (AdaptationController(
+            low_rate=cfg.adapt_low_rate, probation=cfg.adapt_probation,
+            cooldown_s=cfg.adapt_cooldown_s) if cfg.adapt else None)
         self.svc = StreamingReconstructor(None, stream_cfg, sink=sink, device=device,
                                           precision=cfg.precision,
-                                          confidence=cfg.confidence)
+                                          confidence=cfg.confidence, adapt=ctrl,
+                                          drift_window=cfg.conf_drift_window)
         # self-trace keys of this tenant's windows are "<tenant>:<k>"
         self.svc.trace_prefix = tenant_id + ":"
         self.ring = TraceRing(cfg.ring_size)
@@ -238,6 +262,9 @@ class Tenant:
         # windows taken off the queues by the dispatcher and solving
         # outside the service lock: retention pruning must not pass them
         self.in_flight: List = []
+        # capture ingestion: the (CaptureCounters, SkewEstimator) pair
+        # shared by every capture this tenant posts, made at the first
+        self._capture = None
 
     # -- ingestion --------------------------------------------------------
     def ingest_payload(self, payload) -> Dict[str, int]:
@@ -314,6 +341,48 @@ class Tenant:
                     rejected_traces=rejected,
                     malformed_spans=self.ingest_counters.get("malformed_spans", 0),
                     backlog=self.backlog)
+
+    def ingest_capture(self, captures, source: Optional[str] = None) -> Dict[str, int]:
+        """Fold one posted ``strace -f [-ttt]`` capture into the tenant's
+        stream.
+
+        ``captures`` is one log's text (one capture host, named by
+        ``source``; callees it did not capture become stubs) or a
+        ``{source name: log text}`` bundle of every host's capture of the
+        same time window, so cross-source exchanges join and the skew fit
+        sees its pairs. Every log runs through the collector ingress
+        (HTTP/2 replay, skew correction, the partial-capture and churn
+        rules) and every recovered span feeds the watermark -> windowing
+        -> scheduler loop a Jaeger POST feeds. The loss, skew and churn
+        ledgers accumulate across posts, and once a tenant has posted a
+        capture its emitted confidences are discounted by the loss rate."""
+        from traceweaver_tpu_torch.collector.skew import SkewEstimator
+        from traceweaver_tpu_torch.collector.source import CaptureCounters, CollectorSource
+
+        self._bump("capture_posts")
+        if self._capture is None:
+            counters, estimator = CaptureCounters(), SkewEstimator()
+            self._capture = (counters, estimator)
+            self.svc.capture_quality_ext = (
+                lambda: counters.snapshot(skew=estimator))
+        counters, estimator = self._capture
+        if isinstance(captures, str):
+            captures = {(source or "capture"): captures}
+        src = CollectorSource(captures, counters=counters, estimator=estimator)
+        n_spans = 0
+        for ev in src.events():
+            self._ingest_event(ev)
+            n_spans += 1
+        self._bump("capture_spans", n_spans)
+        quality = src.capture_quality()
+        return dict(
+            ingested_spans=n_spans,
+            capture_loss=quality["loss"],
+            capture_loss_rate=quality["loss_rate"],
+            rekeyed_streams=quality["rekeyed_streams"],
+            skew_us=quality.get("skew_us", {}),
+            backlog=self.backlog,
+        )
 
     def _ingest_event(self, ev: SpanEvent) -> None:
         svc = self.svc
@@ -419,8 +488,9 @@ class Tenant:
         through the normal ingest path, in append order. Torn tails were
         truncated at open; a record that fails to decode or apply is
         counted and skipped (its client was answered 4xx in the original
-        run too). A ``capture`` record (the JAX package's capture
-        ingress, not ported yet) counts as a replay error."""
+        run too). A ``capture`` record replays through
+        :meth:`ingest_capture` with the source and body type its head
+        kept."""
         w = self._wal()
         if w is None:
             return 0
@@ -434,15 +504,26 @@ class Tenant:
             except ValueError:
                 self._bump("wal_replay_errors")
                 continue
-            if head.get("k") != "spans":
-                self._bump("wal_replay_errors")
-                continue
+            kind = head.get("k")
             try:
-                summary = self.ingest_payload(body)
-            except (MalformedSpan, ValueError):
+                if kind == "capture":
+                    captures = body.decode("utf-8", "replace")
+                    if head.get("ctype") == "json":
+                        # the record keeps the posted {"sources": ...} body
+                        # (the JAX package hands the whole body on, and
+                        # its replay of a bundle fails)
+                        captures = json.loads(captures)["sources"]
+                    summary = self.ingest_capture(captures, source=head.get("source"))
+                    self.wal_note(head.get("seq"), summary.get("ingested_spans", 0))
+                elif kind == "spans":
+                    summary = self.ingest_payload(body)
+                    self.wal_note(head.get("seq"), summary.get("ingested_traces", 0))
+                else:
+                    self._bump("wal_replay_errors")
+                    continue
+            except (MalformedSpan, ValueError, KeyError, TypeError):
                 self._bump("wal_replay_errors")
                 continue
-            self.wal_note(head.get("seq"), summary.get("ingested_traces", 0))
             n += 1
         if n:
             self._bump("wal_replayed", n)
@@ -601,8 +682,8 @@ class Tenant:
             emit_s=round(float(svc.stats.get("emit_s", 0.0)), 6),
             consume_s=round(float(svc.stats.get("consume_s", 0.0)), 6),
             slo_breaches=int(svc.stats.get("slo_breaches", 0)),
-            adapt_refits=0,
-            adapt=None,
+            adapt_refits=int(svc.stats.get("adapt_refits", 0)),
+            adapt=(svc.adapt.summary() if svc.adapt is not None else None),
             quarantined_windows=int(self.counters.get("quarantined_windows", 0)),
             ring_traces=len(self.ring),
             ring_evicted=self.ring.evicted,
@@ -786,6 +867,61 @@ class TenantService:
             self.dispatcher.kick()
         return summary
 
+    def ingest_capture(self, tenant_id: str, captures,
+                       source: Optional[str] = None) -> Dict[str, int]:
+        """Capture ingestion for one tenant: raw log text or a
+        ``{source: text}`` bundle, with :meth:`ingest`'s pump and kick
+        rules."""
+        with self._lock:
+            summary = self.tenant(tenant_id).ingest_capture(captures, source=source)
+            if self.dispatcher is None and self.total_backlog() >= self.cfg.pump_windows:
+                summary["pumped_windows"] = self.pump()
+        if self.dispatcher is not None:
+            self.dispatcher.kick()
+        return summary
+
+    def wal_ingest_capture(self, tenant_id: str, captures, raw: bytes,
+                           ctype: Optional[str] = None,
+                           source: Optional[str] = None,
+                           client_seq: Optional[int] = None) -> Dict[str, int]:
+        """Ledgered capture ingest, :meth:`wal_ingest`'s twin: the raw body
+        is appended with its source and body type (``ctype``: ``json`` or
+        ``text``) in the record's head before the capture touches tenant
+        state, so a replay repeats the same :meth:`Tenant.ingest_capture`
+        call."""
+        with self._lock:
+            t = self.tenant(tenant_id)
+            seen = t.wal_seen(client_seq)
+            if seen is not None:
+                t._bump("wal_deduped")
+                return dict(ingested_spans=seen, backlog=t.backlog,
+                            deduped=True, seq=int(client_seq))
+            t.wal_append("capture", raw, client_seq=client_seq,
+                         meta=dict(source=source, ctype=ctype))
+            summary = t.ingest_capture(captures, source=source)
+            t.wal_note(client_seq, summary.get("ingested_spans", 0))
+            if client_seq is not None:
+                summary["seq"] = int(client_seq)
+            if self.dispatcher is None and self.total_backlog() >= self.cfg.pump_windows:
+                summary["pumped_windows"] = self.pump()
+        if self.dispatcher is not None:
+            self.dispatcher.kick()
+        return summary
+
+    def run_adaptations(self) -> int:
+        """Run every tenant's pending refits of the adaptation ladder.
+        Out of band: each refit is a ``solve_fleet`` call of its own,
+        never merged into an admission or pump dispatch; the pump and the
+        continuous dispatcher call this after a solve retires. Returns the
+        refits that landed."""
+        with self._lock:
+            n = 0
+            for tid in sorted(self.tenants):
+                n += self.tenants[tid].svc.maybe_adapt()
+            if n:
+                self._bump("adapt_refits", n)
+            return n
+
     def total_backlog(self) -> int:
         with self._lock:
             return sum(t.backlog for t in self.tenants.values())
@@ -850,6 +986,8 @@ class TenantService:
                 if t.ckpt_path and t.svc._since_checkpoint >= self.cfg.checkpoint_every:
                     t.checkpoint()
             self._bump("pumped_windows", n)
+        # refits run after the pump retires, never inside its dispatch
+        self.run_adaptations()
         return n
 
     def solve_admitted(self, plan: List[Tuple[Tenant, List]]) -> int:
@@ -1168,6 +1306,7 @@ class TenantService:
             sealed = sum(t.flush() for t in targets)
         if self.dispatcher is not None:
             solved = self.dispatcher.drain_backlog()
+            self.run_adaptations()
         else:
             with self._lock:
                 solved = self.pump()
@@ -1373,6 +1512,7 @@ class TenantService:
                     isolated_solves=int(sc["isolated_solves"]),
                     pumped_windows=int(sc["pumped_windows"]),
                     continuous_dispatches=int(sc.get("continuous_dispatches", 0)),
+                    adapt_refits=int(sc.get("adapt_refits", 0)),
                     dispatcher_crashes=int(sc.get("dispatcher_crashes", 0)),
                     backpressure_429s=int(sc.get("backpressure_429s", 0)),
                 ),

@@ -6,7 +6,8 @@ deployed reconstructor instead receives spans as an unbounded,
 out-of-order stream; this package is that mode:
 
 - :mod:`sources`: span event streams (replay of a recorded corpus with
-  deterministic out-of-order arrival, or any list of
+  deterministic out-of-order arrival, the capture ingress of
+  :mod:`traceweaver_tpu_torch.collector`, or any list of
   :class:`~traceweaver_tpu_torch.stream.sources.SpanEvent`);
 - :mod:`watermark`: event-time watermark (bounded out-of-orderness,
   lateness accounting);
@@ -23,7 +24,7 @@ out-of-order stream; this package is that mode:
 - :mod:`service`: the driver that wires them and emits stitched traces.
 
 CLI: ``python -m traceweaver_tpu_torch.runtime.cli stream --source
-replay:<corpus-dir> ...``. :mod:`wal`, the write-ahead ingest log,
+replay:<corpus-dir> ...`` (or ``collector:<strace-log|dir|fifo>``). :mod:`wal`, the write-ahead ingest log,
 serves the serve tier (:mod:`traceweaver_tpu_torch.serve`).
 """
 

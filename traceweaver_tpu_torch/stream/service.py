@@ -17,11 +17,23 @@ launches instead (``ops/cuda_sinkhorn.LAUNCHES``, ``ops/scores.LAUNCHES``).
 
 The JAX package's knobs are constructor arguments: ``precision``
 (``TW_PRECISION``), ``confidence`` (``TW_CONFIDENCE``), ``plan_cache``
-(``TW_PLAN_CACHE``); ``device=None`` means the card and raises without
-one. Not ported: the adaptation controller (``TW_ADAPT``, off by
-default in the JAX package), the capture-quality discount of collector
-sources, the AOT warmup ledger and the per-record emission path
-(``TW_WIRE_COLUMNAR=0``: the same bytes).
+(``TW_PLAN_CACHE``), ``adapt`` (``TW_ADAPT``: None, the default, is off;
+an :class:`~traceweaver_tpu_torch.adapt.AdaptationController` carries
+``TW_ADAPT_COOLDOWN_S``, ``TW_ADAPT_PROBATION`` and ``TW_ADAPT_LOW_RATE``)
+and ``drift_window`` (``TW_CONF_DRIFT_WINDOW``); ``device=None`` means
+the card and raises without one.
+
+The drift-to-adapt ladder (:mod:`traceweaver_tpu_torch.adapt`) acts on
+the drift watcher: a drifting service's retained window is refitted out
+of band between pumps (:meth:`StreamingReconstructor.maybe_adapt`, one
+``solve_fleet`` call of its own on the service's device), and a service
+on the fallback rung solves under wide priors. A source that knows its
+capture loss (a ``collector:`` source) or the serve tier's capture
+ledger (``capture_quality_ext``) discounts every emitted confidence by
+``1 - loss_rate`` and adds a ``capture`` block to the summary; the drift
+watcher reads the undiscounted records, so capture loss never walks the
+ladder. Not ported: the AOT warmup ledger and the per-record emission
+path (``TW_WIRE_COLUMNAR=0``: the same bytes).
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from traceweaver_tpu_torch import adapt as _adapt
 from traceweaver_tpu_torch.algorithms.plancache import PlanCache, admissible
 from traceweaver_tpu_torch.obs import events as _events
 from traceweaver_tpu_torch.obs import quality as _quality
@@ -174,12 +187,17 @@ class StreamingReconstructor:
     ``device="cpu"``); ``precision`` is the score blocks' (``"f32"`` or
     ``"bf16"``), ``confidence=False`` turns the confidence records, the
     ``tw.confidence`` payload and the drift watcher off, and
-    ``plan_cache=False`` refits every window's carried statistics."""
+    ``plan_cache=False`` refits every window's carried statistics.
+    ``adapt`` (an :class:`~traceweaver_tpu_torch.adapt.AdaptationController`,
+    None for off) arms the drift-to-adapt ladder; it needs the confidence
+    records and is ignored without them. ``drift_window`` is the drift
+    watcher's reference and rolling window (spans a key)."""
 
     def __init__(self, source, cfg: Optional[StreamConfig] = None,
                  sink: Optional[TraceSink] = None, device=None,
                  precision: str = "f32", confidence: bool = True,
-                 plan_cache: bool = True) -> None:
+                 plan_cache: bool = True, adapt=None,
+                 drift_window: int = _quality.DRIFT_WINDOW) -> None:
         from traceweaver_tpu_torch.algorithms.weaver_torch import resolve_device
 
         self.device = resolve_device(device)
@@ -211,11 +229,25 @@ class StreamingReconstructor:
         # self-trace window keys are "<prefix><window k>"
         self.trace_prefix = ""
         self.confidence = bool(confidence)
-        self.drift = _quality.ConfidenceDrift() if self.confidence else None
+        self.drift = (_quality.ConfidenceDrift(window=drift_window)
+                      if self.confidence else None)
+        # the drift-to-adapt controller acts on the drift watcher, so it
+        # needs it: no signal, no control
+        self.adapt = adapt if self.drift is not None else None
         # a cache hit skips the per-micro-batch refit of the carried
         # statistics; it rides the checkpoint, so a resumed run makes the
-        # same refit-or-skip decisions as an uninterrupted one
+        # same refit-or-skip decisions as an uninterrupted one. The
+        # controller's actuations invalidate exactly the drifting service
         self.plan_cache = PlanCache(enabled=plan_cache)
+        if self.adapt is not None:
+            self.adapt.invalidate_cb = self._plan_invalidate
+        # per service, the most recently solved window problem: the
+        # material of an out-of-band refit (bounded, one a service; it
+        # regenerates after a resume and never rides a checkpoint)
+        self.adapt_material: Dict[str, _WindowProblem] = {}
+        # the serve tier's capture ledger of a tenant that posted captures
+        # (a collector source reports its own): None is inert
+        self.capture_quality_ext = None
         self._slo_breached = False
         # recent seal→emit latencies (s), the p99 the SLO is held to
         self.seal_emit_lat_s = deque(maxlen=512)
@@ -302,6 +334,11 @@ class StreamingReconstructor:
             for wp in probs:
                 warm = (self.carried.get(wp.service)
                         if self.cfg.warm_start else None)
+                if self.adapt is not None:
+                    # the fallback rung: wide priors in place of the
+                    # (possibly poisoned) carried statistics
+                    warm = self.adapt.warm_dists(
+                        self.trace_prefix + wp.service, warm)
                 items.append(FleetItem(
                     wp.service, {wp.in_ep: wp.in_spans}, wp.out_parts,
                     wp.truth, wp.dag, store=self.live, warm_dists=warm,
@@ -385,14 +422,21 @@ class StreamingReconstructor:
                     # an all-NA quarantined result warms nothing and is
                     # not graded: the window is dead-lettered
                     continue
+                if self.adapt is not None:
+                    self.adapt_material[wp.service] = wp
+                akey = self.trace_prefix + wp.service
+                on_fallback = (self.adapt is not None
+                               and self.adapt.fallback_active(akey))
                 in_excursion = (self.drift is not None
-                                and self.drift.in_excursion(
-                                    self.trace_prefix + wp.service))
+                                and self.drift.in_excursion(akey))
                 if self.cfg.warm_start and (
-                        in_excursion or self.plan_cache.lookup(wp.service) is None):
+                        on_fallback or in_excursion
+                        or self.plan_cache.lookup(wp.service) is None):
                     # a hit means the carried plan is current; a service
-                    # in a drift excursion keeps refitting, and only a
-                    # fit from a full window of evidence is admitted
+                    # on the fallback rung re-teaches every window (what
+                    # earns its restore), one in a drift excursion keeps
+                    # refitting, and only a fit from a full window of
+                    # evidence is admitted
                     t_fit = time.perf_counter()
                     dists = timing.refit_from_assignments(
                         {wp.in_ep: wp.in_spans}, wp.out_parts, wp.dag,
@@ -613,25 +657,60 @@ class StreamingReconstructor:
         """Tenant label of the quality metrics ("default" here)."""
         return self.trace_prefix.rstrip(":") or "default"
 
+    def _capture_quality(self) -> Optional[Dict]:
+        """The capture ledger: a collector source's own
+        ``capture_quality()``, else the serve tier's
+        ``capture_quality_ext``; None on every other source."""
+        fn = getattr(self.source, "capture_quality", None)
+        if fn is None:
+            fn = self.capture_quality_ext
+        return fn() if fn is not None else None
+
     def window_confidence(self, res: WindowResult) -> Optional[Dict]:
         """The window's ``tw.confidence`` payload: the window summary and
         one summary per stitched trace (the min over its solved spans);
-        None without confidence records."""
+        None without confidence records.
+
+        A captured stream discounts every confidence by ``1 - loss_rate``
+        of its capture: a solver that never saw the dropped spans can be
+        confident about a wrong containment. The rate and the discount
+        ride the payload (``capture``), so consumers can tell solver doubt
+        from capture doubt."""
         if not res.confidence:
             return None
         merged: Dict = {}
         for recs in res.confidence.values():
             merged.update(recs)
-        return dict(
+        out = dict(
             window=_quality.window_confidence_summary(merged),
             traces={tid: _quality.trace_confidence(ids, merged)
                     for tid, ids in sorted(res.traces.items())},
         )
+        cap = self._capture_quality()
+        if cap is not None:
+            rate = float(cap.get("loss_rate", 0.0))
+            disc = max(0.0, 1.0 - rate)
+            if disc < 1.0:
+                for tconf in out["traces"].values():
+                    if tconf is not None:
+                        tconf["conf"] = round(tconf["conf"] * disc, 4)
+                        tconf["mean"] = round(tconf["mean"] * disc, 4)
+                w = out["window"]
+                for k in ("min", "mean"):
+                    if k in w:
+                        w[k] = round(w[k] * disc, 4)
+            out["capture"] = dict(loss_rate=round(rate, 4),
+                                  discount=round(disc, 4))
+        return out
 
     def _observe_confidence(self, res: WindowResult,
                             conf: Optional[Dict]) -> None:
         """Land an emitted window's quality telemetry: per-trace histogram
-        and low-confidence counter, and the per-service drift watcher."""
+        and low-confidence counter (from the payload's capture-discounted
+        values), and the per-service drift watcher and the adaptation
+        ladder (from the raw solver records, so capture loss cannot pass
+        for score-model drift and walk the ladder into refits that cannot
+        help it)."""
         if conf is None:
             return
         tenant = self._conf_tenant()
@@ -643,8 +722,17 @@ class StreamingReconstructor:
             self._bump("low_confidence_traces", n_low)
         if self.drift is not None:
             for svc, recs in sorted(res.confidence.items()):
-                self.drift.update(self.trace_prefix + svc,
-                                  [r["conf"] for r in recs.values()])
+                vals = [r["conf"] for r in recs.values()]
+                key = self.trace_prefix + svc
+                stat = self.drift.update(key, vals)
+                if self.adapt is not None and vals:
+                    # the controller acts on the PSI only once the rolling
+                    # window is full (a fresh reference against a handful
+                    # of values is sampling noise), and on the window's
+                    # low-confidence rate
+                    self.adapt.observe(
+                        key, psi=stat if self.drift.mature(key) else None,
+                        low_rate=sum(v <= _quality.CONF_LOW for v in vals) / len(vals))
 
     def emit_batch(self, results: List[WindowResult]) -> None:
         """Emit one pump's window results: every record is rendered first
@@ -745,6 +833,29 @@ class StreamingReconstructor:
         elif p99 <= slo:
             self._slo_breached = False
 
+    def maybe_adapt(self) -> int:
+        """Run the pending out-of-band refits of the adaptation ladder
+        (:mod:`traceweaver_tpu_torch.adapt.refit`), off the hot pump: the
+        stream calls it between pumps, the serve tier after a solve
+        retires. Returns the refits that landed."""
+        if self.adapt is None:
+            return 0
+        n = 0
+        for key in self.adapt.pending_refits():
+            if _adapt.refit.execute_refit(self, key):
+                n += 1
+                self._bump("adapt_refits")
+        return n
+
+    def _plan_invalidate(self, key: str) -> None:
+        """The controller's actuation hook: a scheduled refit, a fallback
+        or a failed refit voids exactly that service's cached plan.
+        ``key`` is the controller's (``trace_prefix + service``)."""
+        svc = key
+        if self.trace_prefix and key.startswith(self.trace_prefix):
+            svc = key[len(self.trace_prefix):]
+        self.plan_cache.invalidate(svc)
+
     def _bump(self, key: str, n: float = 1) -> None:
         _OBS_STREAM.inc(n, key=key)
         self.stats[key] = self.stats.get(key, 0) + n
@@ -801,6 +912,7 @@ class StreamingReconstructor:
             carried=self.carried,
             grader=self.grader,
             conf_drift=self.drift.state() if self.drift else None,
+            adapt=self.adapt.state() if self.adapt else None,
             plan_cache=self.plan_cache.state(),
             stats=self.stats,
             fleet_stats=self.fleet_stats,
@@ -841,7 +953,9 @@ class StreamingReconstructor:
     def resume(cls, checkpoint_path: str, source,
                sink: Optional[TraceSink] = None, device=None,
                precision: str = "f32", confidence: bool = True,
-               plan_cache: bool = True) -> "StreamingReconstructor":
+               plan_cache: bool = True, adapt=None,
+               drift_window: int = _quality.DRIFT_WINDOW
+               ) -> "StreamingReconstructor":
         """Rebuild a service from its last checkpoint. ``source`` must be
         the deterministic source the killed run used; the sink (the
         checkpoint's when none is given) is truncated back to the
@@ -855,7 +969,8 @@ class StreamingReconstructor:
         if sink is None and state.get("sink_path"):
             sink = TraceSink(state["sink_path"])
         svc = cls(source, cfg, sink=sink, device=device, precision=precision,
-                  confidence=confidence, plan_cache=plan_cache)
+                  confidence=confidence, plan_cache=plan_cache, adapt=adapt,
+                  drift_window=drift_window)
         ckpt_precision = state.get("precision", "f32")
         if ckpt_precision != svc.precision and cfg.verbose:
             print("[stream] resume: checkpoint was written under "
@@ -880,6 +995,13 @@ class StreamingReconstructor:
         self.grader = state["grader"]
         if state.get("conf_drift") and self.drift is not None:
             self.drift = _quality.ConfidenceDrift.from_state(state["conf_drift"])
+        # the ladder survives a kill: probation counts, active fallbacks,
+        # refit generations (cooldowns as remaining durations). A
+        # checkpoint without the key keeps the fresh controller, and with
+        # adaptation off the state is not restored
+        if state.get("adapt") and self.adapt is not None:
+            self.adapt = _adapt.AdaptationController.from_state(state["adapt"])
+            self.adapt.invalidate_cb = self._plan_invalidate
         if state.get("plan_cache"):
             self.plan_cache = PlanCache.from_state(
                 state["plan_cache"], enabled=self.plan_cache.enabled)
@@ -932,6 +1054,8 @@ class StreamingReconstructor:
                 self.scheduler.offer(buf)
             if self.scheduler.backlog:
                 self.emit_batch(list(self.scheduler.pump()))
+                # the refits run between pumps, never inside one
+                self.maybe_adapt()
             if sealed:
                 # retention horizon: two windows behind the watermark, and
                 # never past a window behind the oldest window still
@@ -956,6 +1080,7 @@ class StreamingReconstructor:
         for buf in flushed:
             self.scheduler.offer(buf)
         self.emit_batch(list(self.scheduler.pump()))
+        self.maybe_adapt()
         self._checkpoint()
         self.scheduler.close()
         return self._summary(final=True)
@@ -999,6 +1124,8 @@ class StreamingReconstructor:
                 low_traces=int(self.stats.get("low_confidence_traces", 0)),
                 drift_alerts=self.drift.alerts if self.drift else 0,
             ),
+            adapt=(self.adapt.summary() if self.adapt is not None
+                   else dict(enabled=False)),
             plan_cache=self.plan_cache.counters(),
             slo_breaches=int(self.stats.get("slo_breaches", 0)),
             stats=dict(self.stats),
@@ -1012,6 +1139,11 @@ class StreamingReconstructor:
             ),
             seal_emit_p99_ms=self.seal_emit_p99_ms(),
         )
+        cap = self._capture_quality()
+        if cap is not None:
+            # the capture ledger: loss and churn per source and the fitted
+            # skew offsets, only when the stream is a capture
+            out["capture"] = cap
         if final and self.grader is not None:
             out["accuracy"] = self.grader.finish()
         return out

@@ -13,8 +13,12 @@ spec yields the same events in the same order. The checkpoints rely on
 it: a resumed run skips the first ``consumed`` events instead of
 persisting spans already folded into windows.
 
-The JAX package's ``collector:`` source (live capture of uninstrumented
-services) is not ported: :func:`parse_source_spec` refuses it.
+``collector:`` specs build the capture ingress
+(:class:`~traceweaver_tpu_torch.collector.source.CollectorSource`): spans
+recovered from ``strace`` captures of uninstrumented services. The port
+adds ``synth:adapt-burst``, the shifted burst corpus of
+:mod:`traceweaver_tpu_torch.synth.capture`, so the adaptation ladder runs
+through the stream CLI.
 """
 
 from __future__ import annotations
@@ -125,6 +129,10 @@ class IterableSource:
         return iter(self._events[skip:])
 
 
+#: ``synth:adapt-burst`` query keys
+_ADAPT_BURST_KEYS = ("n_bursts", "shift_at", "n_req")
+
+
 def parse_source_spec(spec: str, fix: int = 0, max_traces: int = 1000,
                       ooo_us: float = 0.0, seed: int = 0,
                       strict: bool = False):
@@ -136,18 +144,41 @@ def parse_source_spec(spec: str, fix: int = 0, max_traces: int = 1000,
 
         replay:/abs/path?fix=5&ooo_ms=50&seed=3
 
-    ``collector:`` (the JAX package's live-capture ingress) raises.
+    ``collector:<path|fifo>`` is the capture ingress: ``<path>`` is one
+    recorded ``strace -f -ttt`` log (one capture source), a directory of
+    per-source logs (``*.log``/``*.txt``/``*.strace``, one clock each;
+    cross-source skew is fitted and corrected), or a FIFO fed by a live
+    ``strace`` (single-source incremental mode). Query key ``service``
+    names a single file's service (default: the file stem). The replay
+    arguments do not apply: arrival order comes from the capture.
+
+    ``synth:adapt-burst?n_bursts=60&shift_at=30[&n_req=8]`` streams
+    :func:`~traceweaver_tpu_torch.synth.capture.adapt_burst_events`.
     """
     if spec.startswith("collector:"):
-        raise ValueError(
-            f"source {spec!r}: the collector ingress (strace/eBPF capture) "
-            "is not ported yet (ROADMAP A, capture ingress); use "
-            "replay:<corpus-dir>")
+        from traceweaver_tpu_torch.collector.source import CollectorSource
+
+        path, _, query = spec[len("collector:"):].partition("?")
+        params = dict(urllib.parse.parse_qsl(query))
+        return CollectorSource.from_spec(path, service=params.get("service"))
+    if spec.startswith("synth:"):
+        name, _, query = spec[len("synth:"):].partition("?")
+        params = dict(urllib.parse.parse_qsl(query))
+        unknown = set(params) - set(_ADAPT_BURST_KEYS)
+        if name != "adapt-burst" or unknown or not {"n_bursts", "shift_at"} <= set(params):
+            raise ValueError(
+                f"source {spec!r}: expected 'synth:adapt-burst?n_bursts=N&"
+                "shift_at=K[&n_req=R]'")
+        from traceweaver_tpu_torch.synth.capture import adapt_burst_events
+
+        events, _ = adapt_burst_events(**{k: int(v) for k, v in params.items()})
+        return IterableSource(events)
     if not spec.startswith("replay:"):
         raise ValueError(
             f"unknown source spec {spec!r}: expected 'replay:<corpus-dir>' "
-            "(a recorded Jaeger corpus); in-process streams plug in through "
-            "stream.sources.IterableSource")
+            "(a recorded Jaeger corpus), 'collector:<strace-log|dir|fifo>' "
+            "(the capture ingress) or 'synth:adapt-burst?...'; in-process "
+            "streams plug in through stream.sources.IterableSource")
     rest = spec[len("replay:"):]
     path, _, query = rest.partition("?")
     params = dict(urllib.parse.parse_qsl(query))
