@@ -11,6 +11,7 @@ against their plain versions.
                                              # to OUT
     python3 chip_smoke.py --stream           # only the stream phase
     python3 chip_smoke.py --serve            # only the serve phase
+    python3 chip_smoke.py --fleet            # only the fleet phase
     python3 chip_smoke.py --capture          # only the capture phase and
                                              # the native schemes' check
     python3 chip_smoke.py --adapt            # only the adapt phase
@@ -73,7 +74,9 @@ Phases, each of which raises on failure (non-zero exit):
    ``fault_injected`` and ladder records;
 5. executor: config ``alibaba-exp5-15000``: the port's synthesizer
    writes exp5's corpus (15 call graphs x 1000 traces, seed 10, replica
-   table) and the port's CLI ``main(argv)`` runs in this process once per
+   table; it, ``alibaba-cg-8k``'s, the messy ladder's and the stream's
+   are synthesized one after another in a process of their own beside
+   the first card phases, ``CorpusJobs``) and the port's CLI ``main(argv)`` runs in this process once per
    graph with exp5's arguments (fix 5, compress 15000, predictors
    3,4,7,10, ``--execute_parallel 0``). Every CLI call must ingest with
    the C++ loader and launch K1; every line counts the call's windows
@@ -123,12 +126,12 @@ Phases, each of which raises on failure (non-zero exit):
    verdict, K1 launched, the host baselines equal to the JAX package's
    table (``SCORECARD_JAX``) and the solver within one span per regime;
 5b. ladder: the runner ``traceweaver_tpu_torch.runtime.ladder`` over
-   exp5's five lower rungs (1 to 10000; the top rung is the executor
-   phase's loop) on graphs ``LADDER_GRAPHS`` (0, 4, 5 and 9, the graphs
-   whose top rung met ill-posed windows, and the clean graph 3), then
-   the messy corpus (``--messy``) on graph 9 at its four lower rungs
-   (``LADDER_HARD_GRAPHS``, ``LADDER_HARD_RUNGS``; compress 4000 meets
-   ill-posed windows): host baselines equal to JAX
+   exp5's compress 1000 and 10000 (``LADDER_RUNGS``; the top rung, 15000,
+   is the executor phase's loop) on graphs ``LADDER_GRAPHS`` (0, 4, 5
+   and 9, the graphs whose top rung met ill-posed windows, and the clean
+   graph 3), then the messy corpus (``--messy``) on graph 9 at compress
+   1000 and 4000 (``LADDER_HARD_GRAPHS``, ``LADDER_HARD_RUNGS``; 4000
+   meets ill-posed windows): host baselines equal to JAX
    (``EXP5_LADDER_JAX``, ``EXP5_LADDER_HARD_JAX``), the flagship within
    half a point where the call met no ill-posed window, else held to a
    CPU rerun under the exp5 loop's ill-posed rule, the CPU run equal to
@@ -187,8 +190,8 @@ Phases, each of which raises on failure (non-zero exit):
    completes replayed in order): its rows must equal the shared run's on
    >= 99% of every service's rows outside ill-posed solver windows (the
    pump run's agreement with the shared run is reported beside JAX's
-   own: the batches differ; ``serve-alone``). 4. ``cli serve
-   --no-continuous`` in a subprocess: half of ``t0``'s bodies, SIGKILL
+   own: the batches differ; ``serve-alone``). 4. beside step 3, ``cli
+   serve --no-continuous`` in a subprocess: half of ``t0``'s bodies, SIGKILL
    after their acks, ``--resume``, the rest, a flush, SIGTERM (exit 0):
    the sink must equal the pump run's byte for byte (the WAL replay;
    ``serve-resume``). It fails on broken conservation (emitted +
@@ -207,7 +210,47 @@ Phases, each of which raises on failure (non-zero exit):
    eight cold windows break exact-mass ties (ROADMAP C.3) that flip whole
    windows between any two roundings (``PERF.md`` section 6). The corpus is
    synthesized in a process of its own beside the first card phases;
-5e. capture: config ``capture-8k`` (the capture workload of
+5e. fleet: config ``fleet-cg-4t-2r``: ``serve-cg-4t``'s corpus and
+   settings through the replica fleet tier, a ``FleetManager`` with its
+   crash supervisor over two ``cli serve`` replica processes on the card
+   (``ReplicaProcess``), every POST through the router over HTTP on
+   loopback with its body index as ``X-TW-Seq``. 1. the shared run: each
+   tenant's first body, then live migrations until each replica holds two
+   tenants; four clients post the rest as fast as acks return (429s and
+   503s waited out), ``t0`` live-migrated to the other replica after
+   ``FLEET_MIGRATE_AT`` of its bodies, the replica holding ``t1`` SIGKILLed
+   as ``t1`` posts body ``FLEET_KILL_AT`` and respawned by the supervisor
+   (``--resume``, the WAL replayed); after the last POST a wait for every
+   queue to drain, a rolling restart of both replicas, a flush, a wait
+   for every trace to emit, a SIGTERM drain (the ``fleet`` line: per
+   tenant the POSTs, traces ingested and emitted, the sink's traces and
+   repeats, accuracy against ``SERVE_JAX``; per replica its K1, K2 and
+   assembly launches, each process's ``kernels`` block banked before it
+   stops; the router's counters, the respawn and failover seconds, wall
+   and spans a second). The fleets run at the router's default
+   ``migrate_timeout_s``: a POST held longer by a respawn is answered 503
+   and waited out. Then ``t0`` alone in this process with the shared
+   run's batches, read back from the replicas' event sinks
+   (``fleet-replay``): the shared run's rows must equal the replay's on
+   at least 0.99 of each service's rows outside ill-posed windows, as
+   the serve phase holds its shared run. 2. ``t0`` alone under the
+   kill/resume leg's settings (``--no-continuous``) on replica A for half
+   its bodies, then moved to replica B by a live migration
+   (``fleet-migrate``) or by a SIGKILL of A with no respawn budget, the
+   survivor failover rebuilding it from A's disk (``fleet-failover``),
+   the two fleets side by side: each sink must equal the serve phase's
+   unmigrated ``t0`` bytes. 3. ``cli fleet campaign --mode subprocess`` at
+   its defaults with its replicas on the card, beside legs 1 and 2, its
+   artifact in the smoke's temporary directory (``fleet-campaign``: each
+   rung's spans a second, conservation and chaos counters). It fails on a tenant not
+   conserved or outside the serve rule (against the serve phase's
+   per-tenant ill-posed windows; ``--fleet`` alone serves ``t0`` for its
+   bytes and takes ``SERVE_ILL_POSED``), a replica that launched no K1 or
+   fewer assembly kernels than K1 (a block built another way), no
+   respawn, rows that part from the replay, a sink that parts, a
+   replica's drain that exits non-zero and a campaign
+   that fails its zero-loss gate or launches no K1 in a steady phase;
+5f. capture: config ``capture-8k`` (the capture workload of
    ``traceweaver_tpu_torch.synth.capture``: 8192 frontend -> search
    HTTP/2 traces 10 ms apart, captured by ``strace -f -ttt`` on two hosts
    with their own clocks, one reconnect without close at trace 4096)
@@ -228,12 +271,13 @@ Phases, each of which raises on failure (non-zero exit):
    their own beside the card phases: FCFS and vPath through
    ``native.run_scheme`` must equal the port's Python baselines on every
    service (``schemes``);
-5f. adapt: configs ``adapt-burst-60`` and ``adapt-burst-60x1024`` (the
+5g. adapt: configs ``adapt-burst-60`` and ``adapt-burst-60x1024`` (the
    shifted burst corpus: 60 bursts of 8 or 1024 requests 0.8 ms apart,
    call delay 150 -> 950 us at burst 30) through ``cli stream --source
    synth:adapt-burst...`` on the card, 1 s windows, no overlap, a 1 ms
-   bound, drift window 64, each without and with ``--adapt`` (``adapt``
-   lines: per-window accuracy, before the shift and in the last ten
+   bound, drift window 64, each with ``--adapt`` (``--adapt`` alone runs
+   each without it first, the control runs the whole smoke leaves out
+   for its time) (``adapt`` lines: per-window accuracy, before the shift and in the last ten
    windows, drift alerts, refits, fallbacks, the final PSI), held to the
    JAX package's readings (``ADAPT_JAX``; at 1024 requests JAX does not
    recover, and neither may the port); the refits' own K1 and assembly
@@ -271,7 +315,7 @@ Phases, each of which raises on failure (non-zero exit):
 
 ``--stream`` runs only the stream phase and its K1 block's check (and
 the CPU stream where the card met ill-posed windows); ``--serve`` the
-same for the serve phase. ``--capture`` and ``--adapt`` run only their
+same for the serve phase; ``--fleet`` only the fleet phase. ``--capture`` and ``--adapt`` run only their
 phases, their K1 blocks' and assembly calls' checks, and for
 ``--capture`` the native schemes' check.
 
@@ -730,18 +774,22 @@ EXP5_LADDER_HARD_JAX = {
         "call_graph_14": [0.0, 28.2312925170068, 0.0, 65.75963718820861],
     },
 }
-# the smoke's ladder: the five lower rungs (the executor phase's exp5
-# loop is the top one) on the graphs whose top rung met ill-posed windows
-# and one clean graph, and the messy corpus's graph 9 (LADDER_HARD_*)
-LADDER_RUNGS = (1, 200, 1000, 4000, 10000)
+# the smoke's ladder: two of the five lower rungs (the executor phase's
+# exp5 loop is the top one) on the graphs whose top rung met ill-posed
+# windows (0, 4, 5, 9) and one clean graph, and the messy corpus's graph
+# 9 (LADDER_HARD_*). Compress 10000 is the rung that meets ill-posed
+# windows on these graphs (0, 4 and 5); at 1, 200 and 4000 none did, and
+# the flagship read 100 at 1 and 200 on all five. With those three rungs
+# the smoke ran past its 1200 s on the card, so they are left to --ladder
+LADDER_RUNGS = (1000, 10000)
 LADDER_GRAPHS = (0, 3, 4, 5, 9)
-# the messy corpus's graph 9 at its four lower rungs: compress 4000 meets
+# the messy corpus's graph 9 at compress 1000 and 4000: 4000 meets
 # ill-posed windows (29 of 5021 on the card) and is one of the calls where
 # the port's CPU run parts from JAX's (LADDER_PORT_CPU); its top two
-# rungs' CPU reruns take 456 and 607 s on the card's machine, so they and
-# the other 14 graphs are left to --ladder
+# rungs' CPU reruns take 456 and 607 s on the card's machine, so they,
+# its two lowest rungs and the other 14 graphs are left to --ladder
 LADDER_HARD_GRAPHS = (9,)
-LADDER_HARD_RUNGS = (1, 200, 1000, 4000)
+LADDER_HARD_RUNGS = (1000, 4000)
 # ladder calls where the port's CPU run reads another number than JAX's,
 # with the reading it gives (the same on a CPU-only host and on the
 # card's machine): the two compute the same f32 algorithm with other
@@ -845,6 +893,23 @@ SERVE_JAX = dict(
 # 66.24755859375; tests/test_torch_serve_cg4t.py, ROADMAP C.3), which no
 # check reads: that CPU run takes 1438 s on the card's machine
 SERVE_PORT_CPU = 96.56982421875
+# config fleet-cg-4t-2r: serve-cg-4t's corpus and settings through the
+# replica fleet tier, two `cli serve` replica processes on the card behind
+# the router (the serve CLI's defaults and the stream's geometry)
+FLEET_REPLICA_ARGS = ["--fix", "5", "--window_s", "20", "--overlap_s", "4",
+                      "--watermark_s", "2", "--grace_s", "0"]
+# the byte-identity legs: the kill/resume leg's settings (the fixed pump)
+FLEET_PUMP_ARGS = FLEET_REPLICA_ARGS + ["--no-continuous"]
+# t0's body after which it is live-migrated, t1's during which its
+# replica is SIGKILLed
+FLEET_MIGRATE_AT, FLEET_KILL_AT = 16, 20
+# how long the phase waits for a migration, a recovery or a drain (the
+# fleets themselves run at the router's defaults)
+FLEET_WAIT_S = 600.0
+# ill-posed service windows of each tenant in serve-cg-4t's shared run
+# (the serve line of chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W):
+# the accuracy rule of --fleet alone, which runs no serve phase
+SERVE_ILL_POSED = dict(t0=12, t1=3, t2=5, t3=0)
 # capture-8k: bench.py's capture workload (frontend -> search over HTTP/2,
 # one reconnect without close mid-capture) at 8192 traces, through
 # ``cli stream --source collector:<dir>`` at stream-cg-8k's geometry;
@@ -2771,7 +2836,7 @@ def _stream_pred(svc):
     return {p: by_ep for p, by_ep in svc.grader.pred.items()}
 
 
-def stream_phase(card, root):
+def stream_phase(card, root, corpora=None):
     """Config ``stream-cg-8k`` through ``cli stream`` in this process on
     the card, with a sink and a checkpoint every 2 windows, every launch
     counter reset just before the call and read just after; then, as a
@@ -2783,13 +2848,14 @@ def stream_phase(card, root):
     conservation, no dead-lettered window, both kernels launched and no
     plain assembly on the card, and the streamed accuracy against
     ``STREAM_JAX`` where no window was ill-posed (else
-    :func:`rerun_checks` holds it to a CPU run). Returns the stream's
-    launches, its largest K1 block and what :func:`rerun_checks` needs."""
+    :func:`rerun_checks` holds it to a CPU run). ``corpora`` (a
+    :class:`CorpusJobs`) holds the corpus when given. Returns the
+    stream's launches, its largest K1 block and what :func:`rerun_checks`
+    needs."""
     import io
 
     import torch
 
-    from traceweaver_tpu_torch.alibaba.synthesize import synthesize_corpus
     from traceweaver_tpu_torch.ops.sinkhorn import sinkhorn_log
     from traceweaver_tpu_torch.runtime import cli
     from traceweaver_tpu_torch.stream import (
@@ -2799,9 +2865,7 @@ def stream_phase(card, root):
     )
 
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    (d,) = synthesize_corpus(os.path.join(root, "stream"), **STREAM_CORPUS)
-    synth_s = time.perf_counter() - t0
+    (d,), synth_s = corpus_dirs(root, "stream", corpora)
     spec = f"replay:{d}?{STREAM_QUERY}"
     out = os.path.join(root, "stream-out")
     sink_a, sink_b = os.path.join(out, "run.jsonl"), os.path.join(out, "killed.jsonl")
@@ -3025,7 +3089,7 @@ def _serve_cfg(state_dir, continuous, **kw):
                        **dict(SERVE_SETTINGS, **kw))
 
 
-def _http(method, url, body=None, timeout=900):
+def _http(method, url, body=None, timeout=900, headers=None):
     """One request on loopback: ``(status, body bytes, headers)``."""
     import urllib.error
     import urllib.request
@@ -3033,6 +3097,8 @@ def _http(method, url, body=None, timeout=900):
     req = urllib.request.Request(url, data=body, method=method)
     if body is not None:
         req.add_header("Content-Type", "application/json")
+    for k, v in (headers or {}).items():
+        req.add_header(k, v)
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
             return resp.status, resp.read(), resp.headers
@@ -3518,6 +3584,12 @@ def serve_phase(card, root, corpus=None):
                       f"{c['assemble_block']} times, the plain assembly "
                       f"{c['plain_assembly_on_card']} times on the card")
 
+    # 4., started here to run beside step 3 (both under the fixed pump)
+    from concurrent.futures import ThreadPoolExecutor
+
+    beside = ThreadPoolExecutor(1)
+    kill_resume = beside.submit(serve_kill_resume, bodies[0], root, card)
+    beside.shutdown(wait=False)
     # 3. t0 alone under the fixed pump, devcols on then off; then under a
     # pump of one window, the run the CPU rerun repeats
     on_path, on_st, on_wall, on_batches = serve_alone(
@@ -3577,7 +3649,7 @@ def serve_phase(card, root, corpus=None):
         failed.append(f"t0 shared against alone (the same batches): rows under 0.99 {low}")
 
     # 4. hard death and WAL replay in a subprocess
-    killed_path, kill_wall, kill_failed = serve_kill_resume(bodies[0], root, card)
+    killed_path, kill_wall, kill_failed = kill_resume.result()
     failed += kill_failed
     with open(killed_path, "rb") as f:
         killed_bytes = f.read()
@@ -3598,7 +3670,9 @@ def serve_phase(card, root, corpus=None):
         raise AssertionError("serve: " + "; ".join(failed))
     print(f"serve-phase: {time.perf_counter() - t_phase:.3f} s wall", flush=True)
     launches = dict(fused_assign=c["fused_assign"], assemble_block=c["assemble_block"])
-    return launches, captured["block"], (dirs[0], alone1, ill["ill_posed_windows"])
+    fleet_ref = dict(t0_bytes=on_bytes, ill={
+        tid: tenant_lines[tid]["ill_posed_service_windows"] for tid in SERVE_TENANTS})
+    return launches, captured["block"], (dirs[0], alone1, ill["ill_posed_windows"]), fleet_ref
 
 
 def _synthesize_serve(out):
@@ -3619,6 +3693,56 @@ class SynthJob(StreamRerun):
 
         self.pool = multiprocessing.get_context("spawn").Pool(1)
         self.job = self.pool.apply_async(_synthesize_serve, (out,))
+
+
+# the corpora of the executor, ladder and stream phases, by the name of
+# their directory under the smoke's root, in the order CorpusJobs makes
+# them; None is the messy ladder corpus (ladder.ensure_corpus)
+CORPORA = {
+    "exp5": dict(n_graphs=15, traces_per_graph=1000, seed=10),
+    "cg8k": dict(n_graphs=1, traces_per_graph=8192, seed=10),
+    "exp5-hard": None,
+    "stream": STREAM_CORPUS,
+}
+
+
+def synthesize(root, name):
+    """Corpus ``name`` of ``CORPORA`` synthesized under ``root``; returns
+    its graph directories and the seconds it took."""
+    sys.path.insert(0, HERE)
+    t0 = time.perf_counter()
+    out = os.path.join(root, name)
+    if CORPORA[name] is None:
+        from traceweaver_tpu_torch.runtime.ladder import ensure_corpus
+
+        dirs = ensure_corpus(out, True)
+    else:
+        from traceweaver_tpu_torch.alibaba.synthesize import synthesize_corpus
+
+        dirs = synthesize_corpus(out, **CORPORA[name])
+    return dirs, time.perf_counter() - t0
+
+
+class CorpusJobs(StreamRerun):
+    """Every corpus of ``CORPORA`` synthesized under ``root``, one after
+    another in a spawned process of their own beside the first card
+    phases; :meth:`get` waits for one."""
+
+    def __init__(self, root):
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        self.jobs = {name: self.pool.apply_async(synthesize, (root, name))
+                     for name in CORPORA}
+
+    def get(self, name):
+        return self.jobs[name].get()
+
+
+def corpus_dirs(root, name, corpora=None):
+    """:func:`synthesize`'s result for ``name``: from ``corpora`` (a
+    :class:`CorpusJobs`) when given, else made here."""
+    return corpora.get(name) if corpora is not None else synthesize(root, name)
 
 
 def cpu_serve(graph_dir, threads):
@@ -3684,6 +3808,491 @@ def serve_verdict(card, serve, cpu):
     return ""
 
 
+def _fleet_client(base, tenant, bodies, acked, before=None, first=0):
+    """A fleet client: POST bodies ``first`` on in order through the
+    router with each body's index as ``X-TW-Seq`` (a retry of a lost ack
+    dedups), as fast as acks return, waiting out 429s and 503s (a replica
+    being recovered) by their ``Retry-After``; ``before(i)`` runs before
+    body ``i``."""
+    url = f"{base}/api/v1/tenants/{tenant}/spans"
+    for i in range(first, len(bodies)):
+        if before is not None:
+            before(i)
+        while True:
+            code, out, hdr = _http("POST", url, bodies[i], headers={"X-TW-Seq": str(i)})
+            if code not in (429, 503):
+                break
+            time.sleep(min(5.0, float(hdr.get("Retry-After") or 1.0)))
+        if code != 200:
+            raise AssertionError(f"fleet POST {tenant} body {i}: {code} {out[:300]!r}")
+        acked[tenant] = i + 1
+
+
+def _start_replicas(root, args, n=2):
+    """``n`` ``cli serve`` replica processes on the card, started at once,
+    each slot's processes appending their events to ``r<i>.events.jsonl``
+    in ``root``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from traceweaver_tpu_torch.fleet_serve import ReplicaProcess
+
+    reps = [ReplicaProcess(f"r{i}", os.path.join(root, f"r{i}"),
+                           serve_args=args + ["--events",
+                                              os.path.join(root, f"r{i}.events.jsonl")],
+                           startup_timeout_s=300.0) for i in range(n)]
+    with ThreadPoolExecutor(n) as pool:
+        futs = [pool.submit(r.start) for r in reps]
+        errors = [f.exception() for f in futs]
+    if any(errors):
+        for r in reps:
+            r.stop(timeout_s=30.0)
+        raise AssertionError(f"fleet: replicas failed to start: {errors}")
+    return reps
+
+
+def _fleet_stats(fleet):
+    """Every replica's ``/api/v1/stats`` (the router's fan-out)."""
+    st = fleet.router.fleet_stats(include_replicas=True)
+    bad = {n: s["error"] for n, s in st["replica_stats"].items() if "error" in s}
+    if bad:
+        raise AssertionError(f"fleet: replica stats failed: {bad}")
+    return st
+
+
+def _fleet_wait(fleet, drained, timeout_s=600.0):
+    """Poll the replicas until no window is queued or in flight (and,
+    ``drained``, every ingested trace emitted); returns the last stats."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        st = _fleet_stats(fleet)
+        reps = st["replica_stats"].values()
+        tenants = [t for s in reps for t in s["tenants"].values()]
+        idle = all(s["total_backlog"] == 0 and s["ring"]["outstanding"] == 0 for s in reps)
+        if idle and (not drained or all(
+                t["traces_emitted"] == t["counters"].get("ingested_traces", 0)
+                for t in tenants)):
+            return st
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet: not drained after {timeout_s:.0f} s")
+        time.sleep(0.25)
+
+
+class _Launches:
+    """Each replica slot's kernel counters summed over its processes: a
+    process's ``kernels`` block is banked before it stops (a SIGKILL, a
+    rolling restart, the final drain)."""
+
+    KEYS = ("fused_assign", "sinkhorn", "assemble_block")
+
+    def __init__(self, fleet):
+        self.fleet = fleet
+        self.by = {name: dict.fromkeys(self.KEYS, 0) for name in fleet.replicas}
+
+    def bank(self, name):
+        from traceweaver_tpu_torch.fleet_serve.router import http_json
+
+        code, st = http_json("GET", self.fleet.router.replicas[name].base_url
+                             + "/api/v1/stats", timeout=300)
+        if code != 200:
+            raise AssertionError(f"fleet: {name} stats answered {code}")
+        for k in self.KEYS:
+            self.by[name][k] += int(st["kernels"][k])
+
+    def bank_all(self):
+        for name in self.by:
+            self.bank(name)
+
+
+def _fleet_balance(fleet):
+    """Live-migrate tenants from the fuller replica until each holds the
+    same count (the campaign's ``_rebalance``, to two tenants each)."""
+    moved = []
+    while True:
+        place = {n: fleet.replica_tenants(n) for n in sorted(fleet.replicas)}
+        full = max(place, key=lambda n: len(place[n]))
+        empty = min(place, key=lambda n: len(place[n]))
+        if len(place[full]) - len(place[empty]) < 2:
+            return moved
+        tid = sorted(place[full])[-1]
+        fleet.migrate(tid, empty)
+        moved.append((tid, empty))
+
+
+def _sink_traces(path):
+    """Trace ids of a sink's records, with repeats."""
+    ids = []
+    with open(path) as f:
+        for line in f:
+            ids.extend(json.loads(line)["traces"])
+    return ids
+
+
+def fleet_shared_run(card, root, bodies, truths, ill):
+    """Leg 1 of the fleet phase (see the module docstring): returns the
+    ``fleet`` line and what failed."""
+    import signal
+
+    from traceweaver_tpu_torch.fleet_serve import FleetManager
+
+    t_leg = time.perf_counter()
+    state = os.path.join(root, "fleet-shared")
+    reps = _start_replicas(state, FLEET_REPLICA_ARGS)
+    cold_s = time.perf_counter() - t_leg
+    fleet = FleetManager(reps, router_port=0, supervise=True)
+    base, acked, failed = fleet.base_url, {}, []
+    launches = _Launches(fleet)
+    migrated, killed = threading.Event(), {}
+    try:
+        t_run = time.perf_counter()
+        for i, tid in enumerate(SERVE_TENANTS):
+            _fleet_client(base, tid, bodies[i][:1], acked)
+        # each replica holds two tenants before the clients start
+        balanced = _fleet_balance(fleet)
+
+        def t0_hook(i):
+            if i == FLEET_MIGRATE_AT:
+                src = fleet.router.owner("t0")
+                dst = next(n for n in sorted(fleet.replicas) if n != src)
+                killed["migration"] = fleet.migrate("t0", dst)
+                migrated.set()
+
+        def kill_t1():
+            victim = fleet.router.owner("t1")
+            launches.bank(victim)
+            time.sleep(0.05)  # t1's body is on its way
+            fleet.replicas[victim].proc.send_signal(signal.SIGKILL)
+            killed.update(victim=victim, at=time.perf_counter() - t_run)
+
+        def t1_hook(i):
+            if i == FLEET_KILL_AT:
+                migrated.wait(timeout=FLEET_WAIT_S)
+                threading.Thread(target=kill_t1, daemon=True).start()
+
+        hooks = dict(t0=t0_hook, t1=t1_hook)
+        errors = {}
+
+        def client(i, tid):
+            try:
+                _fleet_client(base, tid, bodies[i], acked, before=hooks.get(tid), first=1)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors[tid] = f"{type(e).__name__}: {e}"
+
+        threads = [threading.Thread(target=client, args=(i, tid))
+                   for i, tid in enumerate(SERVE_TENANTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        post_wall = time.perf_counter() - t_run
+        if errors:
+            raise AssertionError(f"fleet clients: {errors}")
+        deadline = time.monotonic() + FLEET_WAIT_S
+        while fleet.router.counters["respawns"] + fleet.router.counters["failovers"] < 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet: the killed replica was never recovered")
+            time.sleep(0.2)
+        _fleet_wait(fleet, drained=False)
+        launches.bank_all()
+        t_rr = time.perf_counter()
+        fleet.rolling_restart()
+        restart_s = time.perf_counter() - t_rr
+        code, _, _ = _http("POST", base + "/api/v1/flush")
+        if code != 200:
+            failed.append(f"the fleet's flush answered {code}")
+        st = _fleet_wait(fleet, drained=True)
+        wall = time.perf_counter() - t_run
+        launches.bank_all()
+        owners = {tid: fleet.router.owner(tid) for tid in SERVE_TENANTS}
+        counters = dict(fleet.router.counters)
+        recoveries = list(fleet.recoveries)
+    finally:
+        fleet.stop()
+    rcs = {r.name: r.proc.returncode for r in reps}
+    if any(rcs.values()):
+        failed.append(f"the replicas' SIGTERM drains exited {rcs}")
+    tenants, ingested, accs = {}, 0, {}
+    for i, tid in enumerate(SERVE_TENANTS):
+        t = st["replica_stats"][owners[tid]]["tenants"][tid]
+        path = os.path.join(state, owners[tid], tid, "traces.jsonl")
+        acc = accs[tid] = serve_sink_accuracy(path, truths[i])
+        ids = _sink_traces(path)
+        spans = int(t["counters"].get("ingested_spans", 0))
+        ingested += spans
+        ref = SERVE_JAX["shared"][tid]["e2e"]
+        limit = ILL_POSED_MAX_PT if ill[tid] else 0.5
+        tenants[tid] = dict(
+            replica=owners[tid], posts=acked.get(tid, 0),
+            traces_ingested=int(t["counters"].get("ingested_traces", 0)),
+            traces_emitted=t["traces_emitted"], spans_ingested=spans,
+            spans_emitted=t["spans_emitted"], sink_traces=len(ids),
+            sink_traces_repeated=len(ids) - len(set(ids)),
+            deadletter_windows=t["deadletter_windows"],
+            shed_dropped_windows=t["shed_dropped_windows"], late_dropped=t["late_dropped"],
+            e2e=acc["e2e"], e2e_jax=ref, rule_pt=limit,
+            serve_ill_posed_service_windows=ill[tid], per_service=acc["per_service"])
+        n_traces = sum(len(json.loads(b)["data"]) for b in bodies[i])
+        if len(set(ids)) != n_traces or len(ids) != n_traces:
+            failed.append(f"{tid}: the sink holds {len(set(ids))} traces ({len(ids)} "
+                          f"records) of {n_traces}")
+        if (t["deadletter_windows"] or t["shed_dropped_windows"] or t["late_dropped"]
+                or t["traces_emitted"] != n_traces or acked.get(tid) != len(bodies[i])):
+            failed.append(f"{tid}: {tenants[tid]}")
+        if abs(acc["e2e"] - ref) > limit:
+            failed.append(f"{tid}: {acc['e2e']} not within {limit} pt of JAX {ref}")
+    for name, k in launches.by.items():
+        # each K1 launch solves a block the assembly kernel built: fewer
+        # assembly launches than K1's would be blocks built another way
+        if not k["assemble_block"] >= k["fused_assign"] > 0:
+            failed.append(f"replica {name}: {k}")
+    if counters["respawns"] < 1 or counters["migrations"] < 1 + len(balanced):
+        failed.append(f"router counters {counters}")
+    line = dict(
+        config="fleet-cg-4t-2r", replicas=len(reps), tenants=tenants,
+        replica_launches=launches.by, router=counters,
+        balance_migrations=balanced, t0_migration=killed.get("migration"),
+        killed=dict(replica=killed.get("victim"), at_s=killed.get("at")),
+        recoveries=recoveries, respawn_s=[r["wall_s"] for r in recoveries
+                                          if r["mode"] == "respawn"],
+        failover_s=[r["wall_s"] for r in recoveries if r["mode"] == "failover"],
+        cold_start_s=cold_s, post_wall_s=post_wall, rolling_restart_s=restart_s,
+        wall_s=wall, spans_ingested=ingested, spans_per_s=ingested / wall,
+        leg_wall_s=time.perf_counter() - t_leg, card=card)
+    return line, failed, accs["t0"]
+
+
+def fleet_t0_plan(state):
+    """``t0``'s ring tickets in the shared run, from its replicas' event
+    sinks, in time order, as :func:`serve_alone`'s plan (keyed by process
+    and sequence). A window solved twice (in flight on the SIGKILLed
+    process, solved again after the respawn's replay) keeps its last
+    ticket, whose rows the sink holds; tickets left with no ``t0`` window,
+    or never completed, are dropped. Returns the plan and the tickets'
+    counts."""
+    recs, torn = [], 0
+    for name in sorted(os.listdir(state)):
+        if not name.endswith(".events.jsonl"):
+            continue
+        with open(os.path.join(state, name)) as f:
+            for ln in f:
+                try:
+                    r = json.loads(ln)
+                except ValueError:
+                    torn += 1  # a line cut by the SIGKILL
+                    continue
+                if r.get("event") in ("ring_ticket_submitted", "ring_ticket_completed") \
+                        and r["windows"].get("t0"):
+                    recs.append(r)
+    recs.sort(key=lambda r: r["ts"])  # stable: a file's own order stands
+    done = {(r["pid"], r["seq"]) for r in recs if r["event"] == "ring_ticket_completed"}
+    subs = [r for r in recs if r["event"] == "ring_ticket_submitted"
+            and (r["pid"], r["seq"]) in done]
+    last = {k: i for i, r in enumerate(subs) for k in r["windows"]["t0"]}
+    ks = {(r["pid"], r["seq"]): [k for k in r["windows"]["t0"] if last[k] == i]
+          for i, r in enumerate(subs)}
+    plan = []
+    for r in recs:
+        key = (r["pid"], r["seq"])
+        if not ks.get(key):
+            continue
+        plan.append(("submit", f"{key[0]}:{key[1]}", ks[key])
+                    if r["event"] == "ring_ticket_submitted" else
+                    ("complete", f"{key[0]}:{key[1]}"))
+    n_submitted = sum(1 for r in recs if r["event"] == "ring_ticket_submitted")
+    tickets = dict(torn_lines=torn, completed=len(subs), kept=sum(map(bool, ks.values())),
+                   never_completed=n_submitted - len(subs),
+                   windows_solved_again=sum(len(r["windows"]["t0"]) for r in subs) - len(last))
+    return plan, tickets
+
+
+def fleet_replay(card, root, bodies, truths, fleet_t0):
+    """``t0`` alone in this process with the fleet shared run's batches
+    (:func:`fleet_t0_plan`), as the serve phase replays its shared run:
+    the fleet's rows must equal the replay's on at least 0.99 of each
+    service's rows outside ill-posed windows, so that the fleet's
+    reading is the solver's on those batches, not a fault of a migration,
+    a respawn or the rolling restart. Returns the ``fleet-replay`` line
+    and what failed."""
+    plan, tickets = fleet_t0_plan(os.path.join(root, "fleet-shared"))
+    if not plan:
+        return (dict(config="fleet-cg-4t-2r", tickets=tickets),
+                ["fleet-replay: no t0 ticket in the replicas' events"])
+    with ServeRows() as rows:
+        path, _, wall, batches = serve_alone(bodies[0], os.path.join(root, "fleet-replay"),
+                                             "cuda", plan=plan)
+        ill = rows.ids()
+    replay = serve_sink_accuracy(path, truths[0])
+    agree = rows_agreement(fleet_t0, replay, ill, "t0")
+    line = dict(config="fleet-cg-4t-2r", tenant="t0", tickets=tickets,
+                solves=len(batches), e2e_fleet=fleet_t0["e2e"], e2e_replay=replay["e2e"],
+                fleet_vs_replay_rows=agree,
+                rows_left_out_ill_posed=sum(len(v) for v in ill.values()), wall_s=wall,
+                card=card)
+    low = {svc: v for svc, v in agree.items() if v < 0.99}
+    return line, ([f"fleet-replay: t0's rows under 0.99 of the replay's {low}"]
+                  if low else [])
+
+
+def fleet_pin_leg(root, bodies, ref_bytes, failover):
+    """Leg 2 of the fleet phase: ``t0`` alone under the kill/resume leg's
+    settings on replica A for half its bodies, then moved to replica B by
+    a live migration, or (``failover``) by a SIGKILL of A with no respawn
+    budget, so the survivor failover rebuilds it from A's disk; the rest
+    of its bodies, a flush. Returns the leg's line and what failed."""
+    import signal
+
+    from traceweaver_tpu_torch.fleet_serve import FleetManager
+
+    t_leg = time.perf_counter()
+    tag = "failover" if failover else "migrate"
+    state = os.path.join(root, f"fleet-{tag}")
+    reps = _start_replicas(state, FLEET_PUMP_ARGS)
+    fleet = FleetManager(reps, router_port=0, supervise=failover, respawn_max=0)
+    half, acked, failed = len(bodies) // 2, {}, []
+    try:
+        src = fleet.router.owner("t0")
+        dst = next(n for n in sorted(fleet.replicas) if n != src)
+        _fleet_client(fleet.base_url, "t0", bodies[:half], acked)
+        # half its bodies acknowledged, none in flight: move it
+        t_move = time.perf_counter()
+        if failover:
+            fleet.replicas[src].proc.send_signal(signal.SIGKILL)
+            deadline = time.monotonic() + FLEET_WAIT_S
+            while not fleet.failovers:
+                if time.monotonic() > deadline:
+                    raise AssertionError("fleet-failover: no failover")
+                time.sleep(0.1)
+            moved = fleet.failovers[0]
+        else:
+            moved = fleet.migrate("t0", dst)
+        move_s = time.perf_counter() - t_move
+        _fleet_client(fleet.base_url, "t0", bodies, acked, first=half)
+        code, _, _ = _http("POST", fleet.base_url + "/api/v1/flush")
+        if code != 200:
+            failed.append(f"fleet-{tag}: flush answered {code}")
+        owner = fleet.router.owner("t0")
+        counters = dict(fleet.router.counters)
+    finally:
+        fleet.stop()
+    with open(os.path.join(state, owner, "t0", "traces.jsonl"), "rb") as f:
+        got = f.read()
+    if owner != dst:
+        failed.append(f"fleet-{tag}: t0 ended on {owner}, not {dst}")
+    if got != ref_bytes:
+        failed.append(f"fleet-{tag}: the sink parts from t0's unmigrated bytes")
+    line = dict(config="fleet-cg-4t-2r", leg=tag, tenant="t0", moved_after_posts=half,
+                src=src, dst=owner, move=moved, move_s=move_s, sink_bytes=len(got),
+                sink_identical=got == ref_bytes, router=counters,
+                wall_s=time.perf_counter() - t_leg)
+    return line, failed
+
+
+def fleet_campaign_start(root):
+    """Leg 3 of the fleet phase, started: ``cli fleet campaign --mode
+    subprocess`` at its defaults (rungs of 1 and 2 replicas, 6 s, 3
+    tenants) with its replicas on the card, its artifact and output in
+    ``root``. It runs beside legs 1 and 2."""
+    out = os.path.join(root, "CAMPAIGN_fleet.json")
+    log = open(os.path.join(root, "fleet-campaign.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "traceweaver_tpu_torch.runtime.cli", "fleet", "campaign",
+         "--mode", "subprocess", "--state-dir", os.path.join(root, "fleet-campaign"),
+         "--out", out], cwd=HERE, stdout=log,
+        stderr=subprocess.STDOUT, text=True, env={**os.environ, "PYTHONPATH": HERE})
+    return proc, log, out, time.perf_counter()
+
+
+def fleet_campaign_finish(card, started):
+    """Wait for the campaign (:func:`fleet_campaign_start`). Returns the
+    ``fleet-campaign`` line and what failed (its zero-loss gate fails the
+    campaign, which then exits 1)."""
+    proc, log, out, t0 = started
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    log.seek(0)
+    text = log.read()
+    log.close()
+    if rc != 0 or not os.path.exists(out):
+        tail = "\n".join(ln for ln in text.splitlines() if '" 200 -' not in ln)[-6000:]
+        return dict(rc=rc, wall_s=wall), [f"fleet campaign exited {rc}: {tail}"]
+    with open(out) as f:
+        art = json.load(f)
+    rungs, failed = [], []
+    for r in art["rungs"]:
+        fl = r["fleet"]
+        rungs.append(dict(
+            rung=r["rung"], spans_per_s=r["steady"]["spans_per_s"],
+            spans=r["manifest"]["spans"], posts=r["manifest"]["posts"],
+            e2e_pct=r["accuracy"]["e2e_pct"], zero_loss=fl["zero_loss"],
+            steady_kernel_builds=r["steady"]["backend_compiles"],
+            migrations=fl["migrations"], crash_kills=fl["crash_kills"],
+            respawns=fl["respawns"], crash_failovers=fl["crash_failovers"],
+            replicas_restarted=fl["replicas_restarted"],
+            reset_midbody=fl["reset_midbody"], deduped_windows=fl["deduped_windows"],
+            generator_503s=fl["generator_503s"], steady_wall_s=fl["steady_wall_s"],
+            chaos_wall_s=fl["chaos_wall_s"], wall_s=fl["wall_s"],
+            seal_emit_p99_ms=fl["seal_emit_p99_ms"], kernels_steady=fl["kernels_steady"]))
+        if not fl["zero_loss"] or r["accuracy"]["e2e_pct"] != 100.0:
+            failed.append(f"fleet campaign rung {r['rung']}: {rungs[-1]}")
+        if not any(k.get("fused_assign", 0) > 0 for k in fl["kernels_steady"].values()):
+            failed.append(f"fleet campaign rung {r['rung']}: no K1 launch in the steady phase")
+    gate = "pass" if not failed else "fail"
+    return dict(config="fleet-wire-campaign", rungs=rungs, gate=gate, wall_s=wall,
+                artifact_wall_s=art["wall_s"], beside="legs 1 and 2", card=card), failed
+
+
+def fleet_tier_phase(card, root, corpus=None, ref=None):
+    """Config ``fleet-cg-4t-2r`` through the replica fleet tier on the card
+    (see the module docstring, phase fleet). ``corpus`` is serve-cg-4t's
+    (a :class:`SynthJob`), ``ref`` the serve phase's t0 bytes and
+    per-tenant ill-posed windows (None: ``t0`` alone is served here for
+    its bytes, and ``SERVE_ILL_POSED`` gives the rule). Returns the shared
+    run's launches summed over its replicas."""
+    t_phase = time.perf_counter()
+    if corpus is None:
+        with SynthJob(os.path.join(root, "fleet-corpus")) as job:
+            _, bodies, truths = job.result()
+    else:
+        _, bodies, truths = corpus.result()
+    if ref is None:
+        path, _, _, _ = serve_alone(bodies[0], os.path.join(root, "fleet-alone"), "cuda")
+        with open(path, "rb") as f:
+            ref = dict(t0_bytes=f.read(), ill=dict(SERVE_ILL_POSED))
+    # the campaign and the two byte-identity legs are fleets of their own:
+    # the campaign runs beside the shared run, the legs side by side
+    from concurrent.futures import ThreadPoolExecutor
+
+    campaign = fleet_campaign_start(root)
+    try:
+        shared, failed, fleet_t0 = fleet_shared_run(card, root, bodies, truths, ref["ill"])
+        print("fleet " + json.dumps(shared), flush=True)
+        with ThreadPoolExecutor(3) as pool:
+            legs = [pool.submit(fleet_pin_leg, root, bodies[0], ref["t0_bytes"], failover)
+                    for failover in (False, True)]
+            replay = pool.submit(fleet_replay, card, root, bodies, truths, fleet_t0)
+            for failover, fut in zip((False, True), legs):
+                line, f = fut.result()
+                print(("fleet-failover " if failover else "fleet-migrate ")
+                      + json.dumps(dict(line, card=card)), flush=True)
+                failed += f
+            line, f = replay.result()
+            print("fleet-replay " + json.dumps(line), flush=True)
+            failed += f
+    finally:
+        line, f = fleet_campaign_finish(card, campaign)
+    print("fleet-campaign " + json.dumps(line), flush=True)
+    failed += f
+    if failed:
+        raise AssertionError("fleet: " + "; ".join(failed))
+    print(f"fleet-phase: {time.perf_counter() - t_phase:.3f} s wall", flush=True)
+    by = shared["replica_launches"].values()
+    return {k: sum(v[k] for v in by) for k in ("fused_assign", "sinkhorn", "assemble_block")}
+
+
 def scorecard_phase(card):
     """``cli scorecard --traces 32`` on the card: its table and verdict
     printed, K1 launched, the host baselines equal to the JAX package's
@@ -3725,7 +4334,7 @@ def scorecard_phase(card):
     return k1
 
 
-def executor_phase(card, root):
+def executor_phase(card, root, corpora=None):
     """Config ``alibaba-exp5-15000`` through the CLI, graph by graph, with
     the ground-truth DAG and then without it, exp4's predictors on graph
     0 with and without the thread pool, the metrics and events run and
@@ -3735,8 +4344,9 @@ def executor_phase(card, root):
     ground-truth-free ones, the largest K1 block of the exp5 loop, of
     ground-truth-free discovery and of ``alibaba-cg-8k``, and what
     :func:`rerun_checks` needs: the graphs, both loops' card results and
-    the graphs whose ground-truth-free run needs its own CPU rerun."""
-    from traceweaver_tpu_torch.alibaba.synthesize import synthesize_corpus
+    the graphs whose ground-truth-free run needs its own CPU rerun.
+    ``corpora`` (a :class:`CorpusJobs`) holds the exp5 and ``cg-8k``
+    corpora when given."""
     from traceweaver_tpu_torch.runtime.executor import RESULT_FAMILIES
 
     t_phase = time.perf_counter()
@@ -3759,11 +4369,11 @@ def executor_phase(card, root):
             raise AssertionError(f"cli {argv}: ingest ran {res.store.ingest_front_end}")
         return res, peak, wall, n, ms, ill
 
-    corpus, results = os.path.join(root, "exp5"), os.path.join(root, "results")
+    results = os.path.join(root, "results")
     t0 = time.perf_counter()
-    dirs = synthesize_corpus(corpus, n_graphs=15, traces_per_graph=1000, seed=10)
+    dirs, synth_s = corpus_dirs(root, "exp5", corpora)
     print(f"executor-corpus alibaba-exp5-15000: {len(dirs)} call graphs in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+          f"{synth_s:.3f} s, waited for {time.perf_counter() - t0:.3f} s", flush=True)
     names = [os.path.basename(d) for d in dirs]
     if names != list(EXP5_JAX_ACCURACY):
         raise AssertionError(f"corpus graphs {dirs}")
@@ -3836,10 +4446,7 @@ def executor_phase(card, root):
     query_run(os.path.join(results, "e2e_alibaba_cg_0_load_multiple_1_15000_1_0.0.pickle"),
               card)
 
-    big = os.path.join(root, "cg8k")
-    t0 = time.perf_counter()
-    (d,) = synthesize_corpus(big, n_graphs=1, traces_per_graph=8192, seed=10)
-    synth_s = time.perf_counter() - t0
+    (d,), synth_s = corpus_dirs(root, "cg8k", corpora)
     ingest_compare("alibaba-cg-8k", d, 8192, card)
     res, peak, wall, k1, ms, ill = driven(exp5_argv(
         d, 0, os.path.join(root, "results-8k"), predictors="10", max_traces=8192),
@@ -4053,13 +4660,16 @@ def ladder_run(card, data, out, messy, graphs, rungs, table, reruns, keep=None):
     return records, k1_total[0]
 
 
-def ladder_phase(card, root):
-    """The smoke's ladder (see the module docstring): the five lower
-    rungs of the clean corpus the executor phase wrote, on
-    ``LADDER_GRAPHS``, then the messy corpus's ``LADDER_HARD_RUNGS`` on
-    ``LADDER_HARD_GRAPHS``. Returns the K1 launches and the calls that
-    need a CPU rerun."""
+def ladder_phase(card, root, corpora=None):
+    """The smoke's ladder (see the module docstring): ``LADDER_RUNGS`` of
+    the clean corpus the executor phase wrote, on ``LADDER_GRAPHS``, then
+    the messy corpus's ``LADDER_HARD_RUNGS`` on ``LADDER_HARD_GRAPHS``
+    (from ``corpora``, a :class:`CorpusJobs`, when given; else the runner
+    synthesizes it). Returns the K1 launches and the calls that need a
+    CPU rerun."""
     reruns = []
+    if corpora is not None:
+        corpora.get("exp5-hard")
     _, k1 = ladder_run(card, os.path.join(root, "exp5"), os.path.join(root, "ladder"),
                        False, LADDER_GRAPHS, LADDER_RUNGS, EXP5_LADDER_JAX, reruns)
     _, k1_hard = ladder_run(card, os.path.join(root, "exp5-hard"),
@@ -4397,10 +5007,12 @@ def capture_serve_leg(logs, root, card, launches):
     return wall
 
 
-def adapt_phase(card, root):
+def adapt_phase(card, root, controls=True):
     """Configs ``adapt-burst-60`` and ``adapt-burst-60x1024`` through
-    ``cli stream --source synth:adapt-burst...`` on the card, each without
-    and with ``--adapt``, every launch counter reset just before each call
+    ``cli stream --source synth:adapt-burst...`` on the card, each with
+    ``--adapt`` and, with ``controls``, first without it (the whole smoke
+    leaves these control runs to ``--adapt`` for its time), every launch
+    counter reset just before each call
     and read just after, and the refit's own launches counted around
     ``maybe_adapt``. Per-window accuracy (the JAX package's grading of the
     sink) before the shift and in the tail, drift alerts, refits,
@@ -4436,7 +5048,7 @@ def adapt_phase(card, root):
         return n
 
     for config, n_req in ADAPT_CONFIGS:
-        for adapt_on in (False, True):
+        for adapt_on in (False, True) if controls else (True,):
             sink = os.path.join(root, f"{config}-{int(adapt_on)}.jsonl")
             argv = ["--source", f"synth:adapt-burst?n_bursts=60&shift_at={ADAPT_SHIFT}"
                     f"&n_req={n_req}", *ADAPT_ARGS, "--out", sink] + (
@@ -4592,6 +5204,9 @@ def main() -> int:
                     "phase (stream-cg-8k) and its K1 block's check")
     ap.add_argument("--serve", action="store_true", help="run only the serve "
                     "phase (serve-cg-4t) and its K1 block's check")
+    ap.add_argument("--fleet", action="store_true", help="run only the fleet phase "
+                    "(fleet-cg-4t-2r: two replica processes, migration, crash "
+                    "recovery, the wire campaign)")
     ap.add_argument("--capture", action="store_true", help="run only the capture "
                     "phase (capture-8k), its K1 block's and assembly calls' checks "
                     "and the native schemes' check")
@@ -4647,12 +5262,17 @@ def main() -> int:
         return 0
     if args.serve:
         with tempfile.TemporaryDirectory() as tmp:
-            _, blk, state = serve_phase(card, tmp)
+            _, blk, state, _ = serve_phase(card, tmp)
             check_case("serve-block", blk, 1e-3, posed_only=True)
             if state[2]:
                 failed = serve_verdict(card, state, cpu_serve(state[0], 8))
                 if failed:
                     raise AssertionError(failed)
+        print(card, flush=True)
+        return 0
+    if args.fleet:
+        with tempfile.TemporaryDirectory() as tmp:
+            fleet_tier_phase(card, tmp)
         print(card, flush=True)
         return 0
     if args.capture or args.adapt:
@@ -4698,6 +5318,7 @@ def main() -> int:
         serve_rerun_any = later.enter_context(ServeRerun(None))
         serve_corpus = later.enter_context(SynthJob(os.path.join(tmp, "serve")))
         schemes_job = later.enter_context(SchemesJob())
+        corpora = later.enter_context(CorpusJobs(tmp))
         launches, real_block, slice_sweep, slice_peak = slice_phase(card)
         fleet_launches, fleet_block, probs, fleet_wall, fleet_sweep, fleet_peak = \
             fleet_phase(card)
@@ -4709,25 +5330,29 @@ def main() -> int:
         print(f"phase-clock: first phases done at {time.perf_counter() - t_smoke:.1f} s",
               flush=True)
         executor_launches, gtfree_launches, executor_blocks, rerun_state = \
-            executor_phase(card, tmp)
+            executor_phase(card, tmp, corpora)
         print(f"phase-clock: executor done at {time.perf_counter() - t_smoke:.1f} s",
               flush=True)
         reruns = later.enter_context(CpuReruns(workers=6))
         submitted = rerun_submit(reruns, tmp, rerun_state[0], rerun_state[3])
-        ladder_launches, ladder_reruns_needed = ladder_phase(card, tmp)
+        ladder_launches, ladder_reruns_needed = ladder_phase(card, tmp, corpora)
         ladder_futs = [ladder_submit(reruns, tmp, r) for r in ladder_reruns_needed]
         print(f"phase-clock: ladder done at {time.perf_counter() - t_smoke:.1f} s",
               flush=True)
         stream_launches, executor_blocks["stream-block"], stream_state = \
-            stream_phase(card, tmp)
+            stream_phase(card, tmp, corpora)
         stream_rerun = stream_rerun_any if stream_state[3] else None
-        serve_launches, executor_blocks["serve-block"], serve_state = \
+        serve_launches, executor_blocks["serve-block"], serve_state, fleet_ref = \
             serve_phase(card, tmp, serve_corpus)
         serve_rerun = serve_rerun_any if serve_state[2] else None
         print(f"phase-clock: serve done at {time.perf_counter() - t_smoke:.1f} s", flush=True)
+        fleet_serve_launches = fleet_tier_phase(card, tmp, serve_corpus, fleet_ref)
+        del fleet_ref
+        print(f"phase-clock: fleet done at {time.perf_counter() - t_smoke:.1f} s", flush=True)
         capture_launches, executor_blocks["capture-block"], capture_calls = \
             capture_phase(card, tmp)
-        adapt_launches, executor_blocks["adapt-block"], adapt_calls = adapt_phase(card, tmp)
+        adapt_launches, executor_blocks["adapt-block"], adapt_calls = adapt_phase(
+            card, tmp, controls=False)
         print(f"phase-clock: capture and adapt done at {time.perf_counter() - t_smoke:.1f} s",
               flush=True)
         scorecard_launches = scorecard_phase(card)
@@ -4768,6 +5393,9 @@ def main() -> int:
         "stream_assemble_block": stream_launches["assemble_block"],
         "serve_fused_assign": serve_launches["fused_assign"],
         "serve_assemble_block": serve_launches["assemble_block"],
+        "fleet_serve_fused_assign": fleet_serve_launches["fused_assign"],
+        "fleet_serve_sinkhorn": fleet_serve_launches["sinkhorn"],
+        "fleet_serve_assemble_block": fleet_serve_launches["assemble_block"],
         "capture_fused_assign": capture_launches["fused_assign"],
         "capture_assemble_block": capture_launches["assemble_block"],
         "adapt_fused_assign": adapt_launches["fused_assign"],
@@ -4798,6 +5426,7 @@ def main() -> int:
                     scorecard_launches=scorecard_launches if name == "fused_assign" else 0,
                     stream_launches=stream_launches.get(name, 0),
                     serve_launches=serve_launches.get(name, 0),
+                    fleet_serve_launches=fleet_serve_launches[name],
                     capture_launches=capture_launches.get(name, 0),
                     adapt_launches=adapt_launches.get(name, 0),
                     adapt_refit_launches=adapt_launches.get(f"refit_{name}", 0),
@@ -4845,6 +5474,8 @@ def main() -> int:
                                      if precision == "f32" else 0),
                     serve_launches=(serve_launches["assemble_block"]
                                     if precision == "f32" else 0),
+                    fleet_serve_launches=(fleet_serve_launches["assemble_block"]
+                                          if precision == "f32" else 0),
                     capture_launches=(capture_launches["assemble_block"]
                                       if precision == "f32" else 0),
                     adapt_launches=(adapt_launches["assemble_block"]

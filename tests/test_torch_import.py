@@ -115,6 +115,13 @@ MIRRORS = {
     "traceweaver_tpu_torch.adapt.controller": "traceweaver_tpu/adapt/controller.py",
     "traceweaver_tpu_torch.adapt.refit": "traceweaver_tpu/adapt/refit.py",
     "traceweaver_tpu_torch.synth.capture": "bench.py",
+    "traceweaver_tpu_torch.campaign": "traceweaver_tpu/campaign",
+    "traceweaver_tpu_torch.campaign.ledger": "traceweaver_tpu/campaign/ledger.py",
+    "traceweaver_tpu_torch.campaign.compare": "traceweaver_tpu/campaign/compare.py",
+    "traceweaver_tpu_torch.fleet_serve": "traceweaver_tpu/fleet_serve/__init__.py",
+    "traceweaver_tpu_torch.fleet_serve.router": "traceweaver_tpu/fleet_serve/router.py",
+    "traceweaver_tpu_torch.fleet_serve.manager": "traceweaver_tpu/fleet_serve/manager.py",
+    "traceweaver_tpu_torch.fleet_serve.campaign": "traceweaver_tpu/fleet_serve/campaign.py",
 }
 
 
@@ -179,6 +186,24 @@ def test_no_tw_environment_knobs(path):
             if isinstance(node, ast.Subscript) and isinstance(node.slice, ast.Constant) \
                     and str(node.slice.value).startswith("TW_"):
                 raise AssertionError(f"{f}: reads {node.slice.value}")
+
+
+def test_fleet_tier_imports_no_torch():
+    """The fleet's router, manager and campaign, the campaign ledger and
+    compare, and the ``fleet`` subcommand's parsing load no torch (so no
+    CUDA): the replicas own the card."""
+    code = (
+        "import json, sys\n"
+        "import traceweaver_tpu_torch.fleet_serve.campaign\n"
+        "import traceweaver_tpu_torch.campaign\n"
+        "from traceweaver_tpu_torch.runtime import cli\n"
+        "assert cli.main(['fleet', 'serve', '--replicas', '0', '--state-dir', 'x']) == 2\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "torch" not in loaded and not [m for m in loaded if _forbidden(m)]
 
 
 def test_weaver_torch_without_card_raises(monkeypatch):

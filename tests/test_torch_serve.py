@@ -13,7 +13,7 @@ HTTP on loopback into the port's service on the CPU:
   tenant cap and id validation, malformed spans and strict mode, a fault
   storm kept to its own tenant;
 - ``/readyz`` turns 503 on drain, ``/metrics`` equals ``/api/v1/stats``,
-  the routes not ported yet answer with their ROADMAP item;
+  the live-migration routes answer (410 for a migrated-out tenant);
 - no card and no ``device``: the service and the CLI refuse;
 - the ``serve --device cpu`` subprocess drains on SIGTERM and resumes;
 - a tenant replayed alone with the shared run's batches emits the
@@ -320,6 +320,10 @@ def test_malformed_spans_counted_like_jax_and_strict_mode():
 
 
 def test_readyz_metrics_and_not_ported_routes(tmp_path):
+    """``/readyz``, ``/metrics`` against ``/api/v1/stats``, and the routes
+    that answered 501 until live migration was ported: ``migrate_out``
+    hands a tenant's transfer out and tombstones it (its requests answer
+    410), ``migrate_in`` refuses a bad transfer and installs a good one."""
     svc = TenantService(cfg(state_dir=str(tmp_path / "s")), device="cpu")
     server = make_server(svc, port=0)
     threading.Thread(target=server.serve_forever, daemon=True).start()
@@ -342,9 +346,17 @@ def test_readyz_metrics_and_not_ported_routes(tmp_path):
         for fam in ("tw_devcols_ring_fill", "tw_serve_tenant_ledger_total",
                     'key="wal_appends"', "tw_tenant_windows_total"):
             assert fam in metrics, fam
-        for route, item in (("migrate_out", "fleet_serve"), ("migrate_in", "fleet_serve")):
-            code, out, _ = http("POST", base + f"/api/v1/tenants/a/{route}", {"x": 1})
-            assert code == 501 and item in out["error"] and "ROADMAP" in out["error"]
+        code, out, _ = http("POST", base + "/api/v1/tenants/a/migrate_in", {"x": 1})
+        assert code == 400 and "transfer" in out["error"]
+        code, transfer, _ = http("POST", base + "/api/v1/tenants/b/migrate_out", {})
+        assert code == 200 and transfer["tenant"] == "b" and transfer["checkpoint_b64"]
+        code, out, _ = http("POST", base + "/api/v1/tenants/b/spans",
+                            hotel_payload(prefix="b", base_us=9e6))
+        assert code == 410 and "migrated out" in out["error"]
+        code, out, _ = http("POST", base + "/api/v1/tenants/b/migrate_in", transfer)
+        assert code == 200 and out["tenant"] == "b" and out["ring_traces"] == 24
+        code, out, _ = http("POST", base + "/api/v1/tenants/nobody/migrate_out", {})
+        assert code == 404
         # the capture route is ported: a JSON body without a sources
         # bundle is the client's error
         code, out, _ = http("POST", base + "/api/v1/tenants/a/capture", {"x": 1})

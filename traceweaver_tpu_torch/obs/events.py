@@ -70,6 +70,8 @@ KNOWN_KINDS = (
     "capture_churn",      # connections re-keyed mid-capture
     "clock_skew",         # a fit of the capture sources' clock offsets
     "adapt",              # adaptation-ladder actuations (adapt/controller.py)
+    "fleet",              # replica fleet: migrations, health, crashes, restarts
+    "campaign",           # campaign runs: start, rung, finish (campaign/ledger.py)
 )
 
 _ACTIVE: Optional[EventLog] = None

@@ -14,12 +14,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from typing import List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+#: sources this process compiled with nvcc, in order (a library found built
+#: is not listed): the port's counterpart of the JAX package's compile
+#: counters, read by a serve replica's ``/api/v1/stats``
+BUILT: List[str] = []
+_built_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -48,4 +56,6 @@ def build(source: str, stem: str, verbose: bool = False) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib)
+    with _built_lock:
+        BUILT.append(source)
     return proc.stderr if verbose else lib

@@ -426,6 +426,28 @@ class DeviceColumnStore:
         with self._lock:
             return list(self._rings.values())
 
+    def drop_tenant(self, tenant: str) -> int:
+        """Drop one tenant's rings (its live migration out): each under
+        its own lock, after the gathers and the append recorded on it have
+        run on the card, so no queued gather reads a freed buffer and a
+        tenant that migrates back starts from fresh rings. Every sequence
+        the rings handed out dies with them. Returns the rings dropped."""
+        with self._lock:
+            keys = [k for k in self._rings if k[0] == tenant]
+            rings = [self._rings.pop(k) for k in keys]
+        for ring in rings:
+            with ring._lock:
+                for ev in ring._reads:
+                    ev.synchronize()
+                if ring._written is not None:
+                    ring._written.synchronize()
+                ring._reads.clear()
+                ring._written = None
+                ring._reset(None)
+        if rings:
+            _OBS_RING_EVENTS.inc(len(rings), kind="tenant_drop")
+        return len(rings)
+
     def clear(self) -> None:
         """Drop every ring (tests, and a fresh start between runs)."""
         with self._lock:

@@ -1,6 +1,6 @@
 """The command line of the port (mirrors ``traceweaver_tpu/runtime/cli.py``,
-its batch path and its ``stream``, ``serve``, ``events``, ``query`` and
-``scorecard`` subcommands).
+its batch path and its ``stream``, ``serve``, ``fleet``, ``events``,
+``query`` and ``scorecard`` subcommands).
 
 The JAX CLI's 17 batch flags, so the ``exps/exp*`` argument lists run
 unchanged, plus the flags that stand for the JAX CLI's environment
@@ -32,12 +32,19 @@ loopback while the run lasts; 0 binds a free port) and ``--events``
     python -m traceweaver_tpu_torch.runtime.cli serve --port 8321 \
         --state-dir state/ [--resume] [--no-continuous] [--device cpu] \
         [--adapt]
+    python -m traceweaver_tpu_torch.runtime.cli fleet serve --replicas 2 \
+        --port 8320 --state-dir fleet/ [-- --fix 2 --device cpu]
+    python -m traceweaver_tpu_torch.runtime.cli fleet campaign --replicas 1,2 \
+        --seconds 6 --state-dir campaign/ [--mode inproc] [--device cpu] \
+        [--out CAMPAIGN_fleet.json]
     python -m traceweaver_tpu_torch.runtime.cli events run.jsonl
     python -m traceweaver_tpu_torch.runtime.cli query out/e2e_....pickle
     python -m traceweaver_tpu_torch.runtime.cli scorecard --traces 32
 
 With no card and no ``--device`` the batch run, ``stream`` and
-``serve`` exit non-zero before loading anything. ``serve`` prints
+``serve`` exit non-zero before loading anything (and so do ``fleet``'s
+replicas: ``fleet serve`` exits 1, passing ``--device`` to its replicas
+after ``--``). ``serve`` prints
 ``[serve] listening on http://HOST:PORT`` once bound (``--port 0`` binds
 a free port) and drains on SIGTERM or SIGINT; the JAX CLI's persistent
 XLA cache and AOT warmup have no counterpart. ``stream``'s ``--selftrace PATH``
@@ -539,6 +546,15 @@ def serve_main(argv) -> int:
     except (ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if device.type == "cuda":
+        # the card's context is made before the server announces itself:
+        # made at the first solve it holds the interpreter for seconds while
+        # /readyz goes unanswered, and a fleet router's probe takes the
+        # replica out of routing
+        import torch
+
+        torch.zeros(1, device=device)
+        torch.cuda.synchronize(device)
     if args.continuous and not args.quiet:
         print("[serve] continuous batching: event-driven admission, seal->emit "
               "p99 SLO %.0f ms (--no-continuous: the fixed pump)"
@@ -567,6 +583,7 @@ def serve_main(argv) -> int:
 SUBCOMMANDS = {
     "stream": ("traceweaver_tpu_torch.runtime.cli", "stream_main"),
     "serve": ("traceweaver_tpu_torch.runtime.cli", "serve_main"),
+    "fleet": ("traceweaver_tpu_torch.fleet_serve", "main"),
     "events": ("traceweaver_tpu_torch.obs.events", "tail_main"),
     "query": ("traceweaver_tpu_torch.query.delay_culprit", "main"),
     "scorecard": ("traceweaver_tpu_torch.metrics.scorecard", "main"),

@@ -12,6 +12,15 @@ Endpoints::
     POST /api/v1/tenants/<id>/capture              strace log text (?source=)
                                                    or {"sources": {name: text}}
     POST /api/v1/tenants/<id>/flush                seal+solve now (one tenant)
+    POST /api/v1/tenants/<id>/migrate_out          live migration, source half:
+                                                   checkpoint + sink bytes out,
+                                                   the tenant tombstoned here
+    POST /api/v1/tenants/<id>/migrate_in           live migration, destination
+                                                   half: install and resume
+    POST /api/v1/tenants/<id>/migrate_commit       settle it at the source: the
+                                                   state kept there is deleted
+    POST /api/v1/tenants/<id>/migrate_abort        undo it at the source: the
+                                                   tenant resumes from that state
     POST /api/v1/flush                             seal+solve now (all)
     POST /api/v1/reset_latency_window              fresh seal→emit p99 window
     GET  /api/v1/tenants                           tenant list
@@ -26,10 +35,6 @@ Endpoints::
     GET  /readyz                                   readiness (rolling restarts):
                                                    200, 503 once a drain began
 
-Not ported yet: ``POST .../migrate_out`` / ``.../migrate_in``
-(``fleet_serve``'s live migration). They answer 501 with the
-``ROADMAP.md`` item that brings them, and fall back to nothing.
-
 ``/readyz`` keeps the JAX package's ``TW_AOT=off`` answer
 (``runtime/aot.py readiness``): 200 with ``{"aot": "off", "phase": "off",
 "ready": true, ...}``, and 503 once a drain has begun. The port compiles
@@ -38,8 +43,9 @@ so the JAX package's ahead-of-time shape lattice, which ``/readyz`` gates
 on there, has no counterpart.
 
 Error mapping: bad JSON / malformed payloads (strict mode) -> 400,
-unknown tenant or trace -> 404, tenant cap / invalid tenant id -> 429 /
-400 (:class:`TenancyError`), saturated per-tenant queues ->
+unknown tenant or trace -> 404, a migrated-out tenant -> 410 (the fleet
+router re-resolves its pin), tenant cap / invalid tenant id or transfer
+-> 429 / 400 (:class:`TenancyError`), saturated per-tenant queues ->
 429 with a ``Retry-After`` header derived from the backlog and drain
 pace, everything else -> 500 with the exception name (never a silent
 hang).
@@ -70,12 +76,6 @@ MAX_BODY_BYTES = 64 << 20
 # (clear-on-cap beats LRU bookkeeping at this size); the hit/render
 # ledger on /metrics measures what the cache actually saves.
 _OBS_ERROR_BODY = serve_families()["error_body"]
-
-#: routes not ported yet -> the ROADMAP.md item that brings them
-NOT_PORTED = {
-    "/migrate_out": "live migration (ROADMAP.md A: fleet_serve and campaign)",
-    "/migrate_in": "live migration (ROADMAP.md A: fleet_serve and campaign)",
-}
 
 # the JAX package's /readyz answer with TW_AOT=off (runtime/aot.py
 # readiness): the port has no ahead-of-time lattice to gate on
@@ -144,12 +144,17 @@ class ServeHandler(BaseHTTPRequestHandler):
         self._send(code, _error_body(message), headers=headers)
 
     def _tenancy_error(self, e: TenancyError) -> None:
-        """TenancyError -> status: the tenant cap is 429, everything else
-        (a bad id, a bad header) is 400."""
+        """TenancyError -> status: a migrated-out tenant is 410 Gone (the
+        fleet router re-resolves the tenant's pin), the tenant cap is 429,
+        everything else (a bad id, a bad header, a bad transfer) is 400."""
         msg = str(e)
-        self._error(429 if "cap" in msg else 400, msg)
+        if "migrated out" in msg:
+            self._error(410, msg)
+        else:
+            self._error(429 if "cap" in msg else 400, msg)
 
     def _read_body(self, expected: str) -> Optional[bytes]:
+        self._body_read = True
         try:
             length = int(self.headers.get("Content-Length", "0"))
         except ValueError:
@@ -197,13 +202,31 @@ class ServeHandler(BaseHTTPRequestHandler):
             return m.group(1), (m.group(2) or ""), query
         return None, parsed.path, query
 
+    def _drain_body(self) -> None:
+        """Read a request body no route read: closing a connection over
+        unread bytes resets it, which can destroy the reply before the
+        client reads it (a large ``migrate_out`` transfer, a 429)."""
+        if self._body_read:
+            return
+        self._body_read = True
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+        except ValueError:
+            return
+        if 0 < length <= MAX_BODY_BYTES:
+            self.rfile.read(length)
+
     # -- verbs ------------------------------------------------------------
     def do_POST(self) -> None:  # noqa: N802 — BaseHTTPRequestHandler API
+        self._body_read = False
+        try:
+            self._post()
+        finally:
+            self._drain_body()
+
+    def _post(self) -> None:
         tenant_id, sub, query = self._tenant_route()
         try:
-            if tenant_id is not None and sub in NOT_PORTED:
-                self._error(501, f"POST {sub} is not ported yet: {NOT_PORTED[sub]}")
-                return
             if tenant_id is not None and sub == "/spans":
                 # explicit backpressure: a tenant whose pending+spill
                 # queues are saturated would drop the next sealed window;
@@ -269,6 +292,22 @@ class ServeHandler(BaseHTTPRequestHandler):
             elif tenant_id is not None and sub == "/flush":
                 self.service.tenant(tenant_id, create=False)
                 self._reply(200, self.service.flush(tenant_id))
+            elif tenant_id is not None and sub == "/migrate_out":
+                # live migration, source half: checkpoint and sink bytes
+                # out, the tenant tombstoned here
+                self._reply(200, self.service.migrate_out(tenant_id))
+            elif tenant_id is not None and sub == "/migrate_in":
+                transfer = self._read_json()
+                if transfer is None:
+                    return
+                if not isinstance(transfer, dict):
+                    self._error(400, "expected a migration transfer object")
+                    return
+                self._reply(200, self.service.migrate_in(tenant_id, transfer))
+            elif tenant_id is not None and sub == "/migrate_commit":
+                self._reply(200, self.service.migrate_commit(tenant_id))
+            elif tenant_id is not None and sub == "/migrate_abort":
+                self._reply(200, self.service.migrate_abort(tenant_id))
             elif tenant_id is None and sub == "/api/v1/flush":
                 self._reply(200, self.service.flush())
             elif tenant_id is None and sub == "/api/v1/reset_latency_window":

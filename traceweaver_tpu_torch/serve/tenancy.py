@@ -50,13 +50,30 @@ carries a drift-to-adapt controller, whose refits
 :meth:`TenantService.run_adaptations` runs after each pump or solve
 retires (``TW_ADAPT`` and its knobs are ``ServeConfig`` fields).
 
-Not ported yet, queued in ``ROADMAP.md``: live migration
-(``migrate_out``, ``migrate_in``, ``read_crashed_transfer``,
-``tombstone_crashed_tenant``; ``fleet_serve``).
+Live migration (:meth:`TenantService.migrate_out` and
+:meth:`TenantService.migrate_in`, driven by ``fleet_serve``) moves a
+tenant between replicas: the source waits for the tenant's windows in
+flight to retire, checkpoints it, hands over the CRC-verified checkpoint
+with its sink and dead-letter bytes, drops its device-resident column
+rings and leaves a durable tombstone (:data:`MIGRATED_MARKER`; requests
+for the tenant answer 410 there, also after a restart); the destination
+installs the bytes and resumes the tenant as a restart would, its rings
+built afresh at its first solve. The source keeps its checkpoint and WAL
+under the tombstone until the migration is settled:
+:meth:`TenantService.migrate_commit` deletes them once the destination
+holds the tenant, :meth:`TenantService.migrate_abort` resumes the tenant
+from them when the destination refused it. (The JAX package deletes them
+at ``migrate_out``, so a refused ``migrate_in`` loses the tenant.)
+:func:`read_crashed_transfer` builds the
+same transfer from a crashed replica's disk (checkpoint, ``.prev``
+fallback, WAL tail) and :func:`tombstone_crashed_tenant` tombstones the
+dead copy. The transfer holds the port's own checkpoint pickles and
+crosses between the port's replicas only.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import queue
@@ -68,6 +85,7 @@ from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from traceweaver_tpu_torch import ops as _ops
 from traceweaver_tpu_torch.adapt.controller import (
     ADAPT_COOLDOWN_S,
     ADAPT_LOW_RATE,
@@ -89,7 +107,14 @@ from traceweaver_tpu_torch.query.delay_culprit import live_delay_culprit
 from traceweaver_tpu_torch.runtime import faults
 from traceweaver_tpu_torch.serve.ring import TraceRing, build_trace_records
 from traceweaver_tpu_torch.stream import wal as _walmod
-from traceweaver_tpu_torch.stream.checkpoint import load_checkpoint, save_checkpoint
+from traceweaver_tpu_torch.stream.checkpoint import (
+    CheckpointCorrupt,
+    load_checkpoint,
+    read_checkpoint_bytes,
+    save_checkpoint,
+    verify_checkpoint_bytes,
+    write_checkpoint_bytes,
+)
 from traceweaver_tpu_torch.stream.service import (
     StreamConfig,
     StreamingReconstructor,
@@ -98,6 +123,11 @@ from traceweaver_tpu_torch.stream.service import (
 from traceweaver_tpu_torch.stream.sources import SpanEvent
 
 _TENANT_ID_RE = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]{0,63}")
+
+#: durable migration tombstone, one per moved-out tenant dir: it survives a
+#: restart, so :meth:`TenantService.resume` re-tombstones the tenant rather
+#: than minting a forked twin from the files it left behind
+MIGRATED_MARKER = "migrated_out.json"
 
 #: client-seq dedup window depth per tenant: how many recently applied
 #: client seqs a retried POST can be answered from without re-ingesting
@@ -617,8 +647,16 @@ class Tenant:
         wal_state = serve.get("wal") or {}
         for k, v in wal_state.get("seen", []):
             tenant._wal_seen[int(k)] = int(v)
+        low_water = int(wal_state.get("low_water", 0))
         if cfg.wal:
-            tenant.wal_replay(int(wal_state.get("low_water", 0)))
+            tenant.wal_replay(low_water)
+            w = tenant._wal()
+            if w is not None and w.last_seq < low_water:
+                # a log that starts empty under an older checkpoint (a
+                # migrated tenant's: its source's log does not travel)
+                # numbers on from the checkpoint's mark, or a later replay
+                # from that checkpoint would skip the new records
+                w.last_seq = low_water
         return tenant
 
     @classmethod
@@ -760,6 +798,10 @@ class TenantService:
         # drain starts, so /readyz stops advertising a dying replica
         # before the listener closes
         self.draining = False
+        # live-migration tombstones: a tenant moved off this replica must not
+        # come back to life here on a late POST (its stream would fork
+        # across replicas); its requests answer 410, so a router re-resolves
+        self.migrated_out: Dict[str, float] = {}
         # the shared-dispatch ledger; the tenant id column breaks its
         # totals down per tenant (tenant_windows_* buckets)
         self.fleet_stats: Dict[str, float] = {}
@@ -816,6 +858,10 @@ class TenantService:
         with self._lock:
             t = self.tenants.get(tenant_id)
             if t is None:
+                if tenant_id in self.migrated_out:
+                    raise TenancyError(
+                        f"tenant {tenant_id!r} migrated out of this replica "
+                        "(route to its new home)")
                 if not create:
                     raise KeyError(tenant_id)
                 if len(self.tenants) >= self.cfg.max_tenants:
@@ -1031,6 +1077,7 @@ class TenantService:
             self._ring_outstanding[ticket.seq] = ticket
             self._bump("ring_submitted")
             _OBS_INFLIGHT.set(float(len(self._ring_outstanding)))
+            _events.emit("serve", "ring_ticket_submitted", **_ticket_fields(ticket))
             return ticket
 
     def launch_ticket(self, ticket: _Ticket) -> None:
@@ -1098,6 +1145,7 @@ class TenantService:
                 self._bump("pumped_windows", n)
                 self._bump("continuous_dispatches")
                 self._bump("ring_completed")
+                _events.emit("serve", "ring_ticket_completed", **_ticket_fields(ticket))
                 self._ring_completions.append((time.monotonic(), n))
                 if ticket.via_ring and self.dispatcher is not None:
                     self.dispatcher.note_solve(ticket.solve_s, n)
@@ -1380,6 +1428,185 @@ class TenantService:
             return max(0.005, self.dispatcher.solve_ewma_s / fill)
         return max(0.05, (t.svc.seal_emit_p99_ms() or 1000.0) / 1000.0)
 
+    # -- live migration ---------------------------------------------------
+    def migrate_out(self, tenant_id: str) -> Dict[str, object]:
+        """Source half of live migration: checkpoint the tenant (open and
+        queued windows, ring, counters: nothing is sealed early), read back
+        the CRC-verified checkpoint and the sink and dead-letter bytes its
+        offset splice refers to, then remove and tombstone the tenant here.
+        Returns the JSON transfer :meth:`migrate_in` installs.
+
+        Windows a ticket has taken but not retired sit in no queue, so a
+        checkpoint taken then would lose them: the migration waits for the
+        tenant's in-flight windows to retire (each ticket's complete or
+        abort retires its own, under the lock), within the drain budget."""
+        deadline = time.monotonic() + self.cfg.drain_timeout_s
+        while True:
+            with self._lock:
+                t = self.tenant(tenant_id, create=False)  # KeyError -> 404
+                if not t.in_flight:
+                    return self._migrate_out_locked(tenant_id, t)
+            if time.monotonic() >= deadline:
+                raise TenancyError(
+                    f"tenant {tenant_id!r}: in-flight dispatch did not retire "
+                    f"within the drain budget ({self.cfg.drain_timeout_s:.0f}s, "
+                    "drain_timeout_s); migration aborted (tenant stays live here)")
+            time.sleep(0.02)
+
+    def _migrate_out_locked(self, tenant_id: str, t: Tenant) -> Dict[str, object]:
+        """The checkpoint-and-tombstone half of :meth:`migrate_out`; the
+        caller holds the lock and saw ``t.in_flight`` empty."""
+        if not t.ckpt_path:
+            raise TenancyError(
+                "live migration needs a state dir (per-tenant checkpoints are "
+                "the transfer unit); restart serve with --state-dir")
+        if not t.checkpoint():
+            raise RuntimeError(f"tenant {tenant_id!r}: checkpoint write failed; "
+                               "migration aborted (tenant stays live here)")
+        ckpt = read_checkpoint_bytes(t.ckpt_path)
+        sink_b = b""
+        if t.svc.sink is not None:
+            t.svc.sink.close()
+            with open(t.svc.sink.path, "rb") as f:
+                sink_b = f.read()
+        dlq_b = b""
+        if t.svc.deadletter is not None:
+            t.svc.deadletter.close()
+            if os.path.exists(t.svc.deadletter.path):
+                with open(t.svc.deadletter.path, "rb") as f:
+                    dlq_b = f.read()
+        # the checkpoint just written covers the whole WAL (appends apply
+        # synchronously, nothing is in flight), so the log does not travel;
+        # it stays here with the checkpoint, under the tombstone (which no
+        # resume or crash failover reads past), until migrate_commit or
+        # migrate_abort settles the migration
+        t.close()
+        del self.tenants[tenant_id]
+        # its solves are over: its resident column rings go now, after
+        # their last gather, so their slots leave the card
+        _devcols.get_store().drop_tenant(tenant_id)
+        now = time.time()
+        # twlint: disable=TW005 — the caller (migrate_out) holds the service
+        # lock across this whole helper
+        self.migrated_out[tenant_id] = now
+        _write_marker(t.dir, tenant_id, now)
+        self._bump("migrations_out")
+        _events.emit("fleet", "migrate_out", tenant=tenant_id,
+                     checkpoint_bytes=len(ckpt), sink_bytes=len(sink_b))
+        return dict(tenant=tenant_id,
+                    checkpoint_b64=base64.b64encode(ckpt).decode("ascii"),
+                    sink_b64=base64.b64encode(sink_b).decode("ascii"),
+                    deadletter_b64=base64.b64encode(dlq_b).decode("ascii"))
+
+    def migrate_in(self, tenant_id: str, transfer: Dict[str, object]) -> Dict[str, object]:
+        """Destination half: install the transferred sink and dead-letter
+        bytes, the verified checkpoint and (a crash failover's) WAL tail
+        under this replica's state dir, then resume the tenant as a restart
+        would. The checkpoint's offset splice truncates the sink back to
+        the checkpointed byte, so the migrated tenant's output stays
+        byte-identical to an unmigrated run. Its device-resident rings are
+        built afresh at its first solve."""
+        if not self.cfg.state_dir:
+            raise TenancyError("live migration needs a state dir on the destination "
+                               "replica too; restart serve with --state-dir")
+        try:
+            ckpt = base64.b64decode(transfer.get("checkpoint_b64", "") or "")
+            sink_b = base64.b64decode(transfer.get("sink_b64", "") or "")
+            dlq_b = base64.b64decode(transfer.get("deadletter_b64", "") or "")
+            wal_b = base64.b64decode(transfer.get("wal_b64", "") or "")
+        except (TypeError, ValueError, AttributeError) as e:
+            raise TenancyError(f"malformed migration transfer: {e}") from None
+        if not ckpt and not wal_b:
+            raise TenancyError("malformed migration transfer: neither checkpoint_b64 "
+                               "nor wal_b64 present")
+        with self._lock:
+            if tenant_id in self.tenants:
+                raise TenancyError(f"tenant {tenant_id!r} already live on this replica: "
+                                   "refusing migrate_in (forked state)")
+            if len(self.tenants) >= self.cfg.max_tenants:
+                raise TenancyError(
+                    f"tenant cap reached ({self.cfg.max_tenants}, max_tenants): "
+                    f"refusing migrated tenant {tenant_id!r}")
+            if not _TENANT_ID_RE.fullmatch(tenant_id):
+                raise TenancyError(f"invalid tenant id {tenant_id!r}")
+            tdir = os.path.join(self.cfg.state_dir, tenant_id)
+            if ckpt:
+                try:
+                    verify_checkpoint_bytes(ckpt)
+                except CheckpointCorrupt as e:
+                    raise TenancyError(f"torn migration transfer: {e}") from None
+            # tombstoned until the install is whole: a crash midway leaves
+            # no half-installed tenant for a resume to mint, and what an
+            # earlier stay left here (an unsettled migrate_out) goes
+            os.makedirs(tdir, exist_ok=True)
+            now = time.time()
+            _write_marker(tdir, tenant_id, now)
+            try:
+                _discard_tenant_state(tdir)
+                if ckpt:
+                    write_checkpoint_bytes(os.path.join(tdir, "ckpt.pkl"), ckpt)
+                sink_path = os.path.join(tdir, "traces.jsonl")
+                with open(sink_path, "wb") as f:
+                    f.write(sink_b)
+                with open(sink_path + ".deadletter.jsonl", "wb") as f:
+                    f.write(dlq_b)
+                if wal_b:
+                    # a crash failover's WAL tail, installed before the
+                    # resume replays it (a torn tail in the copy is cut here)
+                    _walmod.install_bytes(os.path.join(tdir, "wal"), wal_b)
+                # a tenant coming back starts from fresh rings
+                _devcols.get_store().drop_tenant(tenant_id)
+                t = Tenant.recover(tenant_id, self.cfg, device=self.device)
+            except BaseException:
+                # the tombstone stays on disk; answer for it as a restart would
+                self.migrated_out.setdefault(tenant_id, now)
+                raise
+            os.remove(os.path.join(tdir, MIGRATED_MARKER))
+            self.tenants[tenant_id] = t
+            self.migrated_out.pop(tenant_id, None)
+            self._bump("migrations_in")
+            backlog = t.backlog
+        if self.dispatcher is not None:
+            self.dispatcher.kick()
+        _events.emit("fleet", "migrate_in", tenant=tenant_id, backlog=backlog)
+        return dict(tenant=tenant_id, backlog=backlog, ring_traces=len(t.ring))
+
+    def migrate_commit(self, tenant_id: str) -> Dict[str, object]:
+        """Settle a migration whose destination holds the tenant: delete
+        the checkpoint generations and WAL that :meth:`migrate_out` left
+        under the tombstone (idempotent)."""
+        with self._lock:
+            if tenant_id in self.tenants or tenant_id not in self.migrated_out:
+                raise TenancyError(f"tenant {tenant_id!r} has no migration to "
+                                   "commit on this replica")
+            _discard_tenant_state(os.path.join(self.cfg.state_dir, tenant_id))
+        _events.emit("fleet", "migrate_commit", tenant=tenant_id)
+        return dict(tenant=tenant_id, committed=True)
+
+    def migrate_abort(self, tenant_id: str) -> Dict[str, object]:
+        """Undo :meth:`migrate_out` when the destination refused the
+        tenant: resume it from the checkpoint and WAL left under the
+        tombstone, as a restart would, and lift the tombstone. The
+        tenant's slot was its own, so the tenant cap does not refuse it."""
+        with self._lock:
+            if tenant_id in self.tenants or tenant_id not in self.migrated_out:
+                raise TenancyError(f"tenant {tenant_id!r} has no migration to "
+                                   "abort on this replica")
+            tdir = os.path.join(self.cfg.state_dir, tenant_id)
+            if not os.path.isfile(os.path.join(tdir, "ckpt.pkl")):
+                raise TenancyError(f"tenant {tenant_id!r}: its migration was "
+                                   "committed; nothing to resume here")
+            t = Tenant.recover(tenant_id, self.cfg, device=self.device)
+            os.remove(os.path.join(tdir, MIGRATED_MARKER))
+            self.tenants[tenant_id] = t
+            self.migrated_out.pop(tenant_id, None)
+            self._bump("migrations_aborted")
+            backlog = t.backlog
+        if self.dispatcher is not None:
+            self.dispatcher.kick()
+        _events.emit("fleet", "migrate_abort", tenant=tenant_id, backlog=backlog)
+        return dict(tenant=tenant_id, backlog=backlog)
+
     def drain(self) -> Dict[str, int]:
         """Graceful drain (the SIGTERM path): stop the dispatcher, barrier
         on every outstanding ticket and retire the workers, checkpoint
@@ -1400,12 +1627,24 @@ class TenantService:
     def resume(cls, cfg: ServeConfig, device=None) -> "TenantService":
         """Restart from ``cfg.state_dir``: a subdirectory with a checkpoint
         becomes a resumed tenant, one with only a WAL (killed before its
-        first checkpoint) a recovered one."""
+        first checkpoint) a recovered one, and one with a migration
+        tombstone stays tombstoned (its requests keep answering 410)."""
         svc = cls(cfg, device=device)
         if cfg.state_dir and os.path.isdir(cfg.state_dir):
             for name in sorted(os.listdir(cfg.state_dir)):
                 ckpt = os.path.join(cfg.state_dir, name, "ckpt.pkl")
-                if os.path.isfile(ckpt):
+                marker = os.path.join(cfg.state_dir, name, MIGRATED_MARKER)
+                # the tombstone first: the state an unsettled migration
+                # keeps beside it must not resume
+                if os.path.isfile(marker):
+                    try:
+                        with open(marker) as f:
+                            ts = float(json.load(f).get("migrated_unix", 0.0))
+                    except (ValueError, OSError):
+                        ts = 0.0
+                    with svc._lock:
+                        svc.migrated_out[name] = ts
+                elif os.path.isfile(ckpt):
                     with svc._lock:
                         svc.tenants[name] = Tenant.resume(name, cfg, device=svc.device)
                 elif cfg.wal and _walmod.list_segments(
@@ -1514,9 +1753,12 @@ class TenantService:
                     continuous_dispatches=int(sc.get("continuous_dispatches", 0)),
                     adapt_refits=int(sc.get("adapt_refits", 0)),
                     dispatcher_crashes=int(sc.get("dispatcher_crashes", 0)),
+                    migrations_out=int(sc.get("migrations_out", 0)),
+                    migrations_in=int(sc.get("migrations_in", 0)),
                     backpressure_429s=int(sc.get("backpressure_429s", 0)),
                 ),
                 draining=self.draining,
+                migrated_out=sorted(self.migrated_out),
                 dispatcher_degraded=self.dispatcher_degraded,
                 continuous=(self.dispatcher.stats()
                             if self.dispatcher is not None else None),
@@ -1532,5 +1774,87 @@ class TenantService:
                     union_s=round(self._ring_union_s, 6),
                 ),
                 fleet=fleet,
+                kernels=_ops.kernel_counts(),
                 tenants={tid: t.stats() for tid, t in sorted(self.tenants.items())},
             )
+
+
+def read_crashed_transfer(tenant_dir: str, tenant_id: str) -> Dict[str, object]:
+    """A :meth:`TenantService.migrate_in` transfer built from a crashed
+    replica's disk (the failover half of crash recovery,
+    ``fleet_serve/manager.py``). No live service to quiesce: the
+    checkpoint may be stale or absent (a tenant never checkpointed), and
+    the WAL tail carries every payload acknowledged after it, which the
+    destination's resume replays. A primary checkpoint that fails its CRC
+    falls back to the rotated ``.prev``; sink bytes past the checkpointed
+    offset are spliced off by the resume, as on a restart."""
+    ckpt_b = b""
+    ckpt_path = os.path.join(tenant_dir, "ckpt.pkl")
+    for path in (ckpt_path, ckpt_path + ".prev"):
+        if not os.path.isfile(path):
+            continue
+        try:
+            ckpt_b = read_checkpoint_bytes(path)
+            break
+        except (CheckpointCorrupt, OSError):
+            continue
+    sink_b = dlq_b = b""
+    sink_path = os.path.join(tenant_dir, "traces.jsonl")
+    if os.path.isfile(sink_path):
+        with open(sink_path, "rb") as f:
+            sink_b = f.read()
+    if os.path.isfile(sink_path + ".deadletter.jsonl"):
+        with open(sink_path + ".deadletter.jsonl", "rb") as f:
+            dlq_b = f.read()
+    wal_b = _walmod.read_all_bytes(os.path.join(tenant_dir, "wal"))
+    if not ckpt_b and not wal_b:
+        raise TenancyError(f"tenant {tenant_id!r}: no recoverable state under "
+                           f"{tenant_dir} (no readable checkpoint, empty WAL)")
+    return dict(tenant=tenant_id,
+                checkpoint_b64=base64.b64encode(ckpt_b).decode("ascii"),
+                sink_b64=base64.b64encode(sink_b).decode("ascii"),
+                deadletter_b64=base64.b64encode(dlq_b).decode("ascii"),
+                wal_b64=base64.b64encode(wal_b).decode("ascii"))
+
+
+def tombstone_crashed_tenant(tenant_dir: str, tenant_id: str) -> None:
+    """After a failover, on the crashed replica's disk: the tenant lives on
+    a survivor now, so a durable :data:`MIGRATED_MARKER` goes down and its
+    checkpoint generations and WAL go; the dead replica, respawned with
+    ``--resume``, re-tombstones it rather than minting a forked twin."""
+    _write_marker(tenant_dir, tenant_id, time.time())
+    _discard_tenant_state(tenant_dir)
+
+
+def _ticket_fields(ticket: _Ticket) -> Dict[str, object]:
+    """A ring ticket's event fields: its process and sequence, and each
+    tenant's windows in it by index, so that the solve batches of a run
+    can be read back (and replayed) from the event sink."""
+    return dict(pid=os.getpid(), seq=ticket.seq,
+                windows={t.id: [b.k for b in bufs] for t, bufs in ticket.taken})
+
+
+def _write_marker(tenant_dir: str, tenant_id: str, ts: float) -> None:
+    """Put down the tenant's :data:`MIGRATED_MARKER` (durably: it is what
+    keeps a resume from reading the state beside it)."""
+    path = os.path.join(tenant_dir, MIGRATED_MARKER)
+    with open(path + ".tmp", "w") as f:
+        json.dump({"tenant": tenant_id, "migrated_unix": ts}, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(path + ".tmp", path)
+
+
+def _discard_tenant_state(tenant_dir: str) -> None:
+    """Delete a tombstoned tenant's checkpoint generations and WAL
+    segments (its sink stays)."""
+    ckpt_path = os.path.join(tenant_dir, "ckpt.pkl")
+    for path in (ckpt_path, ckpt_path + ".prev"):
+        if os.path.exists(path):
+            os.remove(path)
+    wal_dir = os.path.join(tenant_dir, "wal")
+    for name in _walmod.list_segments(wal_dir):
+        try:
+            os.remove(os.path.join(wal_dir, name))
+        except OSError:
+            pass

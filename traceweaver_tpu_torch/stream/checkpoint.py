@@ -27,7 +27,10 @@ Integrity contract (version 2):
   is corrupt or truncated (warned on stderr, marked
   ``_recovered_from_prev`` in the returned state); only both
   generations unreadable is fatal (:class:`CheckpointCorrupt`);
-- version-1 checkpoints (no trailer) are still read.
+- version-1 checkpoints (no trailer) are still read;
+- :func:`read_checkpoint_bytes` and :func:`write_checkpoint_bytes` carry
+  a checkpoint between processes for live migration, verified at both
+  ends.
 
 The state is host material only: spans, numpy statistics inside the
 ``EdgeDist``s, dicts; no tensor on the card. The pickles name the
@@ -102,6 +105,33 @@ def verify_checkpoint_bytes(raw: bytes, label: str = "<bytes>") -> bytes:
     # format) or a truncation that ate the trailer — a pickle load
     # distinguishes (a truncated pickle cannot load)
     return raw
+
+
+def read_checkpoint_bytes(path: str) -> bytes:
+    """Read a checkpoint file verbatim for transfer, verifying its CRC
+    trailer first (the ``migrate_out`` half of live migration): a torn
+    read is refused at the source."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    verify_checkpoint_bytes(raw, label=path)
+    return raw
+
+
+def write_checkpoint_bytes(path: str, raw: bytes) -> None:
+    """Install transferred checkpoint bytes (the ``migrate_in`` half):
+    verify the trailer, so a torn transfer is refused at the
+    destination, then write with :func:`save_checkpoint`'s fsync,
+    keep-last-good rotation and atomic rename."""
+    verify_checkpoint_bytes(raw, label=path)
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(tmp, "wb") as f:
+        f.write(raw)
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(path):
+        os.replace(path, path + ".prev")
+    os.replace(tmp, path)
 
 
 def _load_one(path: str) -> Dict:
