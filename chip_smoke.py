@@ -15,6 +15,7 @@ against their plain versions.
     python3 chip_smoke.py --capture          # only the capture phase and
                                              # the native schemes' check
     python3 chip_smoke.py --adapt            # only the adapt phase
+    python3 chip_smoke.py --mesh             # only the mesh phase
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -86,7 +87,7 @@ Phases, each of which raises on failure (non-zero exit):
    the JAX package's end-to-end accuracy on the CPU
    (``EXP5_JAX_ACCURACY``) and all five result-pickle families must
    exist for every graph. The flagship of every graph also runs on the
-   CPU (``--device cpu``), in four worker processes started as this
+   CPU (``--device cpu``), in five worker processes started as this
    phase ends, beside the card phases that follow (the smoke's time
    leaves no room to run them after the card phases); the check is
    two-sided: a graph whose card run met no
@@ -96,7 +97,10 @@ Phases, each of which raises on failure (non-zero exit):
    on the card within 7 points either way with >= 90% of every
    service's pairs equal to the CPU run's (``executor-card-vs-cpu``
    lines). The same 15 graphs then run the
-   flagship with ground-truth-free DAG discovery (``--gt_free_dag 1``):
+   flagship with ground-truth-free DAG discovery (``--gt_free_dag 1``;
+   in a spawned process of its own on the card, ``ExecutorSideJobs``,
+   beside the ground-truth loop and the calls after it, and joined
+   before ``alibaba-cg-8k``'s profiled call):
    the discovered edges, whether they equal the ground-truth DAG's and
    the JAX package's (``EXP5_GTFREE_JAX``), the flagship beside the
    ground-truth-DAG one, under the same two-sided rule against JAX's
@@ -137,7 +141,12 @@ Phases, each of which raises on failure (non-zero exit):
    CPU rerun under the exp5 loop's ill-posed rule, the CPU run equal to
    JAX's reading, or where the port's CPU run is known to part from
    JAX's in the last bits (``LADDER_PORT_CPU``), equal to that reading;
-   the figures are drawn where the machine has matplotlib. ``--ladder OUT`` runs the whole ladder of
+   the figures are drawn where the machine has matplotlib. In the whole
+   smoke the ladder runs on the card in a spawned process of its own
+   (``ExecutorSideJobs``) beside the executor phase, which waits for it
+   before ``alibaba-cg-8k``'s profiled call (so the executor phase's
+   walls and kernel times before that call include the card's
+   sharing). ``--ladder OUT`` runs the whole ladder of
    both corpora (15 graphs x 6 rungs each) alone under the same rule;
 5c. stream: config ``stream-cg-8k`` (one call graph of seed 10 at 8192
    traces 20 ms apart, replayed with 50 ms of arrival jitter through
@@ -282,6 +291,47 @@ Phases, each of which raises on failure (non-zero exit):
    JAX package's readings (``ADAPT_JAX``; at 1024 requests JAX does not
    recover, and neither may the port); the refits' own K1 and assembly
    launches are counted around ``maybe_adapt`` and must be more than 0;
+5h. mesh: the multi-device tier and the campaign runner, each run with
+   every launch counter reset just before and read just after; in the
+   whole smoke on the card in a spawned process of its own beside the
+   executor phase (``ExecutorSideJobs``, queued behind the ladder from
+   the end of the ground-truth exp5 loop), so its walls include the
+   card's sharing.
+   ``mesh-fleet-8svc``: ``synth-fleet-8svc`` through ``solve_fleet``
+   with no mesh, ``make_mesh(1)`` (the card) and the two-shard mesh
+   ``["cuda:0"] * 2``: every item's outputs equal across the three
+   (assignments through ``ops/compare.pair_agreement``), each sharded
+   dispatch a power of two of rows a shard, ``d2h_bytes_flags`` equal to
+   ``compact_windows_total`` with flag fetches, ``mesh_serialized_groups``
+   counting every group of a mesh run, no ``devcols_fallbacks`` there, K1 and
+   the assembly kernel launched and the assembly's plain version not on
+   the card. ``mesh-async-8k``: ``FindAssignments`` on
+   ``synth-async-8k`` with the two-shard mesh equals it without one.
+   ``em-step-sharded``: ``em_step_sharded`` on the two-shard card mesh,
+   on the JAX package's example batch ([256, 3, 64], ``EM_EXAMPLE``), has
+   the assignments of the one-shard card mesh and its mixtures within
+   ``EM_SHARDED_TOL`` (the share of pairs that part from the CPU run is
+   printed over its first ``EM_CPU_WINDOWS`` windows: that batch is full
+   of near ties), and on well-posed synthetic windows ([32, 3, 32], no near ties) the assignments of the port's CPU
+   run of the same sharding and its mixtures within ``EM_SHARDED_TOL``. ``campaign-r100k``: ``cli
+   campaign run`` on the default ladder's first rung (``R100K``: 15
+   graphs x 1000 traces, gap 500 ms, seed 10; its corpus built beside
+   the first phases, last of ``CorpusJobs``) with ``--devices 1 --slices 2
+   --rounds 3 --warmup_max 5``: no kernel built in the steady rounds,
+   the multislice slices agree, the end-to-end accuracy within half a
+   point of the JAX package's CPU reading (``R100K_JAX``) when no window
+   was ill-posed, else within ``ILL_POSED_MAX_PT``; ``campaign compare``
+   of the artifact against itself passes and ``campaign report``
+   prints. ``multislice-2p``: two spawned processes on the card form a
+   gloo process group, each solves its ``partition_problems`` share of
+   ``r100k`` and reduces the solved edge statistics through
+   ``allreduce_stats_dist`` and the file transport: the transports and
+   the ranks agree, and each service's accuracy equals a one-process
+   solve of the whole rung (the ranks and that solve run in processes of
+   their own, ``MultisliceJob``, beside capture and adapt in the whole
+   smoke, and are checked before the kernels phase). The batch CLI with
+   ``--mesh_devices 2`` (on this one-card machine) and ``3``, started
+   as the phase starts, must each exit non-zero before any data loads;
 6. kernels: each kernel against its plain PyTorch version on the card,
    on random blocks (ragged, all-masked, padded rows, skip-heavy, tol 0
    and 1e-3; rows not a multiple of the cluster size, fewer rows than
@@ -312,6 +362,8 @@ Phases, each of which raises on failure (non-zero exit):
    its plain version's time and its bound at both blocks, f32 and bf16,
    and the assembly's per sweep with the card's operations per
    endpoint step (``score-build`` lines).
+
+``--mesh`` runs only the mesh phase (its corpus built in the phase).
 
 ``--stream`` runs only the stream phase and its K1 block's check (and
 the CPU stream where the card met ill-posed windows); ``--serve`` the
@@ -2394,6 +2446,15 @@ def solved(res):
 
 
 def executor_line(tag, res, peak, wall, launches, kernel_ms, ill, card, **extra):
+    """Print the ``tag`` line of :func:`executor_record`; returns it."""
+    line = executor_record(res, peak, wall, launches, kernel_ms, ill, card, **extra)
+    print(f"{tag} " + json.dumps(line), flush=True)
+    return line
+
+
+def executor_record(res, peak, wall, launches, kernel_ms, ill, card, **extra):
+    """One CLI run's line: services, spans, walls, launches, ill-posed
+    windows, ingest front end, peak memory and accuracy, and ``extra``."""
     services, spans = solved(res)
     fleet = res.fleet_stats.get(FLAGSHIP, {})
     acc = {k: v for k, v in res.accuracy_overall.items() if not k.endswith("TopK")}
@@ -2405,7 +2466,6 @@ def executor_line(tag, res, peak, wall, launches, kernel_ms, ill, card, **extra)
                 ingest_front_end=res.store.ingest_front_end,
                 peak_mem_bytes=peak, accuracy=acc, flagship_per_service=per_service,
                 card=card, **extra)
-    print(f"{tag} " + json.dumps(line), flush=True)
     return line
 
 
@@ -3726,7 +3786,8 @@ def synthesize(root, name):
 class CorpusJobs(StreamRerun):
     """Every corpus of ``CORPORA`` synthesized under ``root``, one after
     another in a spawned process of their own beside the first card
-    phases; :meth:`get` waits for one."""
+    phases, then ``r100k`` built into the campaign cache ``root/campaign``
+    (:func:`_build_r100k`); :meth:`get` waits for one."""
 
     def __init__(self, root):
         import multiprocessing
@@ -3734,6 +3795,8 @@ class CorpusJobs(StreamRerun):
         self.pool = multiprocessing.get_context("spawn").Pool(1)
         self.jobs = {name: self.pool.apply_async(synthesize, (root, name))
                      for name in CORPORA}
+        self.jobs["r100k"] = self.pool.apply_async(
+            _build_r100k, (os.path.join(root, "campaign"),))
 
     def get(self, name):
         return self.jobs[name].get()
@@ -4334,7 +4397,119 @@ def scorecard_phase(card):
     return k1
 
 
-def executor_phase(card, root, corpora=None):
+def drive_cli(argv, tally, captured=None, want=lambda S: True, plain=False):
+    """One CLI run through :func:`drive` (the largest K1 block ``want``
+    accepts into ``captured``), its assembly checked unless ``plain``
+    and its launches added to ``tally``; the native ingest front end
+    must have run. Returns the result, peak memory, wall, K1 launches,
+    K1 device ms and the ill-posed count."""
+    ill, counts = {}, {}
+    (res, peak, wall), n, other, ms = drive(lambda: run_cli(argv), True, captured, want,
+                                            largest=True, ill=ill, counts=counts)
+    if not plain:
+        check_assembly(f"cli {argv}", counts)
+    tally["assemble_block"] = tally.get("assemble_block", 0) + counts["assemble_block"]
+    tally["fused_assign"] += n
+    tally["sinkhorn"] += other
+    if res.store.ingest_front_end != "native":
+        raise AssertionError(f"cli {argv}: ingest ran {res.store.ingest_front_end}")
+    return res, peak, wall, n, ms, ill
+
+
+def discovery_block(S):
+    """Discovery's blocks: the flagship's are those the ground-truth loop
+    already keeps."""
+    return S.shape[0] >= DISCOVERY_MIN_WINDOWS
+
+
+def _gtfree_worker(card, root, dirs):
+    """Worker: exp5's ground-truth-free loop (``--gt_free_dag 1``, the
+    flagship alone, every graph of ``dirs``) on the card in a process of
+    its own. Returns, per graph, its ``executor-gtfree`` record without
+    the two fields that compare it with the ground-truth-DAG run, its
+    ill-posed count and the run cut to what the checks read; the loop's
+    launches; and its largest discovery K1 block, on the CPU."""
+    sys.path.insert(0, HERE)
+    from types import SimpleNamespace
+
+    import torch
+
+    launches = {"fused_assign": 0, "sinkhorn": 0}
+    captured, runs = {}, {}
+    for n, d in enumerate(dirs):
+        name = os.path.basename(d)
+        res, peak, wall, k1, ms, ill = drive_cli(
+            exp5_argv(d, n, os.path.join(root, "results-gtfree"), predictors="10")
+            + ["--gt_free_dag", "1"], launches, captured, want=discovery_block)
+        if k1 <= 0:
+            raise AssertionError(f"gt-free {name}: no fused_assign launch")
+        edges = {p: g.edges() for p, g in res.store.discovered_dags.items()}
+        jax_acc, jax_edges = EXP5_GTFREE_JAX[name]
+        line = executor_record(
+            res, peak, wall, k1, ms, ill, card, config="alibaba-exp5-15000", graph=name,
+            gt_free_dag=True, discovered_edges=edges,
+            edges_equal_gt_dag=edges == gt_dag_edges(res.store),
+            edges_equal_jax={p: [list(e) for e in v] for p, v in edges.items()}
+            == jax_edges, flagship_jax_cpu=jax_acc,
+            discovery={p: st for p, st in res.store.discovery_stats.items()})
+        runs[name] = dict(line=line, ill=ill, res=SimpleNamespace(
+            accuracy_overall=res.accuracy_overall, flagship_pred=res.flagship_pred))
+    block = captured.get("block")
+    if block is not None:
+        block = {k: v.cpu() if torch.is_tensor(v) else v for k, v in block.items()}
+    return runs, launches, block
+
+
+class ExecutorSideJobs:
+    """Card work beside the executor phase, in two spawned processes: the
+    ladder (:func:`_ladder_worker`) then, from :meth:`start_mesh`, the
+    mesh phase (:func:`_mesh_worker`) in one, exp5's ground-truth-free
+    loop (:func:`_gtfree_worker`) in the other, each started once
+    ``corpora`` (a :class:`CorpusJobs`) holds what it reads (loading
+    writes nothing into a corpus, so the executor phase reads them at the
+    same time). :meth:`join` waits for them and stops the processes, as
+    leaving the ``with`` block does."""
+
+    def __init__(self, card, root, corpora, em_job):
+        import multiprocessing
+
+        self.card, self.root, self.corpora, self.em_job = card, root, corpora, em_job
+        ctx = multiprocessing.get_context("spawn")
+        dirs, _ = corpus_dirs(root, "exp5", corpora)
+        self.gtfree_pool = ctx.Pool(1)
+        self.gtfree = self.gtfree_pool.apply_async(_gtfree_worker, (card, root, dirs))
+        corpora.get("exp5-hard")
+        self.ladder_pool = ctx.Pool(1)
+        self.ladder = self.ladder_pool.apply_async(_ladder_worker, (card, root))
+        self.mesh = None
+
+    def start_mesh(self):
+        """Queue the mesh phase behind the ladder once ``r100k`` is built
+        and the CPU reference of ``em-step-sharded`` is in."""
+        self.corpora.get("r100k")
+        self.mesh = self.ladder_pool.apply_async(
+            _mesh_worker, (self.card, self.root, self.em_job.result()))
+
+    def join(self):
+        """Returns the ladder's, the ground-truth-free loop's and the mesh
+        phase's results."""
+        try:
+            return self.ladder.get(), self.gtfree.get(), self.mesh.get()
+        finally:
+            self.__exit__()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for pool in (self.gtfree_pool, self.ladder_pool):
+            if pool is not None:
+                pool.terminate()
+                pool.join()
+        self.gtfree_pool = self.ladder_pool = None
+
+
+def executor_phase(card, root, corpora, side):
     """Config ``alibaba-exp5-15000`` through the CLI, graph by graph, with
     the ground-truth DAG and then without it, exp4's predictors on graph
     0 with and without the thread pool, the metrics and events run and
@@ -4344,9 +4519,17 @@ def executor_phase(card, root, corpora=None):
     ground-truth-free ones, the largest K1 block of the exp5 loop, of
     ground-truth-free discovery and of ``alibaba-cg-8k``, and what
     :func:`rerun_checks` needs: the graphs, both loops' card results and
-    the graphs whose ground-truth-free run needs its own CPU rerun.
+    the graphs whose ground-truth-free run needs its own CPU rerun; and
+    the ladder's K1 launches and the ladder calls that need a CPU rerun.
     ``corpora`` (a :class:`CorpusJobs`) holds the exp5 and ``cg-8k``
-    corpora when given."""
+    corpora. The ground-truth-free exp5 loop and the ladder run in
+    ``side`` (an :class:`ExecutorSideJobs`) beside this phase's other
+    runs, and so, from the end of the ground-truth loop, does the mesh
+    phase; they are joined before ``alibaba-cg-8k``'s profiled call, so
+    that no other process's work shares the card while the profiler
+    traces it. Returns the mesh phase's launches too."""
+    import torch
+
     from traceweaver_tpu_torch.runtime.executor import RESULT_FAMILIES
 
     t_phase = time.perf_counter()
@@ -4356,18 +4539,7 @@ def executor_phase(card, root, corpora=None):
               "executor-cg8k-block": {}}
 
     def driven(argv, captured=None, tally=launches, want=lambda S: True, plain=False):
-        ill, counts = {}, {}
-        (res, peak, wall), n, other, ms = drive(lambda: run_cli(argv), True,
-                                                captured, want, largest=True, ill=ill,
-                                                counts=counts)
-        if not plain:
-            check_assembly(f"cli {argv}", counts)
-        tally["assemble_block"] = tally.get("assemble_block", 0) + counts["assemble_block"]
-        tally["fused_assign"] += n
-        tally["sinkhorn"] += other
-        if res.store.ingest_front_end != "native":
-            raise AssertionError(f"cli {argv}: ingest ran {res.store.ingest_front_end}")
-        return res, peak, wall, n, ms, ill
+        return drive_cli(argv, tally, captured, want, plain)
 
     results = os.path.join(root, "results")
     t0 = time.perf_counter()
@@ -4397,36 +4569,7 @@ def executor_phase(card, root, corpora=None):
     missing = [m for m in missing if m not in present]
     if missing:
         raise AssertionError(f"result pickles missing: {missing}")
-
-    gtfree_runs, own_rerun = {}, []
-
-    def discovery(S):
-        """Discovery's blocks: the flagship's are those the ground-truth
-        loop already keeps."""
-        return S.shape[0] >= DISCOVERY_MIN_WINDOWS
-    for n, (name, d) in enumerate(zip(names, dirs)):
-        res, peak, wall, k1, ms, ill = driven(
-            exp5_argv(d, n, os.path.join(root, "results-gtfree"), predictors="10")
-            + ["--gt_free_dag", "1"], blocks["executor-gtfree-block"],
-            tally=gtfree_launches, want=discovery)
-        edges = {p: g.edges() for p, g in res.store.discovered_dags.items()}
-        truth_edges = gt_dag_edges(res.store)
-        jax_acc, jax_edges = EXP5_GTFREE_JAX[name]
-        gt_res = gt_runs[name][0]
-        same_as_gt_run = res.flagship_pred == gt_res.flagship_pred
-        executor_line(
-            "executor-gtfree", res, peak, wall, k1, ms, ill, card,
-            config="alibaba-exp5-15000", graph=name, gt_free_dag=True,
-            discovered_edges=edges, edges_equal_gt_dag=edges == truth_edges,
-            edges_equal_jax={p: [list(e) for e in v] for p, v in edges.items()}
-            == jax_edges, flagship_gt_dag=gt_res.accuracy_overall[FLAGSHIP],
-            flagship_jax_cpu=jax_acc, predictions_equal_gt_dag_run=same_as_gt_run,
-            discovery={p: st for p, st in res.store.discovery_stats.items()})
-        if k1 <= 0:
-            raise AssertionError(f"gt-free {name}: no fused_assign launch")
-        if not (edges == truth_edges and same_as_gt_run):
-            own_rerun.append(name)  # other DAGs: the CPU discovers its own
-        gtfree_runs[name] = (res, ill)
+    side.start_mesh()
 
     by_pool = {}
     for pool in (0, 1):
@@ -4487,7 +4630,7 @@ def executor_phase(card, root, corpora=None):
     argv = exp5_argv(d, 0, os.path.join(root, "results-8k-gtfree"), predictors="10",
                      max_traces=8192) + ["--gt_free_dag", "1"]
     res, peak, wall, k1, ms, ill = driven(argv, blocks["executor-gtfree-block"],
-                                          tally=gtfree_launches, want=discovery)
+                                          tally=gtfree_launches, want=discovery_block)
     edges = {p: g.edges() for p, g in res.store.discovered_dags.items()}
     line = executor_line(
         "executor-gtfree", res, peak, wall, k1, ms, ill, card, config="alibaba-cg-8k",
@@ -4500,6 +4643,30 @@ def executor_phase(card, root, corpora=None):
     if ill["ill_posed_windows"] == 0 and abs(res.accuracy_overall[FLAGSHIP] - gt_flag) > 1.0:
         raise AssertionError(f"cg-8k ground-truth-free: {res.accuracy_overall[FLAGSHIP]} "
                              f"is not within 1 pt of the ground-truth-DAG {gt_flag}")
+
+    t0 = time.perf_counter()
+    ladder, (side_runs, side_launches, side_block), mesh_launches = side.join()
+    print(f"executor-side-jobs: the ladder, the ground-truth-free exp5 loop and the "
+          f"mesh phase waited for {time.perf_counter() - t0:.3f} s", flush=True)
+    for k, v in side_launches.items():
+        gtfree_launches[k] = gtfree_launches.get(k, 0) + v
+    held = blocks["executor-gtfree-block"].get("block")
+    # the exp5 loop's blocks came first: they win ties, as in one process
+    if side_block is not None and (held is None
+                                   or side_block["S"].numel() >= held["S"].numel()):
+        blocks["executor-gtfree-block"]["block"] = {
+            k: v.to("cuda") if torch.is_tensor(v) else v for k, v in side_block.items()}
+    gtfree_runs, own_rerun = {}, []
+    for name in names:
+        run = side_runs[name]
+        gt_res = gt_runs[name][0]
+        same_as_gt_run = run["res"].flagship_pred == gt_res.flagship_pred
+        print("executor-gtfree " + json.dumps(dict(
+            run["line"], flagship_gt_dag=gt_res.accuracy_overall[FLAGSHIP],
+            predictions_equal_gt_dag_run=same_as_gt_run)), flush=True)
+        if not (run["line"]["edges_equal_gt_dag"] and same_as_gt_run):
+            own_rerun.append(name)  # other DAGs: the CPU discovers its own
+        gtfree_runs[name] = (run["res"], run["ill"])
     profiled_cli(argv, card, line)
 
     if not blocks["executor-gtfree-block"]:
@@ -4513,7 +4680,7 @@ def executor_phase(card, root, corpora=None):
     launches["bf16_fused_assign"] = bf16_launches["fused_assign"]
     launches["bf16_assemble_block"] = bf16_launches["assemble_block"]
     return (launches, gtfree_launches, {k: v["block"] for k, v in blocks.items()},
-            (dirs, gt_runs, gtfree_runs, own_rerun))
+            (dirs, gt_runs, gtfree_runs, own_rerun), ladder, mesh_launches)
 
 
 def rerun_submit(reruns, root, dirs, own_rerun):
@@ -4676,6 +4843,19 @@ def ladder_phase(card, root, corpora=None):
                             os.path.join(root, "ladder-hard"), True, LADDER_HARD_GRAPHS,
                             LADDER_HARD_RUNGS, EXP5_LADDER_HARD_JAX, reruns)
     return k1 + k1_hard, reruns
+
+
+def _ladder_worker(card, root):
+    """Worker: :func:`ladder_phase` on the card in a process of its own;
+    returns its K1 launches and the calls that need a CPU rerun, each
+    card result cut to what :func:`ladder_verdict` reads."""
+    sys.path.insert(0, HERE)
+    from types import SimpleNamespace
+
+    k1, reruns = ladder_phase(card, root)
+    return k1, [dict(r, res=SimpleNamespace(accuracy_overall=r["res"].accuracy_overall,
+                                            flagship_pred=r["res"].flagship_pred))
+                for r in reruns]
 
 
 def ladder_submit(pool, root, r):
@@ -5191,6 +5371,574 @@ class SchemesJob(StreamRerun):
         self.job = self.pool.apply_async(_schemes_worker)
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: the multi-device tier and the campaign runner
+# ---------------------------------------------------------------------------
+
+#: the default ladder's first rung (``campaign/plan.py alibaba_ladder``):
+#: the users' smallest real rung
+R100K = dict(name="r100k", n_graphs=15, traces_per_graph=1000, gap_ms=500, seed=10,
+             n_services=60, source="synthetic")
+#: JAX package on the CPU, the same rung through its ``cli campaign run``
+#: (``--plan`` of this rung, devices 1, slices 2, 3 timed rounds; 179,000
+#: spans, 54 solvable services, all sequential): the steady rounds'
+#: end-to-end accuracy (percent) and per-regime accuracies
+R100K_JAX = dict(e2e_pct=100.0, per_regime={"sequential": 1.0})
+#: the mixtures of ``em-step-sharded`` on the two-shard card mesh against
+#: the one-shard card mesh and against the port's CPU run of the same
+#: sharding: the f32 moment sums add in another order
+EM_SHARDED_TOL = dict(rtol=1e-3, atol_w=1e-5, atol_us=1e-2)
+#: the seed of the global ``random`` before a rung loads (``-loop``
+#: service names draw from it), alike in every process that loads it
+RUNG_RANDOM_SEED = 0
+
+
+def _rung_spec():
+    from traceweaver_tpu_torch.campaign.plan import RungSpec
+
+    return RungSpec(**R100K)
+
+
+def _load_r100k(cache):
+    """``r100k`` built (synthesized, loaded, its manifest written) under
+    the campaign cache ``cache``, with the global ``random`` seeded and
+    restored around it; returns the corpus."""
+    import random
+
+    from traceweaver_tpu_torch.campaign.corpus import build_rung
+
+    state = random.getstate()
+    random.seed(RUNG_RANDOM_SEED)
+    try:
+        return build_rung(_rung_spec(), cache)
+    finally:
+        random.setstate(state)
+
+
+def _build_r100k(cache):
+    """Worker: :func:`_load_r100k`, so that the campaign finds it cached."""
+    sys.path.insert(0, HERE)
+    t0 = time.perf_counter()
+    corpus = _load_r100k(cache)
+    return corpus.manifest["spans"], time.perf_counter() - t0
+
+
+def _same_outputs(got, ref):
+    """Every item's 6-tuple equal, the assignments through
+    ``ops/compare.pair_agreement``; returns the agreement per item."""
+    from traceweaver_tpu_torch.ops.compare import pair_agreement
+
+    agree = [pair_agreement(g[0], r[0]) for g, r in zip(got, ref)]
+    same = [g == r for g, r in zip(got, ref)]
+    return agree, all(a == 1.0 for a in agree) and all(same)
+
+
+def mesh_fleet_runs(card):
+    """``mesh-fleet-8svc``: ``synth-fleet-8svc`` through ``solve_fleet``
+    with no mesh, ``make_mesh(1)`` and the two-shard mesh on the one
+    card. Returns each run's launches."""
+    import traceweaver_tpu_torch.algorithms.fleet as tf
+    from traceweaver_tpu_torch.metrics.synth import synth_fleet_8svc
+    from traceweaver_tpu_torch.parallel.mesh import make_mesh
+
+    probs = synth_fleet_8svc()
+    meshes = (("none", None), ("make_mesh(1)", make_mesh(1)),
+              ("cuda:0 x2", make_mesh(devices=["cuda:0"] * 2)))
+    real = tf._mesh_solve
+    shard_rows = []
+
+    def recording(arrs, pidx, *args):
+        shard_rows.append(len(pidx) // args[-2].size)
+        return real(arrs, pidx, *args)
+
+    outs, launches, failed = {}, {}, []
+    for tag, mesh in meshes:
+        counts = {}
+        shard_rows.clear()
+        tf._mesh_solve = recording
+        try:
+            result, n_k1, _, kernel_ms = drive(
+                lambda: run_fleet(probs, True, mesh=mesh), True, counts=counts)
+        finally:
+            tf._mesh_solve = real
+        out, acc, wall, peak, stats, quarantined = result
+        outs[tag] = out
+        launches[tag] = dict(fused_assign=n_k1, sinkhorn=counts["sinkhorn"],
+                             assemble_block=counts["assemble_block"])
+        n_spans = sum(len(next(iter(p["in_parts"].values()))) for p in probs)
+        line = dict(
+            config="synth-fleet-8svc", mesh=tag, wall_s=wall, spans_per_s=n_spans / wall,
+            kernel_ms_summed=kernel_ms, launches=launches[tag],
+            plain_assembly_on_card=counts["plain_assembly_on_card"],
+            shard_rows=sorted(set(shard_rows)), peak_mem_bytes=peak, accuracy=acc,
+            quarantined=quarantined,
+            **{k: stats.get(k) for k in (
+                "fleet_dispatches", "pipeline_groups", "mesh_serialized_groups",
+                "compact_windows_total", "compact_windows_redispatched",
+                "d2h_bytes_flags", "d2h_flag_fetches", "devcols_fallbacks",
+                "dispatch_s", "wait_s", "decode_s")},
+            card=card)
+        print("mesh-fleet-8svc " + json.dumps(line), flush=True)
+        if n_k1 <= 0:
+            failed.append(f"{tag}: no K1 launch")
+        try:
+            check_assembly(f"mesh-fleet-8svc {tag}", counts)
+        except AssertionError as e:
+            failed.append(str(e))
+        if quarantined or any(v for k, v in stats.items() if k.startswith("fault")):
+            failed.append(f"{tag}: the supervisor stepped in")
+        if stats.get("d2h_flag_fetches", 0) <= 0 or \
+                stats.get("d2h_bytes_flags") != stats.get("compact_windows_total"):
+            failed.append(f"{tag}: flag ledger {stats.get('d2h_bytes_flags')} against "
+                          f"compact_windows_total {stats.get('compact_windows_total')}")
+        if mesh is not None:
+            # the mesh places host tensors per shard: no resident path
+            if "devcols_fallbacks" in stats:
+                failed.append(f"{tag}: devcols_fallbacks {stats['devcols_fallbacks']}")
+            if stats["compact_windows_total"] % mesh.size or not shard_rows or any(
+                    r & (r - 1) for r in shard_rows):
+                failed.append(f"{tag}: shard rows {sorted(set(shard_rows))}, "
+                              f"compact_windows_total {stats['compact_windows_total']}")
+            groups = stats.get("fleet_dispatches", 0)
+            if groups > 1 and stats.get("mesh_serialized_groups") != groups:
+                failed.append(f"{tag}: mesh_serialized_groups "
+                              f"{stats.get('mesh_serialized_groups')} of {groups} groups")
+    for tag, _ in meshes[1:]:
+        agree, same = _same_outputs(outs[tag], outs["none"])
+        print("mesh-fleet-equal " + json.dumps(dict(
+            mesh=tag, identical=same,
+            pair_agreement={p["service"]: a for p, a in zip(probs, agree)})), flush=True)
+        if not same:
+            failed.append(f"{tag}: outputs differ from the run without a mesh")
+    if failed:
+        raise AssertionError("mesh-fleet-8svc: " + "; ".join(failed))
+    return launches
+
+
+def mesh_async_run(card):
+    """``mesh-async-8k``: ``FindAssignments`` on ``synth-async-8k`` with the
+    two-shard mesh equals the run without one. Returns its launches."""
+    from traceweaver_tpu_torch.metrics.synth import synth_async_8k
+    from traceweaver_tpu_torch.parallel.mesh import make_mesh
+
+    prob = synth_async_8k()
+    ref = run_slice(prob, True)
+    counts = {}
+    got, n_k1, _, kernel_ms = drive(
+        lambda: run_slice(prob, True, mesh=make_mesh(devices=["cuda:0"] * 2)), True,
+        counts=counts)
+    agree, same = _same_outputs([got[0]], [ref[0]])
+    line = dict(config="synth-async-8k", mesh="cuda:0 x2", identical=same,
+                pair_agreement=agree[0], accuracy=got[1], wall_s=got[2],
+                unsharded_wall_s=ref[2], kernel_ms=kernel_ms,
+                launches=dict(fused_assign=n_k1, assemble_block=counts["assemble_block"]),
+                plain_assembly_on_card=counts["plain_assembly_on_card"], card=card)
+    print("mesh-async-8k " + json.dumps(line), flush=True)
+    check_assembly("mesh-async-8k", counts)
+    if not same or n_k1 <= 0:
+        raise AssertionError(f"mesh-async-8k: {line}")
+    return line["launches"]
+
+
+def example_windows(B=32, W=32, E=3, M=32, K=5, seed=0, well_posed=True):
+    """Synthetic windows of a chain of E endpoints: W incoming spans a
+    window, one nested outgoing span each per endpoint around the
+    per-edge means of the tables. ``well_posed=False`` is the example
+    batch of the repo's ``__graft_entry__._example_arrays`` (copied, so
+    this script loads nothing of the JAX package): spans 50-150 µs apart
+    with 30 µs of jitter, where most windows hold near ties that two sum
+    orders may break apart. ``well_posed=True`` spreads them out: 300-500
+    µs apart, 10 µs of jitter, the return gap 1000 µs after the last call
+    ends, so every span's own child is the only likely one."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = {}
+    spacing, jitter = ((300, 500), 10.0) if well_posed else ((50, 150), 30.0)
+    in_start = np.cumsum(rng.uniform(*spacing, size=(B, W)), axis=1).astype(np.float32)
+    a["in_start"] = in_start
+    if well_posed:
+        a["in_end"] = (in_start + 300.0 * E + 200.0 + 1000.0
+                       + rng.normal(0, jitter, size=(B, W)).astype(np.float32))
+    else:
+        a["in_end"] = in_start + rng.uniform(4000, 6000, size=(B, W)).astype(np.float32)
+    a["in_valid"] = np.ones((B, W), dtype=bool)
+    a["out_start"] = np.zeros((B, E, M), dtype=np.float32)
+    a["out_end"] = np.zeros((B, E, M), dtype=np.float32)
+    a["out_valid"] = np.zeros((B, E, M), dtype=bool)
+    for e in range(E):
+        starts = (in_start + 300.0 * (e + 1)
+                  + rng.normal(0, jitter, size=(B, W)).astype(np.float32))
+        a["out_start"][:, e, :W] = starts
+        a["out_end"][:, e, :W] = starts + 200.0
+        a["out_valid"][:, e, :W] = True
+    a["skip_cap"] = np.zeros((B, E), dtype=np.float32)
+    a["force_skip"] = np.zeros((B, E, W), dtype=bool)
+    a["pred_mask"] = np.zeros((E, E), dtype=bool)
+    for e in range(1, E):
+        a["pred_mask"][e, e - 1] = True
+    a["root_mask"] = np.arange(E) == 0
+    a["is_last"] = np.arange(E) == E - 1
+
+    def gaussians(means, shape):
+        wt = np.zeros(shape + (K,), dtype=np.float32)
+        mu = np.zeros(shape + (K,), dtype=np.float32)
+        sd = np.ones(shape + (K,), dtype=np.float32)
+        wt[..., 0], mu[..., 0], sd[..., 0] = 1.0, means, 50.0
+        return wt, mu, sd
+
+    a["in_wt"], a["in_mu"], a["in_sd"] = gaussians(
+        np.array([300.0 * (e + 1) for e in range(E)], dtype=np.float32), (E,))
+    a["ret_wt"], a["ret_mu"], a["ret_sd"] = gaussians(np.float32(1000.0), (E,))
+    a["edge_wt"] = np.zeros((E, E, K), dtype=np.float32)
+    a["edge_mu"] = np.zeros((E, E, K), dtype=np.float32)
+    a["edge_sd"] = np.ones((E, E, K), dtype=np.float32)
+    for e in range(1, E):
+        # the gap between consecutive calls
+        a["edge_wt"][e, e - 1, 0], a["edge_mu"][e, e - 1, 0] = 1.0, 100.0
+        a["edge_sd"][e, e - 1, 0] = 50.0
+    return a
+
+
+#: the JAX package's example batch at the size the smoke shards
+EM_EXAMPLE = dict(B=256, W=64, M=64, well_posed=False)
+#: its windows that also run on the CPU (windows solve independently, so
+#: these are the card run's first windows)
+EM_CPU_WINDOWS = 64
+
+
+def _mixture_errors(got, ref):
+    """Per table, the largest absolute difference of two ``dists`` and
+    whether it is within ``EM_SHARDED_TOL``."""
+    import numpy as np
+
+    errs, bad = {}, []
+    for fam in ("in", "edge", "ret"):
+        for name, g, c in zip(("w", "mu", "sd"), got[fam], ref[fam]):
+            atol = EM_SHARDED_TOL["atol_w" if name == "w" else "atol_us"]
+            errs[f"{fam}_{name}"] = float(np.max(np.abs(g - c)))
+            if np.any(np.abs(g - c) > atol + EM_SHARDED_TOL["rtol"] * np.abs(c)):
+                bad.append(f"{fam} {name}")
+    return errs, bad
+
+
+def _em_example_cpu(threads):
+    """Worker: ``em_step_sharded``'s assignments of the first
+    ``EM_CPU_WINDOWS`` windows of ``EM_EXAMPLE`` on two CPU shards, on
+    ``threads`` threads."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    torch.set_num_threads(threads)
+    from traceweaver_tpu_torch.parallel.mesh import BATCHED, em_step_sharded, make_mesh
+
+    first = {k: v[:EM_CPU_WINDOWS] if k in BATCHED else v
+             for k, v in example_windows(**EM_EXAMPLE).items()}
+    return em_step_sharded(first, make_mesh(devices=["cpu"] * 2))[0]
+
+
+class EmCpuJob(StreamRerun):
+    """:func:`_em_example_cpu` in a spawned process of its own on one
+    thread, started with the smoke so that it is done when the mesh
+    phase needs it."""
+
+    def __init__(self, threads: int = 1):
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        self.job = self.pool.apply_async(_em_example_cpu, (threads,))
+
+
+def em_sharded_run(card, cpu_example):
+    """``em-step-sharded``: ``em_step_sharded`` on the two-shard card mesh.
+    On the JAX package's example batch (``EM_EXAMPLE``) against the
+    one-shard card mesh ``["cuda:0"]``: the same launch plan, so the
+    assignments are equal and the mixtures, whose moment sums add in
+    another order, within ``EM_SHARDED_TOL``; its share of pairs that
+    part from the port's CPU run over its first ``EM_CPU_WINDOWS``
+    windows (``cpu_example``, from an :class:`EmCpuJob`) is reported. On
+    the well-posed batch (``example_windows()``) against the port's CPU
+    run of the same sharding: assignments equal, mixtures within
+    ``EM_SHARDED_TOL``."""
+    import numpy as np
+
+    from traceweaver_tpu_torch.parallel.mesh import em_step_sharded, make_mesh
+    from traceweaver_tpu_torch.ops import cuda_sinkhorn as K
+    from traceweaver_tpu_torch.ops import scores as SC
+
+    two = make_mesh(devices=["cuda:0"] * 2)
+    example, posed = example_windows(**EM_EXAMPLE), example_windows()
+    K.reset_launches()
+    SC.reset_launches()
+    t0 = time.perf_counter()
+    assign, dists = em_step_sharded(example, two)
+    wall = time.perf_counter() - t0
+    launches = dict(fused_assign=K.LAUNCHES["fused_assign"],
+                    assemble_block=SC.LAUNCHES["assemble_block"])
+    posed_assign, posed_dists = em_step_sharded(posed, two)
+    one_assign, one_dists = em_step_sharded(example, make_mesh(devices=["cuda:0"]))
+    cpu_assign, cpu_dists = em_step_sharded(posed, make_mesh(devices=["cpu"] * 2))
+    one_errs, one_bad = _mixture_errors(dists, one_dists)
+    cpu_errs, cpu_bad = _mixture_errors(posed_dists, cpu_dists)
+    n_cpu = cpu_example.shape[0]
+    valid = example["in_valid"][:n_cpu, None, :].repeat(assign.shape[1], axis=1)
+    line = dict(
+        shape=list(example["out_start"].shape), wall_s=wall,
+        vs_one_shard=dict(assign_equal=bool(np.array_equal(assign, one_assign)),
+                          max_abs_err=one_errs),
+        vs_cpu=dict(shape=list(posed["out_start"].shape),
+                    assign_equal=bool(np.array_equal(posed_assign, cpu_assign)),
+                    max_abs_err=cpu_errs),
+        example_vs_cpu=dict(
+            windows=n_cpu,
+            pairs_differ_share=float((assign[:n_cpu] != cpu_example)[valid].mean()),
+            windows_differ=int((assign[:n_cpu] != cpu_example).any(axis=(1, 2)).sum())),
+        tolerance=EM_SHARDED_TOL, launches=launches, card=card)
+    print("em-step-sharded " + json.dumps(line), flush=True)
+    if not (line["vs_one_shard"]["assign_equal"] and line["vs_cpu"]["assign_equal"]) \
+            or one_bad or cpu_bad or launches["fused_assign"] <= 0 \
+            or launches["assemble_block"] <= 0:
+        raise AssertionError(f"em-step-sharded: {one_bad} {cpu_bad} {line}")
+    return launches
+
+
+def campaign_r100k(card, root):
+    """``campaign-r100k``: ``cli campaign run`` on ``r100k`` (devices 1,
+    slices 2, 3 timed rounds, warm-up at most 5), then ``campaign
+    compare`` of the artifact against itself and ``campaign report``.
+    Returns the run's launches, the artifact and the cache root."""
+    from traceweaver_tpu_torch.runtime import cli
+
+    cache = os.path.join(root, "campaign")
+    plan = os.path.join(root, "r100k-plan.json")
+    with open(plan, "w") as f:
+        json.dump({"name": "alibaba-ladder", "rungs": [R100K]}, f)
+    out = os.path.join(root, "CAMPAIGN_r100k.json")
+    argv = ["campaign", "run", "--plan", plan, "--devices", "1", "--slices", "2",
+            "--rounds", "3", "--warmup_max", "5", "--out", out, "--cache", cache]
+    counts, ill = {}, {}
+    t0 = time.perf_counter()
+    rc, n_k1, _, kernel_ms = drive(lambda: cli.main(argv), True, ill=ill, counts=counts)
+    wall = time.perf_counter() - t0
+    from traceweaver_tpu_torch.campaign import load_artifact
+
+    art = load_artifact(out)
+    r = art["rungs"][0]
+    tol = 0.5 if ill["ill_posed_windows"] == 0 else ILL_POSED_MAX_PT
+    line = dict(
+        config="campaign-r100k", rc=rc, wall_s=wall, spans=r["manifest"]["spans"],
+        corpus_cached=r["corpus_cached"], build_s=r["build_s"],
+        steady_spans_per_s=r["steady"]["spans_per_s"],
+        round_wall_s=r["steady"]["round_wall_s"],
+        warmup_builds=r["warmup"]["backend_compiles"],
+        steady_builds=r["steady"]["backend_compiles"], e2e_pct=r["accuracy"]["e2e_pct"],
+        jax_cpu_e2e_pct=R100K_JAX["e2e_pct"], tolerance_pt=tol,
+        per_regime=r["accuracy"]["per_regime"], multislice=r["multislice"],
+        fleet=r["steady"]["fleet"], bytes=r["steady"]["bytes"],
+        plan_cache=r["steady"]["plan_cache"], dispatch_seconds=r["steady"]["dispatch_seconds"],
+        launches=dict(fused_assign=n_k1, assemble_block=counts["assemble_block"],
+                      sinkhorn=counts["sinkhorn"]),
+        plain_assembly_on_card=counts["plain_assembly_on_card"], kernel_ms_summed=kernel_ms,
+        backend=art["backend"], devices_visible=art["devices_visible"], **ill, card=card)
+    print("campaign-r100k " + json.dumps(line), flush=True)
+    failed = []
+    if rc != 0 or n_k1 <= 0:
+        failed.append(f"rc {rc}, {n_k1} K1 launches")
+    check_assembly("campaign-r100k", counts)
+    if r["steady"]["backend_compiles"] != 0 or r["warmup"]["incomplete"]:
+        failed.append("kernel builds in the steady rounds")
+    if not (r["multislice"] and r["multislice"]["agree"]):
+        failed.append(f"multislice {r['multislice']}")
+    if abs(r["accuracy"]["e2e_pct"] - R100K_JAX["e2e_pct"]) > tol:
+        failed.append(f"e2e {r['accuracy']['e2e_pct']} against JAX's "
+                      f"{R100K_JAX['e2e_pct']} (tolerance {tol} pt)")
+    if r["steady"]["quarantined"]:
+        failed.append("quarantined services")
+    if cli.main(["campaign", "compare", out, out]) != 0:
+        failed.append("campaign compare of the artifact against itself")
+    if cli.main(["campaign", "report", out]) != 0:
+        failed.append("campaign report")
+    if failed:
+        raise AssertionError("campaign-r100k: " + "; ".join(failed))
+    return line["launches"], art, cache
+
+
+def _multislice_rank(pid, n, port, cache, rdv):
+    """Worker: rank ``pid`` of ``n``: its ``partition_problems`` share of
+    ``r100k`` through ``solve_fleet`` on the card, the solved edge
+    statistics reduced through ``allreduce_stats_dist`` (gloo) and the
+    file transport."""
+    sys.path.insert(0, HERE)
+    import datetime
+    import hashlib
+
+    import torch.distributed as dist
+
+    from traceweaver_tpu_torch.algorithms.fleet import solve_fleet
+    from traceweaver_tpu_torch.campaign.runner import rung_items, slice_edge_stats
+    from traceweaver_tpu_torch.ops import cuda_sinkhorn as K
+    from traceweaver_tpu_torch.parallel import multislice as ms
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=n,
+                            rank=pid, timeout=datetime.timedelta(seconds=300))
+    try:
+        corpus = _load_r100k(cache)
+        mine = ms.partition_problems(len(corpus.problems), n, pid)
+        t0 = time.perf_counter()
+        outs = solve_fleet(rung_items(corpus, mine))
+        wall = time.perf_counter() - t0
+        by_index = dict(zip(mine, outs))
+        stats = slice_edge_stats(corpus, by_index, n, pid)
+        order = _edge_order(corpus)
+        rows = ms.stats_to_rows(stats, order)
+        dist_rows = ms.allreduce_stats_dist(rows)
+        files = ms.stats_to_rows(ms.allreduce_stats_files(stats, rdv, pid, n), order)
+        return dict(pid=pid, services=len(mine), wall_s=wall,
+                    accs=_rung_accuracies(corpus, mine, outs),
+                    launches=K.LAUNCHES["fused_assign"],
+                    transports_equal=bool((dist_rows == files).all()),
+                    dist_digest=hashlib.sha1(dist_rows.tobytes()).hexdigest())
+    finally:
+        dist.destroy_process_group()
+
+
+def _rung_accuracies(corpus, idx, outs):
+    from traceweaver_tpu_torch.metrics import accuracy_for_service
+
+    return {"%d:%s" % (corpus.problems[i]["store"], corpus.problems[i]["svc"]):
+            accuracy_for_service(o[0], corpus.problems[i]["true"],
+                                 corpus.problems[i]["prob"].in_span_partitions)
+            for i, o in zip(idx, outs)}
+
+
+def _edge_order(corpus):
+    return sorted({(m["svc"], ep) for m in corpus.problems
+                   for ep in m["prob"].out_span_partitions})
+
+
+def _one_process_solve(cache):
+    """Worker: the whole of ``r100k`` through ``solve_fleet`` on the card
+    in one process; returns each service's accuracy."""
+    sys.path.insert(0, HERE)
+    from traceweaver_tpu_torch.algorithms.fleet import solve_fleet
+    from traceweaver_tpu_torch.campaign.runner import rung_items
+
+    corpus = _load_r100k(cache)
+    idx = list(range(len(corpus.problems)))
+    return _rung_accuracies(corpus, idx, solve_fleet(rung_items(corpus, idx)))
+
+
+class MultisliceJob(StreamRerun):
+    """``multislice-2p``: two ranks on the card, each solving its share of
+    ``r100k`` and reducing the edge statistics through both transports,
+    and the one-process solve of the whole rung, each in a spawned
+    process of its own beside the phases that follow the mesh phase
+    (their corpus loads and CUDA contexts would otherwise hold the
+    smoke's clock); :meth:`finish` waits for them and checks: the
+    transports and the ranks agree, and each service's accuracy equals
+    the one-process run's."""
+
+    def __init__(self, root, cache):
+        import multiprocessing
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        rdv = os.path.join(root, "multislice-rdv")
+        self.t0 = time.perf_counter()
+        self.pool = multiprocessing.get_context("spawn").Pool(3)
+        self.ranks = [self.pool.apply_async(_multislice_rank, (p, 2, port, cache, rdv))
+                      for p in range(2)]
+        self.one = self.pool.apply_async(_one_process_solve, (cache,))
+
+    def finish(self, card):
+        ranks = [r.get(timeout=600) for r in self.ranks]
+        one = self.one.get(timeout=600)
+        accs = {k: v for r in ranks for k, v in r["accs"].items()}
+        differ = {k: (v, one.get(k)) for k, v in accs.items() if one.get(k) != v}
+        line = dict(config="multislice-2p", rung="r100k",
+                    wall_s=time.perf_counter() - self.t0,
+                    ranks=[{k: r[k] for k in ("pid", "services", "wall_s", "launches",
+                                              "transports_equal")} for r in ranks],
+                    ranks_agree=ranks[0]["dist_digest"] == ranks[1]["dist_digest"],
+                    services=len(accs), one_process_services=len(one),
+                    accuracy_differs=differ, card=card)
+        print("multislice-2p " + json.dumps(line), flush=True)
+        if (not all(r["transports_equal"] for r in ranks) or not line["ranks_agree"]
+                or set(accs) != set(one) or differ or any(r["launches"] <= 0 for r in ranks)):
+            raise AssertionError(f"multislice-2p: {line}")
+
+
+def mesh_flag_refusals_start(root):
+    """``--mesh_devices 2`` on this one-card machine and ``--mesh_devices
+    3``: the batch CLI in two subprocesses at once (each pays a torch
+    import), on a path that does not exist (loading it would fail
+    otherwise, and differently). :func:`mesh_flag_refusals_finish` reads
+    them."""
+    import torch
+
+    if torch.cuda.device_count() >= 2:
+        raise AssertionError("--mesh_devices 2 is refused only on a one-card machine")
+    procs = {}
+    for n in (2, 3):
+        res = os.path.join(root, f"mesh-refusal-{n}")
+        procs[n] = (res, subprocess.Popen(
+            [sys.executable, "-m", "traceweaver_tpu_torch.runtime.cli", "--absolute_path",
+             os.path.join(root, "absent"), "--fix", "5", "--cache_rate", "0",
+             "--results_directory", res, "--mesh_devices", str(n)],
+            cwd=HERE, env={**os.environ, "PYTHONPATH": HERE}, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def mesh_flag_refusals_finish(procs):
+    """Each refusal must exit non-zero, name the mesh and write no results:
+    it failed before any data loaded."""
+    out = {}
+    for n, (res, p) in procs.items():
+        try:
+            _, err = p.communicate(timeout=300)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        out[n] = dict(rc=p.returncode, stderr=err.strip().splitlines()[-1:],
+                      results_written=os.path.exists(res))
+        if p.returncode == 0 or os.path.exists(res) or "mesh" not in err:
+            raise AssertionError(f"--mesh_devices {n} was not refused before loading: "
+                                 f"{out[n]} {err[-1000:]}")
+    print("mesh-flag-refusals " + json.dumps(out), flush=True)
+
+
+def mesh_phase(card, root, cpu_example):
+    """The mesh phase (see the module docstring) but ``multislice-2p``
+    (:class:`MultisliceJob`, which the caller starts): the multi-device
+    tier and the campaign runner, with ``r100k`` read from the campaign
+    cache ``root/campaign`` when built there, and the CPU reference of
+    ``em-step-sharded`` in ``cpu_example`` (from an :class:`EmCpuJob`).
+    Returns the launches of each of its runs."""
+    import torch
+
+    t_phase = time.perf_counter()
+    refusals = mesh_flag_refusals_start(root)
+    launches = {}
+    launches["mesh_fleet"] = mesh_fleet_runs(card)
+    launches["mesh_async"] = mesh_async_run(card)
+    launches["em_sharded"] = em_sharded_run(card, cpu_example)
+    launches["campaign"], _, _ = campaign_r100k(card, root)
+    mesh_flag_refusals_finish(refusals)
+    torch.cuda.synchronize()
+    print(f"mesh-phase: {time.perf_counter() - t_phase:.3f} s wall", flush=True)
+    return launches
+
+
+def _mesh_worker(card, root, cpu_example):
+    """Worker: :func:`mesh_phase` on the card in a process of its own."""
+    sys.path.insert(0, HERE)
+    return mesh_phase(card, root, cpu_example)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--slice-root", help="run only the slice and fleet phases, "
@@ -5213,6 +5961,9 @@ def main() -> int:
     ap.add_argument("--adapt", action="store_true", help="run only the adapt phase "
                     "(adapt-burst-60, adapt-burst-60x1024) and its K1 block's and "
                     "refit's assembly calls' checks")
+    ap.add_argument("--mesh", action="store_true", help="run only the mesh phase "
+                    "(mesh-fleet-8svc, mesh-async-8k, em-step-sharded, campaign-r100k, "
+                    "multislice-2p and the --mesh_devices refusals)")
     args = ap.parse_args()
 
     import torch
@@ -5275,6 +6026,13 @@ def main() -> int:
             fleet_tier_phase(card, tmp)
         print(card, flush=True)
         return 0
+    if args.mesh:
+        with tempfile.TemporaryDirectory() as tmp, EmCpuJob() as em_job:
+            mesh_phase(card, tmp, em_job.result())
+            with MultisliceJob(tmp, os.path.join(tmp, "campaign")) as multislice:
+                multislice.finish(card)
+        print(card, flush=True)
+        return 0
     if args.capture or args.adapt:
         with tempfile.TemporaryDirectory() as tmp:
             if args.capture:
@@ -5319,6 +6077,7 @@ def main() -> int:
         serve_corpus = later.enter_context(SynthJob(os.path.join(tmp, "serve")))
         schemes_job = later.enter_context(SchemesJob())
         corpora = later.enter_context(CorpusJobs(tmp))
+        em_job = later.enter_context(EmCpuJob())
         launches, real_block, slice_sweep, slice_peak = slice_phase(card)
         fleet_launches, fleet_block, probs, fleet_wall, fleet_sweep, fleet_peak = \
             fleet_phase(card)
@@ -5329,16 +6088,17 @@ def main() -> int:
         fault_run(tmp, card)
         print(f"phase-clock: first phases done at {time.perf_counter() - t_smoke:.1f} s",
               flush=True)
-        executor_launches, gtfree_launches, executor_blocks, rerun_state = \
-            executor_phase(card, tmp, corpora)
-        print(f"phase-clock: executor done at {time.perf_counter() - t_smoke:.1f} s",
-              flush=True)
-        reruns = later.enter_context(CpuReruns(workers=6))
-        submitted = rerun_submit(reruns, tmp, rerun_state[0], rerun_state[3])
-        ladder_launches, ladder_reruns_needed = ladder_phase(card, tmp, corpora)
+        side = later.enter_context(ExecutorSideJobs(card, tmp, corpora, em_job))
+        executor_launches, gtfree_launches, executor_blocks, rerun_state, \
+            (ladder_launches, ladder_reruns_needed), mesh_launches = \
+            executor_phase(card, tmp, corpora, side)
+        print(f"phase-clock: executor, ladder and mesh done at "
+              f"{time.perf_counter() - t_smoke:.1f} s", flush=True)
+        # five workers leave the card phases beside them a core more than
+        # six did; the ladder's calls, the longest, go first
+        reruns = later.enter_context(CpuReruns(workers=5))
         ladder_futs = [ladder_submit(reruns, tmp, r) for r in ladder_reruns_needed]
-        print(f"phase-clock: ladder done at {time.perf_counter() - t_smoke:.1f} s",
-              flush=True)
+        submitted = rerun_submit(reruns, tmp, rerun_state[0], rerun_state[3])
         stream_launches, executor_blocks["stream-block"], stream_state = \
             stream_phase(card, tmp, corpora)
         stream_rerun = stream_rerun_any if stream_state[3] else None
@@ -5349,6 +6109,7 @@ def main() -> int:
         fleet_serve_launches = fleet_tier_phase(card, tmp, serve_corpus, fleet_ref)
         del fleet_ref
         print(f"phase-clock: fleet done at {time.perf_counter() - t_smoke:.1f} s", flush=True)
+        multislice = later.enter_context(MultisliceJob(tmp, os.path.join(tmp, "campaign")))
         capture_launches, executor_blocks["capture-block"], capture_calls = \
             capture_phase(card, tmp)
         adapt_launches, executor_blocks["adapt-block"], adapt_calls = adapt_phase(
@@ -5356,6 +6117,7 @@ def main() -> int:
         print(f"phase-clock: capture and adapt done at {time.perf_counter() - t_smoke:.1f} s",
               flush=True)
         scorecard_launches = scorecard_phase(card)
+        multislice.finish(card)
         K.reset_launches()
         worst, worst_bf16 = kernel_phase(real_block, fleet_block, executor_blocks,
                                          bf16_blocks)
@@ -5406,6 +6168,11 @@ def main() -> int:
         "bf16_sinkhorn": bf16_launches["sinkhorn"],
         "bf16_fleet_fused_assign": bf16_launches["fleet_fused_assign"],
         "bf16_executor_fused_assign": executor_launches["bf16_fused_assign"],
+        **{f"{run}_{k}": v for run, counts in (
+            ("mesh_fleet", mesh_launches["mesh_fleet"]["cuda:0 x2"]),
+            ("mesh_async", mesh_launches["mesh_async"]),
+            ("em_sharded", mesh_launches["em_sharded"]),
+            ("campaign", mesh_launches["campaign"])) for k, v in counts.items()},
         "assemble_block": launches["assemble_block"],
         "fleet_assemble_block": fleet_launches["assemble_block"],
         "executor_assemble_block": executor_launches["assemble_block"],
@@ -5430,6 +6197,10 @@ def main() -> int:
                     capture_launches=capture_launches.get(name, 0),
                     adapt_launches=adapt_launches.get(name, 0),
                     adapt_refit_launches=adapt_launches.get(f"refit_{name}", 0),
+                    mesh_launches=mesh_launches["mesh_fleet"]["cuda:0 x2"].get(name, 0),
+                    mesh_async_launches=mesh_launches["mesh_async"].get(name, 0),
+                    em_sharded_launches=mesh_launches["em_sharded"].get(name, 0),
+                    campaign_launches=mesh_launches["campaign"].get(name, 0),
                     executor_shapes={k: list(v["S"].shape)
                                      for k, v in executor_blocks.items()},
                     **fleet)
@@ -5482,6 +6253,13 @@ def main() -> int:
                                     if precision == "f32" else 0),
                     adapt_refit_launches=(adapt_launches["refit_assemble_block"]
                                           if precision == "f32" else 0),
+                    **{f"{run}_launches": (counts["assemble_block"] if precision == "f32"
+                                           else 0)
+                       for run, counts in (
+                           ("mesh", mesh_launches["mesh_fleet"]["cuda:0 x2"]),
+                           ("mesh_async", mesh_launches["mesh_async"]),
+                           ("em_sharded", mesh_launches["em_sharded"]),
+                           ("campaign", mesh_launches["campaign"]))},
                     fleet_shape=fleet_score_time[precision]["shape"],
                     **{f"fleet_{k}": ft[k] for k in (
                         "ms", "plain_ms", "bound_ms", "bound_by", "launches_per_sweep")})

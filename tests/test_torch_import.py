@@ -118,6 +118,13 @@ MIRRORS = {
     "traceweaver_tpu_torch.campaign": "traceweaver_tpu/campaign",
     "traceweaver_tpu_torch.campaign.ledger": "traceweaver_tpu/campaign/ledger.py",
     "traceweaver_tpu_torch.campaign.compare": "traceweaver_tpu/campaign/compare.py",
+    "traceweaver_tpu_torch.campaign.plan": "traceweaver_tpu/campaign/plan.py",
+    "traceweaver_tpu_torch.campaign.corpus": "traceweaver_tpu/campaign/corpus.py",
+    "traceweaver_tpu_torch.campaign.runner": "traceweaver_tpu/campaign/runner.py",
+    "traceweaver_tpu_torch.parallel": "traceweaver_tpu/parallel",
+    "traceweaver_tpu_torch.parallel.mesh": "traceweaver_tpu/parallel/mesh.py",
+    "traceweaver_tpu_torch.parallel.multislice": "traceweaver_tpu/parallel/multislice.py",
+    "traceweaver_tpu_torch.ops.gmm": "traceweaver_tpu/ops/gmm.py",
     "traceweaver_tpu_torch.fleet_serve": "traceweaver_tpu/fleet_serve/__init__.py",
     "traceweaver_tpu_torch.fleet_serve.router": "traceweaver_tpu/fleet_serve/router.py",
     "traceweaver_tpu_torch.fleet_serve.manager": "traceweaver_tpu/fleet_serve/manager.py",

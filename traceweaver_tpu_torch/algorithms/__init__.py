@@ -16,7 +16,7 @@ from traceweaver_tpu_torch.algorithms.weaver_exact import WeaverExact  # noqa: F
 
 
 def make_predictors(all_spans, all_processes, device=None, precision: str = "f32",
-                    score_gemm: bool = False):
+                    score_gemm: bool = False, mesh=None):
     """The ordered ``(method_name, instance)`` registry, index-compatible
     with the JAX package's (0..10):
 
@@ -31,13 +31,15 @@ def make_predictors(all_spans, all_processes, device=None, precision: str = "f32
     Slots 0-7 run on the host; slots 8-10 on ``device`` (None: the card,
     raising without one), with the score precision ``precision`` and the
     GEMM score form when ``score_gemm`` (the JAX package's
-    ``TW_PRECISION`` and ``TW_SCORE_GEMM``, which its slots 8-10 read).
+    ``TW_PRECISION`` and ``TW_SCORE_GEMM``, which its slots 8-10 read),
+    sharding their window batches over ``mesh`` when given
+    (``WeaverTorch(mesh=)``).
     """
     from traceweaver_tpu_torch.algorithms.weaver_torch import WeaverTorch
 
     def weaver():
         return WeaverTorch(all_spans, all_processes, device=device,
-                           precision=precision, score_gemm=score_gemm)
+                           precision=precision, score_gemm=score_gemm, mesh=mesh)
 
     return [
         ("MaxScoreBatch", WeaverExact(all_spans, all_processes)),

@@ -1,5 +1,5 @@
 """Fleet solve: every service's windows in one dispatch per shape class
-(mirrors ``traceweaver_tpu/algorithms/fleet.py``, single-device).
+(mirrors ``traceweaver_tpu/algorithms/fleet.py``).
 
 Window batches of several services are padded to shared ``[B, E, W, M]``
 shape classes, each window tagged with ``param_idx``, the row of its
@@ -53,8 +53,25 @@ decode fetched; ``conf_device=True`` adds the margin and entropy
 channels to every dispatch.
 
 The JAX package's ``TW_*`` knobs are keyword arguments of
-:func:`solve_fleet` with the knobs' defaults. Not ported yet: mesh
-sharding and AOT notes (neither changes an output).
+:func:`solve_fleet` with the knobs' defaults. The JAX package's AOT
+notes have no counterpart (the port compiles no programs at run time).
+
+Mesh sharding (``mesh=``, a :class:`~traceweaver_tpu_torch.parallel.mesh.Mesh`):
+each group's batch rows pad on the host to a power of two a shard
+(:func:`~traceweaver_tpu_torch.parallel.mesh.bucket_rows_per_shard`; the
+padding rows are all-invalid windows of tenant -1, decoded by nobody),
+each shard's contiguous rows solve on its own device, and the compacted
+flow fetches the shards' convergence flags gathered onto the mesh's first
+device in one transfer (``d2h_flag_fetches`` counts one a pass); its
+straggler redispatch is bucketed per shard too. The two-pass EM's refit
+sees every shard's windows: it runs on the first device, the solve's
+device, on the whole gathered batch. Every shard launches with the
+kernels' launch plan of the unsharded batch, so 1- and N-shard runs are
+equal. Under a mesh the groups run in the serial flow (counted in
+``mesh_serialized_groups`` when the pipeline was asked for and there is
+more than one group), device-resident columns are off (the mesh places
+host tensors per shard), and a mesh whose size is not a power of two
+runs the per-service fallback items on its first device alone.
 
 Device-resident columns (``devcols=True``, the default, as ``TW_DEVCOLS``
 is in the JAX package; :mod:`traceweaver_tpu_torch.ops.devcols`): the
@@ -135,6 +152,15 @@ from traceweaver_tpu_torch.obs import quality as _quality
 from traceweaver_tpu_torch.obs import selftrace as _selftrace
 from traceweaver_tpu_torch.obs.registry import get_registry as _get_registry
 from traceweaver_tpu_torch.obs.registry import serve_families as _serve_families
+from traceweaver_tpu_torch.parallel.mesh import (
+    Mesh,
+    _pad_batch,
+    bucket_rows_per_shard,
+    coalesce_to_device0,
+    put_sharded,
+    replicate,
+    shard_slices,
+)
 from traceweaver_tpu_torch.ops import devcols as _devcols
 from traceweaver_tpu_torch.ops.precision import score_itemsize, validate_precision
 from traceweaver_tpu_torch.runtime import faults as _faults
@@ -179,6 +205,7 @@ class _Run:
     plan_cache: Optional[PlanCache]
     devcols: bool = False
     ring_capacity: int = _devcols.RING_CAPACITY
+    mesh: Optional[Mesh] = None
 
 
 # registry mirrors of the stats ledger: every _Stats update also lands
@@ -298,7 +325,9 @@ def _fetch(t, st: _Stats, plan, flag_fetch: bool = False,
     them out while other flows bill ``wait_s`` at the same time."""
     _fault_check("fetch", st, plan)
     t0 = time.perf_counter()
-    out = t.cpu().numpy()
+    # a mesh solve's block comes back as one tensor a shard, in shard order
+    out = (np.concatenate([x.cpu().numpy() for x in t]) if isinstance(t, list)
+           else t.cpu().numpy())
     dt = time.perf_counter() - t0
     st.add("wait_s", dt)
     if flow_wait is not None:
@@ -470,6 +499,7 @@ def solve_fleet(
     score_gemm: bool = False,
     devcols: bool = True,
     ring_capacity: int = _devcols.RING_CAPACITY,
+    mesh: Optional[Mesh] = None,
 ) -> List[Tuple]:
     """Solve every item, fusing eligible ones into one dispatch per
     shape class. Returns one FindAssignments 6-tuple per item, in input
@@ -477,7 +507,9 @@ def solve_fleet(
     per_span_candidates, cnt_unassigned)``.
 
     ``device=None`` means the card and raises without one; tests pass
-    ``device="cpu"``. ``fused_kernel`` picks K1 (else K2 and the plain
+    ``device="cpu"``. ``mesh`` shards every group's window batch over
+    its devices (see the module docstring); the solve's device is then
+    the mesh's first and ``device`` is not read. ``fused_kernel`` picks K1 (else K2 and the plain
     rounding) on the card. ``precision`` is the score blocks' storage
     precision (``"f32"`` or ``"bf16"``, ``TW_PRECISION``) and
     ``score_gemm`` builds the scores in the GEMM form
@@ -514,15 +546,20 @@ def solve_fleet(
     ``pipeline_groups``, ``pipeline_depth``, ``fault_*`` and the ordered
     ``fault_ladder`` list, stage seconds, byte counts).
     """
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     precision = validate_precision(precision)
     if merge_budget is None:
         merge_budget = MERGE_BUDGET["cpu" if dev.type == "cpu" else "cuda"]
+    # the fused path shards any mesh size (rows pad to a multiple); the
+    # per-service fallback solver needs a power of two, so another size
+    # runs the fallback items on the first device alone
+    n_mesh = mesh.size if mesh is not None else 1
+    fallback_mesh = mesh if n_mesh & (n_mesh - 1) == 0 else None
     solver_kwargs = dict(max_window=max_window, epsilon=epsilon,
                          n_sinkhorn=n_sinkhorn, n_sweeps=n_sweeps,
                          sinkhorn_tol=sinkhorn_tol, precision=precision,
                          fused_kernel=fused_kernel, device=dev,
-                         score_gemm=score_gemm)
+                         score_gemm=score_gemm, mesh=fallback_mesh)
     results: List[Optional[Tuple]] = [None] * len(items)
     st = _as_stats(stats)
 
@@ -610,8 +647,10 @@ def solve_fleet(
                sweep_warm=sweep_warm, retry_max=retry_max,
                retry_backoff_s=retry_backoff_s,
                budget_bytes=fleet_budget_elems * 4, faults=faults,
-               plan_cache=plan_cache, devcols=bool(devcols),
-               ring_capacity=int(ring_capacity))
+               plan_cache=plan_cache,
+               # the mesh places host tensors per shard
+               devcols=bool(devcols) and mesh is None,
+               ring_capacity=int(ring_capacity), mesh=mesh)
     ctx = dict(all_spans=all_spans, all_processes=all_processes,
                solver_kwargs=solver_kwargs,
                quarantined=quarantined if quarantined is not None else [],
@@ -629,9 +668,15 @@ def solve_fleet(
         st.record_max("fleet_group_cost_max", float(spec.cost))
         st.add("fleet_group_cost_total", float(spec.cost))
         specs.append(spec)
-    if pipeline and specs:
+    if pipeline and specs and mesh is None:
         _solve_groups_pipelined(specs, results, st, run, ctx, decode_workers)
     else:
+        # a mesh's shards launch from the serial flow: the pipeline's
+        # overlap is a single-device optimization (the JAX package
+        # serializes its mesh groups because concurrent sharded launches
+        # deadlock XLA's rendezvous)
+        if mesh is not None and pipeline and len(specs) > 1:
+            st.add("mesh_serialized_groups", float(len(specs)))
         _solve_groups_serial(specs, results, st, run, ctx)
     return results  # type: ignore[return-value]
 
@@ -1176,11 +1221,11 @@ def _place(arrs: Dict[str, np.ndarray], pidx: np.ndarray, dev, st: _Stats):
 def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
     """Run one packed group's device solve and return its decode ticket
     ``(per_item_pack, out, confidence)``: ``out`` is a host array from
-    the compacted flow, else the packed device block; ``confidence``
+    the compacted flow or a mesh, else the packed device block; ``confidence``
     says whether it carries the confidence channels. With a plan cache,
     a two-pass group's refit tables are decoded and admitted here, after
     the dispatch time is taken (billed to ``plan_fit_s``)."""
-    dev = run.device
+    dev, mesh = run.device, run.mesh
     hypers = dict(run.hypers, max_preds=pg["max_preds"], max_succs=pg["max_succs"])
     dc_items = pg.get("devcols_items")
     assemble = (_make_assembler(pg, spec, st, run)
@@ -1191,6 +1236,17 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
     tenant_col = pg.get("tenant_col") if tenant_table else None
     use_compact = (run.compaction and run.sweep_warm < run.n_sweeps
                    and pg["n_rows"] > 1)
+    batch, pidx = pg["batch"], pg["pidx"]
+    if mesh is not None:
+        # the rows pad on the host to a power of two a shard (fresh
+        # arrays: a retry pads the packed group again)
+        batch, true_b = _pad_batch(batch, bucket_rows_per_shard(pg["n_rows"], mesh.size))
+        n_pad = batch["in_start"].shape[0] - true_b
+        pidx = np.concatenate([pidx, np.zeros(n_pad, dtype=pidx.dtype)])
+        if tenant_col is not None:
+            # padding rows belong to no tenant
+            tenant_col = np.concatenate([tenant_col,
+                                         np.full(n_pad, -1, dtype=tenant_col.dtype)])
     flow_wait: List[float] = []
     refit_sink = [] if (run.plan_cache is not None and spec.n_passes == 2) else None
     trace_keys = pg.get("trace_keys") or ()
@@ -1202,11 +1258,17 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
     with _profile.annotate("tw:fleet:dispatch"):
         if use_compact:
             out = _solve_group_compacted(
-                pg["batch"], pg["pidx"], pg["params"], pg["window_rows"],
+                batch, pidx, pg["params"], pg["window_rows"],
                 pg["window_valid"], spec.n_passes, run.n_sweeps, run.sweep_warm,
                 hypers, st, dev, run.faults, flow_wait=flow_wait,
                 refit_sink=refit_sink, trace_keys=trace_keys, assemble=assemble,
-                tenant_col=tenant_col, tenant_table=tenant_table)
+                tenant_col=tenant_col, tenant_table=tenant_table, mesh=mesh,
+                plan_rows=pg["n_rows"])
+        elif mesh is not None:
+            out = _solve_group_mesh(
+                batch, pidx, pg["params"], pg["window_rows"], pg["window_valid"],
+                spec.n_passes, run.n_sweeps, hypers, st, mesh, pg["n_rows"],
+                run.faults, flow_wait=flow_wait, refit_sink=refit_sink)
         else:
             common = (_place(pg["batch"], pg["pidx"], dev, st) if assemble is None
                       else assemble(None, 0) + (torch.as_tensor(pg["pidx"], device=dev),))
@@ -1239,40 +1301,81 @@ def _tables_on(params: Dict[str, np.ndarray], dev) -> Tuple[torch.Tensor, ...]:
     return tuple(torch.as_tensor(params[k], device=dev) for k in _TABLE_KEYS)
 
 
+def _shard_tables(tables, mesh: Mesh) -> List[Tuple[torch.Tensor, ...]]:
+    """The tables (numpy or tensors) as one tuple a shard, copied once
+    per distinct device."""
+    per_table = [replicate(t, mesh) for t in tables]
+    return [tuple(t[s] for t in per_table) for s in range(mesh.size)]
+
+
+def _mesh_solve(arrs: Dict[str, np.ndarray], pidx: np.ndarray, tables, n_sweeps: int,
+                hypers, st: _Stats, mesh: Mesh, plan_rows: int):
+    """One ``solve_windows_fleet`` dispatch sharded over ``mesh``: each
+    shard's contiguous rows of the host batch (a multiple of the mesh
+    size) solve on its device with ``tables`` (one tuple a shard,
+    :func:`_shard_tables`), its launches planned for ``plan_rows``
+    blocks (the batch the unsharded flow launches). Returns the packed
+    block as one tensor a shard and the convergence flags gathered onto
+    the first device."""
+    st.add("h2d_bytes_shipped", float(sum(arrs[k].nbytes for k in _BATCH_KEYS)))
+    placed = put_sharded({k: arrs[k] for k in _BATCH_KEYS}, mesh)
+    slices = shard_slices(len(pidx), mesh)
+    outs, flags = [], []
+    for s, (sl, dev) in enumerate(zip(slices, mesh.devices)):
+        o, f = solve_windows_fleet(
+            *(placed[k][s] for k in _BATCH_KEYS),
+            torch.as_tensor(pidx[sl], device=dev), *tables[s],
+            n_sweeps=n_sweeps, plan_b=plan_rows, **hypers)
+        outs.append(o)
+        flags.append(f)
+    return outs, coalesce_to_device0(flags, mesh)
+
+
 def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
                     faults=None, flow_wait=None, trace_keys=(), assemble=None,
-                    tenant_col=None, tenant_table=None) -> np.ndarray:
+                    tenant_col=None, tenant_table=None, mesh=None,
+                    plan_rows=None) -> np.ndarray:
     """One solve pass as a warm dispatch of ``warm`` sweeps plus a full
     redispatch of only the unconverged windows. Returns the packed
     ``[B, E, W, 3 + topk]`` block on the host; ``batch``/``pidx`` are
     host numpy, ``tables`` numpy or tensors. With ``assemble`` (a
     resident group) both dispatches gather their window tensors from the
     rings; ``tenant_col`` attributes the redispatched windows per
-    tenant (``tenant_windows_redispatched``)."""
-    st = _as_stats(stats)
-    tables = tuple(torch.as_tensor(t, device=device) for t in tables)
+    tenant (``tenant_windows_redispatched``).
 
-    def placed(rows, pad):
-        if assemble is not None:
-            p = np.asarray(pidx) if rows is None else np.asarray(pidx)[rows]
-            if pad:
-                p = np.concatenate([p, np.zeros(pad, dtype=p.dtype)])
-            return assemble(rows, pad) + (torch.as_tensor(p, device=device),)
+    With ``mesh`` every dispatch is sharded (:func:`_mesh_solve`, planned
+    for ``plan_rows`` blocks in the warm dispatch and for the unsharded
+    redispatch's batch in the redispatch), the flags come back in one
+    fetch from the first device, and the redispatch pads per shard."""
+    st = _as_stats(stats)
+    if mesh is None:
+        tables = tuple(torch.as_tensor(t, device=device) for t in tables)
+    else:
+        tables = _shard_tables(tables, mesh)
+    n_shards = mesh.size if mesh is not None else 1
+
+    def rows_of(a, rows, pad):
+        # the rows ``rows`` (None: all) plus ``pad`` all-invalid padding
+        # rows: no valid spans or columns, decoded by nobody
+        a = np.asarray(a)
         if rows is None:
-            return _place(batch, pidx, device, st)
-        # padding rows are all-invalid windows: no valid spans or columns,
-        # decoded by nobody
-        gathered = {k: np.concatenate([batch[k][rows],
-                                       np.zeros((pad,) + batch[k].shape[1:],
-                                                dtype=batch[k].dtype)])
-                    for k in _BATCH_KEYS}
-        pidx_active = np.concatenate([np.asarray(pidx)[rows],
-                                      np.zeros(pad, dtype=np.asarray(pidx).dtype)])
-        return _place(gathered, pidx_active, device, st)
+            return a
+        return np.concatenate([a[rows], np.zeros((pad,) + a.shape[1:], dtype=a.dtype)])
+
+    def solve(rows, pad, sweeps, rows_unsharded):
+        p = rows_of(pidx, rows, pad)
+        if mesh is not None:
+            return _mesh_solve({k: rows_of(batch[k], rows, pad) for k in _BATCH_KEYS}, p,
+                               tables, sweeps, hypers, st, mesh, rows_unsharded)
+        if assemble is not None:
+            common = assemble(rows, pad) + (torch.as_tensor(p, device=device),)
+        else:
+            common = _place({k: rows_of(batch[k], rows, pad) for k in _BATCH_KEYS}, p,
+                            device, st)
+        return solve_windows_fleet(*common, *tables, n_sweeps=sweeps, **hypers)
 
     with _profile.annotate("tw:fleet:warm-dispatch"):
-        out_warm, flags = solve_windows_fleet(*placed(None, 0),
-                                              *tables, n_sweeps=warm, **hypers)
+        out_warm, flags = solve(None, 0, warm, plan_rows)
     st.add("d2h_flag_fetches", 1.0)
     w0 = _selftrace.now_us()
     with _profile.annotate("tw:fleet:flag-fetch"):
@@ -1289,35 +1392,29 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
                 st.bucket("tenant_windows_redispatched", tenant_table[t_i], float(c))
     if active.size == 0:
         return _fetch(out_warm, st, faults, flow_wait=flow_wait)
-    # stragglers rerun from sweep 0, padded to a power of two with
-    # all-invalid rows
-    pad = _bucket(int(active.size), minimum=1) - int(active.size)
+    # stragglers rerun from sweep 0, padded with all-invalid rows to a
+    # power of two (a shard)
+    pad = bucket_rows_per_shard(int(active.size), n_shards) - int(active.size)
     w0 = _selftrace.now_us()
     with _profile.annotate("tw:fleet:redispatch"):
-        out_full, _ = solve_windows_fleet(*placed(active, pad),
-                                          *tables, n_sweeps=n_sweeps, **hypers)
+        out_full, _ = solve(active, pad, n_sweeps, _bucket(int(active.size), minimum=1))
     _trace_stage(trace_keys, "redispatch", w0)
     out = _fetch(out_warm, st, faults, flow_wait=flow_wait).copy()
     out[active] = _fetch(out_full, st, faults, flow_wait=flow_wait)[:active.size]
     return out
 
 
-def _solve_group_compacted(batch, pidx, params, window_rows, window_valid,
-                           n_passes, n_sweeps, warm, hypers, stats, device,
-                           faults=None, flow_wait=None,
-                           refit_sink=None, trace_keys=(), assemble=None,
-                           tenant_col=None, tenant_table=None) -> np.ndarray:
-    """The compacted counterpart of one group dispatch: a compacted pass
-    0, for two-pass groups :func:`refit_fleet_params` on pass 0's merged
-    assignments (the refit :func:`solve_em_fleet` runs), then a
-    compacted pass 1. ``refit_sink`` (a list) receives the refit tables
-    for the plan cache. With ``assemble`` every dispatch and the refit's
-    samples gather from the resident rings."""
-    st = _as_stats(stats)
+def _solve_group_passes(run_pass, batch, pidx, params, window_rows, window_valid,
+                        n_passes, device, refit_sink=None, assemble=None) -> np.ndarray:
+    """One group's passes, each ``run_pass(tables)`` returning its packed
+    block on the host: pass 0, for two-pass groups
+    :func:`refit_fleet_params` on pass 0's assignments (the refit
+    :func:`solve_em_fleet` runs) on ``device`` over the whole batch, then
+    pass 1. ``refit_sink`` (a list) receives the refit tables for the
+    plan cache. With ``assemble`` the refit's samples gather from the
+    resident rings."""
     tables = _tables_on(params, device)
-    kw = dict(assemble=assemble, tenant_col=tenant_col, tenant_table=tenant_table)
-    out0 = _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, st,
-                           device, faults, flow_wait, trace_keys, **kw)
+    out0 = run_pass(tables)
     if n_passes == 1:
         return out0
 
@@ -1335,9 +1432,48 @@ def _solve_group_compacted(batch, pidx, params, window_rows, window_valid,
         on(pidx), on(window_rows), on(window_valid), *tables[:2], *tables[3:])
     if refit_sink is not None:
         refit_sink.append(new_tables)
-    return _compacted_pass(batch, pidx, tables[:3] + tuple(new_tables), n_sweeps,
-                           warm, hypers, st, device, faults, flow_wait, trace_keys,
-                           **kw)
+    return run_pass(tables[:3] + tuple(new_tables))
+
+
+def _solve_group_compacted(batch, pidx, params, window_rows, window_valid,
+                           n_passes, n_sweeps, warm, hypers, stats, device,
+                           faults=None, flow_wait=None,
+                           refit_sink=None, trace_keys=(), assemble=None,
+                           tenant_col=None, tenant_table=None, mesh=None,
+                           plan_rows=None) -> np.ndarray:
+    """The compacted counterpart of one group dispatch: a compacted pass
+    0, for two-pass groups the refit, then a compacted pass 1
+    (:func:`_solve_group_passes`). With ``assemble`` every dispatch and
+    the refit's samples gather from the resident rings. With ``mesh`` the
+    passes are sharded (:func:`_compacted_pass`) and the refit runs on
+    ``device``, the mesh's first, over every shard's windows."""
+    st = _as_stats(stats)
+
+    def run_pass(tables):
+        return _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, st, device,
+                               faults, flow_wait, trace_keys, assemble=assemble,
+                               tenant_col=tenant_col, tenant_table=tenant_table,
+                               mesh=mesh, plan_rows=plan_rows)
+
+    return _solve_group_passes(run_pass, batch, pidx, params, window_rows, window_valid,
+                               n_passes, device, refit_sink, assemble)
+
+
+def _solve_group_mesh(batch, pidx, params, window_rows, window_valid, n_passes,
+                      n_sweeps, hypers, st: _Stats, mesh: Mesh, plan_rows: int,
+                      faults=None, flow_wait=None, refit_sink=None) -> np.ndarray:
+    """A mesh's uncompacted group dispatch: each pass one full sharded
+    dispatch of ``n_sweeps`` (:func:`_mesh_solve`) fetched to the host,
+    with the refit between them on the mesh's first device over every
+    shard's windows (:func:`_solve_group_passes`), where the one-device
+    flow runs :func:`solve_em_fleet` on the device."""
+    def run_pass(tables):
+        out, _ = _mesh_solve(batch, pidx, _shard_tables(tables, mesh), n_sweeps, hypers,
+                             st, mesh, plan_rows)
+        return _fetch(out, st, faults, flow_wait=flow_wait)
+
+    return _solve_group_passes(run_pass, batch, pidx, params, window_rows, window_valid,
+                               n_passes, mesh.devices[0], refit_sink)
 
 
 def _decode_group(pend, results, st: _Stats, run: _Run, ctx) -> None:

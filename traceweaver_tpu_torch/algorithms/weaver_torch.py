@@ -103,6 +103,7 @@ def _solve_windows_impl(
     fused: bool = True,
     confidence: bool = False,
     score_gemm: bool = False,
+    plan_b: Optional[int] = None,
 ):
     """Shared body of :func:`solve_windows` and the packed entry points.
 
@@ -110,7 +111,10 @@ def _solve_windows_impl(
     not_best [B, E, W] bool, feas_count [B, E, W] int32, converged [B]
     bool)``. ``max_preds``/``max_succs`` (0 = no bound) cap the DAG
     neighbours each score block sums over; ``fused`` picks the fused
-    kernel on the card. ``confidence`` adds, before ``converged``, the
+    kernel on the card, whose launch is planned for ``plan_b`` blocks
+    when given (a mesh shard passes the unsharded batch's count, so a
+    window's sums run in the order they run on one device).
+    ``confidence`` adds, before ``converged``, the
     two quantized quality channels of
     :mod:`~traceweaver_tpu_torch.algorithms.packed_layout` ([B, E, W]
     int32 each): the top1-top2 margin of each row of the assembled block
@@ -204,7 +208,7 @@ def _solve_windows_impl(
         assign, tk = assign_topk(
             S_ot, row_marg, col_marg, in_v, col_valid, cap_e, W,
             epsilon=epsilon, n_iters=n_sinkhorn, tol=sinkhorn_tol, topk=topk,
-            min_topk_mass=MIN_TOPK_MASS, fused=fused)
+            min_topk_mass=MIN_TOPK_MASS, fused=fused, **plan_kw)
 
         # chosen completion: skip passes the predecessor time through
         real = (assign >= 0) & (assign < M)
@@ -226,6 +230,8 @@ def _solve_windows_impl(
         ent_q = (torch.clamp(ent, min=0.0) * scale).to(torch.int32)
         return assign, tk, not_best, feas_count, margin_q, ent_q
 
+    # unsharded solves plan for their own B: they pass no plan_b at all
+    plan_kw = {} if plan_b is None else {"plan_b": plan_b}
     chosen_end = torch.zeros(B, E, W, dtype=in_s.dtype, device=dev)
     chosen_start = torch.full((B, E, W), POS, dtype=in_s.dtype, device=dev)
     outs = (torch.zeros(B, E, W, dtype=torch.int32, device=dev),
@@ -271,8 +277,9 @@ def solve_windows(in_start, in_end, in_valid, out_start, out_end, out_valid,
                   n_sweeps: int = 5, sinkhorn_tol: float = 0.0,
                   max_preds: int = 0, max_succs: int = 0,
                   precision: str = "f32", fused: bool = True,
-                  score_gemm: bool = False):
-    """Solve every window of one problem by Gauss-Seidel sweeps.
+                  score_gemm: bool = False, plan_b: Optional[int] = None):
+    """Solve every window of one problem by Gauss-Seidel sweeps
+    (``plan_b``: see :func:`_solve_windows_impl`).
 
     Returns assign [B, E, W] int32 (M = skip, -1 = unassigned), topk
     [B, E, W, topk] int32, not_best [B, E, W] bool, feas_count
@@ -286,7 +293,7 @@ def solve_windows(in_start, in_end, in_valid, out_start, out_end, out_valid,
                   in_wt, in_mu, in_sd, ret_wt, ret_mu, ret_sd)),
         epsilon=epsilon, n_sinkhorn=n_sinkhorn, topk=topk, n_sweeps=n_sweeps,
         sinkhorn_tol=sinkhorn_tol, max_preds=max_preds, max_succs=max_succs,
-        precision=precision, fused=fused, score_gemm=score_gemm)
+        precision=precision, fused=fused, score_gemm=score_gemm, plan_b=plan_b)
     return outs[:4]
 
 
@@ -313,7 +320,8 @@ def solve_windows_fleet(in_start, in_end, in_valid, out_start, out_end,
                         n_sweeps: int = 5, sinkhorn_tol: float = 0.0,
                         max_preds: int = 0, max_succs: int = 0,
                         precision: str = "f32", fused: bool = True,
-                        confidence: bool = False, score_gemm: bool = False):
+                        confidence: bool = False, score_gemm: bool = False,
+                        plan_b: Optional[int] = None):
     """Multi-service solve: ``param_idx[b]`` picks window b's row of the
     stacked ``[P, ...]`` tables, so windows of every service of a fleet
     share one batch (endpoint axes padded to the fleet's widest; padded
@@ -331,7 +339,7 @@ def solve_windows_fleet(in_start, in_end, in_valid, out_start, out_end,
         epsilon=epsilon, n_sinkhorn=n_sinkhorn, topk=topk, n_sweeps=n_sweeps,
         sinkhorn_tol=sinkhorn_tol, max_preds=max_preds, max_succs=max_succs,
         precision=precision, fused=fused, confidence=confidence,
-        score_gemm=score_gemm)
+        score_gemm=score_gemm, plan_b=plan_b)
     return _pack_solver_outputs(*outs[:-1]), outs[-1]
 
 
@@ -367,20 +375,16 @@ def em_family_samples(assign, in_start, in_end, in_valid,
     return torch.cat([di, de, dr], dim=0), torch.cat([mi, me, mr], dim=0)
 
 
-def solve_em_packed(in_start, in_end, in_valid, out_start, out_end, out_valid,
-                    skip_cap, force_skip, pred_mask, root_mask, is_last,
-                    edge_wt, edge_mu, edge_sd, in_wt, in_mu, in_sd,
-                    ret_wt, ret_mu, ret_sd, **kw):
-    """Both EM passes on the device: pass 0, the three-family delay
-    samples, the BIC-GMM refit (:func:`fit_gmm_in_graph`), pass 1.
-    Returns pass 1's packed block."""
+def em_refit_tables(assign0, in_start, in_end, in_valid, out_start, out_end,
+                    pred_mask, root_mask, is_last, edge_wt, edge_mu, edge_sd,
+                    in_wt, in_mu, in_sd, ret_wt, ret_mu, ret_sd):
+    """The refit between the two EM passes of one problem: the
+    three-family delay samples of pass 0's assignments and the BIC-GMM
+    refit (:func:`fit_gmm_in_graph`) with the current tables as priors.
+    Returns the nine new tables in argument order (edge, in, return; w,
+    mu, sd each)."""
     E = out_start.shape[1]
     K = in_wt.shape[1]
-    windows = (in_start, in_end, in_valid, out_start, out_end, out_valid,
-               skip_cap, force_skip)
-    assign0 = solve_windows(*windows, pred_mask, root_mask, is_last,
-                            edge_wt, edge_mu, edge_sd, in_wt, in_mu, in_sd,
-                            ret_wt, ret_mu, ret_sd, **kw)[0]
     samples, smask = em_family_samples(assign0, in_start, in_end, in_valid,
                                        out_start, out_end, pred_mask, root_mask)
     prior_w = torch.cat([in_wt, edge_wt.reshape(E * E, K), ret_wt])
@@ -390,11 +394,25 @@ def solve_em_packed(in_start, in_end, in_valid, out_start, out_end, out_valid,
                                  max_k=K)
     edge = slice(E, E + E * E)
     ret = slice(E + E * E, None)
-    return solve_windows_packed(
-        *windows, pred_mask, root_mask, is_last,
-        w[edge].reshape(E, E, K), mu[edge].reshape(E, E, K),
-        sd[edge].reshape(E, E, K),
-        w[:E], mu[:E], sd[:E], w[ret], mu[ret], sd[ret], **kw)
+    return (w[edge].reshape(E, E, K), mu[edge].reshape(E, E, K),
+            sd[edge].reshape(E, E, K), w[:E], mu[:E], sd[:E],
+            w[ret], mu[ret], sd[ret])
+
+
+def solve_em_packed(in_start, in_end, in_valid, out_start, out_end, out_valid,
+                    skip_cap, force_skip, pred_mask, root_mask, is_last,
+                    edge_wt, edge_mu, edge_sd, in_wt, in_mu, in_sd,
+                    ret_wt, ret_mu, ret_sd, **kw):
+    """Both EM passes on the device: pass 0, the refit of
+    :func:`em_refit_tables`, pass 1. Returns pass 1's packed block."""
+    windows = (in_start, in_end, in_valid, out_start, out_end, out_valid,
+               skip_cap, force_skip)
+    tables = (pred_mask, root_mask, is_last, edge_wt, edge_mu, edge_sd,
+              in_wt, in_mu, in_sd, ret_wt, ret_mu, ret_sd)
+    assign0 = solve_windows(*windows, *tables, **kw)[0]
+    new = em_refit_tables(assign0, in_start, in_end, in_valid, out_start, out_end,
+                          *tables)
+    return solve_windows_packed(*windows, *tables[:3], *new, **kw)
 
 
 def refit_fleet_params(assign0, in_start, in_end, in_valid, out_start, out_end,
@@ -1016,6 +1034,14 @@ class WeaverTorch:
     ``TW_CONFIDENCE``: with it, every ``FindAssignments`` leaves its
     per-span records (:mod:`traceweaver_tpu_torch.obs.quality`) in
     :attr:`per_span_confidence`.
+
+    ``mesh`` (a :class:`~traceweaver_tpu_torch.parallel.mesh.Mesh`, whose
+    size must be a power of two) shards every dispatch's window batch
+    over its devices, each shard solved on its own device; the chunk
+    budget scales by the mesh size and each chunk pads to a multiple of
+    it. The solver's device is then the mesh's first, where the fused
+    EM's refit gathers every shard's windows and the host refit's tensors
+    live.
     """
 
     def __init__(self, all_spans, all_processes,
@@ -1024,8 +1050,14 @@ class WeaverTorch:
                  sinkhorn_tol: float = 1e-3,
                  precision: str = "f32", topk: int = DEFAULT_TOPK,
                  fused_kernel: bool = True, device=None,
-                 confidence: bool = True, score_gemm: bool = False):
-        self.device = resolve_device(device)
+                 confidence: bool = True, score_gemm: bool = False, mesh=None):
+        if mesh is not None:
+            n_dev = mesh.size
+            assert n_dev & (n_dev - 1) == 0, (
+                "mesh size must be a power of two so padded window batches "
+                "divide evenly across devices")
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         self.all_spans = all_spans
         self.all_processes = all_processes
         self.max_window = max_window
@@ -1099,16 +1131,22 @@ class WeaverTorch:
             batches_spec.append((c, wins))
             carry = []
 
-        # per-dispatch byte budget of score blocks at the score precision
+        # per-dispatch byte budget of score blocks at the score precision;
+        # on a mesh each device owns a contiguous slice of a chunk's
+        # windows, so the budget (per-device memory) scales by its size
+        n_dev = self.mesh.size if self.mesh is not None else 1
         itemsize = score_itemsize(self.precision)
         chunk_bytes = CHUNK_ELEMS * 4
         plan = []
         for wclass, wins in batches_spec:
             m_est = est_m(wins)
-            per_chunk = max(1, chunk_bytes // (wclass * m_est * E * itemsize))
+            per_chunk = max(1, chunk_bytes // (wclass * m_est * E * itemsize)) * n_dev
+            # the batch of the unsharded chunk, which a mesh shard's
+            # launches are planned for
+            plan_b = _bucket(min(len(wins), per_chunk // n_dev), minimum=1)
             chunks = [wins[i:i + per_chunk] for i in range(0, len(wins), per_chunk)]
             for chunk in chunks:
-                plan.append((wclass, m_est, per_chunk, len(chunks), chunk))
+                plan.append((wclass, m_est, per_chunk, len(chunks), plan_b, chunk))
         # the on-device EM refits from its own windows' samples, so it
         # equals the global refit only when one dispatch covers the solve
         use_fused = fused and len(plan) == 1
@@ -1116,34 +1154,37 @@ class WeaverTorch:
             stats["fused_em_applied"] = 1.0
 
         results = []
-        for wclass, m_est, per_chunk, n_chunks, chunk in plan:
+        for wclass, m_est, per_chunk, n_chunks, plan_b, chunk in plan:
             t0 = time.perf_counter()
             packed = pack_problem(
                 in_spans, out_span_partitions, out_eps, dists, in_ep, dag,
                 force_skip_ids=force_skip_ids, parallel=parallel,
                 windows=chunk, pad_w=wclass,
-                pad_b=per_chunk if n_chunks > 1 else None,
+                pad_b=(per_chunk if n_chunks > 1 else n_dev if n_dev > 1 else None),
                 pad_m=m_est if n_chunks > 1 else None,
                 ranges=ranges_all[[row_of[w] for w in chunk]],
                 skip_caps=skip_caps_all[[row_of[w] for w in chunk]],
                 in_cols=in_cols, out_cols=out_cols)
             _stat_add(stats, "pack_s", time.perf_counter() - t0)
             t0 = time.perf_counter()
-            a = {k: torch.as_tensor(packed.arrays[k], device=self.device)
-                 for k in ARG_ORDER}
             pm_np = packed.arrays["pred_mask"]
             mp = _bucket(max(1, int(pm_np.sum(axis=1).max(initial=0))), minimum=1)
             ms = _bucket(max(1, int(pm_np.sum(axis=0).max(initial=0))), minimum=1)
-            solve_fn = solve_em_packed if use_fused else solve_windows_packed
+            kw = dict(epsilon=self.epsilon, n_sinkhorn=self.n_sinkhorn,
+                      topk=self.topk, n_sweeps=n_sweeps,
+                      sinkhorn_tol=self.sinkhorn_tol, max_preds=mp, max_succs=ms,
+                      precision=self.precision, fused=self.fused_kernel,
+                      score_gemm=self.score_gemm)
             with _obs_profile.annotate("tw:solve:dispatch"):
-                out = solve_fn(
-                    *(a[k] for k in ARG_ORDER),
-                    epsilon=self.epsilon, n_sinkhorn=self.n_sinkhorn,
-                    topk=self.topk, n_sweeps=n_sweeps,
-                    sinkhorn_tol=self.sinkhorn_tol, max_preds=mp, max_succs=ms,
-                    precision=self.precision, fused=self.fused_kernel,
-                    score_gemm=self.score_gemm)
-            o = out.cpu().numpy()
+                if self.mesh is None:
+                    solve_fn = solve_em_packed if use_fused else solve_windows_packed
+                    o = solve_fn(*(torch.as_tensor(packed.arrays[k], device=self.device)
+                                   for k in ARG_ORDER), **kw).cpu().numpy()
+                else:
+                    from traceweaver_tpu_torch.parallel.mesh import solve_packed_sharded
+
+                    o = solve_packed_sharded(packed.arrays, self.mesh, use_fused,
+                                             plan_b, **kw)
             _stat_add(stats, "solve_s", time.perf_counter() - t0)
             ch = _layout.split_packed(o, topk=self.topk)
             results.append((packed, (ch["assign"], ch["topk_cols"],

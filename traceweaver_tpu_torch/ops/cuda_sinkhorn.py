@@ -20,6 +20,9 @@ distributed shared memory. The exponentials of the Sinkhorn loop bound
 both kernels; spreading a window over a cluster puts 64 to 128 SMs to
 work at 8 windows instead of 8. The three kernels use one plan for one
 (B, R, C), so K1 equals K2's plan rounded by ``round_topk`` bit for bit.
+The cluster size follows B, so a mesh shard, which launches part of a
+batch, passes ``plan_b``, the unsharded batch's count: its windows then
+sum in the order they sum on one device.
 
 Plain versions live beside them: :func:`assign_topk_plain` (the
 ``sinkhorn -> greedy_round -> topk_peel`` composition, ``assign_topk_jnp``
@@ -50,12 +53,15 @@ the function, not of the launch. The fleet's flow workers launch from
 several threads at once, so each C entry point (attribute, then launch
 or occupancy query) runs under :data:`_launch_lock`: otherwise a thread
 could launch with the smaller limit another thread set in between, and
-the launch fails with CUDA error 1 (invalid value).
+the launch fails with CUDA error 1 (invalid value). The attribute is set
+inside ``torch.cuda.device`` of the launch's tensors, so on a mesh over
+several cards each launch sets it on the card it runs on.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -260,9 +266,12 @@ def _stream(t: torch.Tensor) -> int:
 
 def fused_assign_cuda(scores, row_marg, col_marg, skip_cap, n_rows: int, *,
                       epsilon: float, n_iters: int, tol: float, topk: int,
-                      min_topk_mass: float, return_stats: bool = False):
+                      min_topk_mass: float, return_stats: bool = False,
+                      plan_b: Optional[int] = None):
     """K1: Sinkhorn -> greedy rounding -> top-k peel per block, one
-    cluster of :func:`card_plan` CTAs per block.
+    cluster of :func:`card_plan` CTAs per block, planned for ``plan_b``
+    blocks when given (a mesh shard's launch takes the plan of the
+    unsharded batch, the tile and shared memory not depending on B).
 
     The Sinkhorn loop's exponentials bound it (one per element and
     half-iteration), and its block streams from L2/HBM twice per
@@ -289,7 +298,7 @@ def fused_assign_cuda(scores, row_marg, col_marg, skip_cap, n_rows: int, *,
     stats = torch.empty((B, 2), dtype=torch.int32, device=dev)
     if B == 0:
         return (assign, tk, stats) if return_stats else (assign, tk)
-    lib, plan = _lib(), card_plan(B, R, C, dev, item)
+    lib, plan = _lib(), card_plan(plan_b or B, R, C, dev, item)
     with torch.cuda.device(dev), _launch_lock:
         err = lib.tw_fused_assign(
             scores.data_ptr(), row_marg.data_ptr(), col_marg.data_ptr(),
@@ -303,11 +312,12 @@ def fused_assign_cuda(scores, row_marg, col_marg, skip_cap, n_rows: int, *,
 
 
 def sinkhorn_cuda(scores, row_marg, col_marg, *, epsilon: float, n_iters: int,
-                  tol: float = 0.0, return_iters: bool = False):
+                  tol: float = 0.0, return_iters: bool = False,
+                  plan_b: Optional[int] = None):
     """K2: the Sinkhorn plan [B, N, M] f32 of scores [B, N, M] (f32 or
     bf16) under marginals [B, N] / [B, M]; ``return_iters`` adds the
-    iterations run per block ([B] int32). The same cluster design and
-    bound as K1, plus one write of the plan."""
+    iterations run per block ([B] int32). The same cluster design, bound
+    and ``plan_b`` as K1, plus one write of the plan."""
     B, N, M = scores.shape
     _check("scores", scores, tuple(SCORE_DTYPES), (B, N, M))
     _check("row_marg", row_marg, torch.float32, (B, N))
@@ -319,7 +329,7 @@ def sinkhorn_cuda(scores, row_marg, col_marg, *, epsilon: float, n_iters: int,
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return (plan, iters) if return_iters else plan
-    lib, lp = _lib(), card_plan(B, N, M, dev, item)
+    lib, lp = _lib(), card_plan(plan_b or B, N, M, dev, item)
     with torch.cuda.device(dev), _launch_lock:
         err = lib.tw_sinkhorn(
             scores.data_ptr(), row_marg.data_ptr(), col_marg.data_ptr(), B, N,
@@ -404,12 +414,14 @@ def sinkhorn(scores, row_marg, col_marg, *, epsilon: float = 1.0,
 
 def assign_topk(S_ot, row_marg, col_marg, in_valid, col_valid, skip_cap,
                 n_rows: int, *, epsilon: float, n_iters: int, tol: float,
-                topk: int, min_topk_mass: float, fused: bool = True):
+                topk: int, min_topk_mass: float, fused: bool = True,
+                plan_b: Optional[int] = None):
     """Hard assignment + top-k of blocks [B, R, C].
 
     On the CPU: the plain composition. On the card: K1 when ``fused``,
     else K2's plan rounded by the plain rounding (the JAX package's
-    ``TW_PALLAS_FUSED=0`` path)."""
+    ``TW_PALLAS_FUSED=0`` path), either planned for ``plan_b`` blocks
+    when given (see :func:`fused_assign_cuda`)."""
     if S_ot.device.type == "cpu":
         return assign_topk_plain(
             S_ot, row_marg, col_marg, in_valid, col_valid, skip_cap, n_rows,
@@ -418,8 +430,10 @@ def assign_topk(S_ot, row_marg, col_marg, in_valid, col_valid, skip_cap,
     if fused:
         return fused_assign_cuda(
             S_ot, row_marg, col_marg, skip_cap, n_rows, epsilon=epsilon,
-            n_iters=n_iters, tol=tol, topk=topk, min_topk_mass=min_topk_mass)
+            n_iters=n_iters, tol=tol, topk=topk, min_topk_mass=min_topk_mass,
+            plan_b=plan_b)
     return assign_topk_plain(
         S_ot, row_marg, col_marg, in_valid, col_valid, skip_cap, n_rows,
         epsilon=epsilon, n_iters=n_iters, tol=tol, topk=topk,
-        min_topk_mass=min_topk_mass, plan_fn=sinkhorn_cuda)
+        min_topk_mass=min_topk_mass,
+        plan_fn=functools.partial(sinkhorn_cuda, plan_b=plan_b))

@@ -10,7 +10,10 @@ is a leading batch axis here) and BIC picks the count per edge.
 - :func:`fit_gmm_in_graph` stays on the device end to end (the fused
   two-pass EM), standardizing in f32 with the mean subtracted before
   squaring, keeping the prior parameters for empty rows and taking the
-  closed-form single Gaussian for rows with fewer than 4 samples.
+  closed-form single Gaussian for rows with fewer than 4 samples;
+- :func:`fit_gmm_sharded` fits rows whose samples are sharded over a
+  mesh, every moment sum added over the shards on the mesh's first
+  device (the JAX package's ``psum``).
 
 Component stds are floored at 1 µs after the back-transform.
 """
@@ -18,9 +21,11 @@ Component stds are floored at 1 µs after the back-transform.
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -128,6 +133,98 @@ def fit_gmm_batched(samples, mask, max_k: int = 5, n_iters: int = 50,
                              * sd_z.cpu().numpy().astype(np.float64), 1.0),
                   1.0)
     return w, mu, sd
+
+
+def fit_gmm_sharded(samples: Sequence[torch.Tensor], mask: Sequence[torch.Tensor],
+                    device, max_k: int = 5, n_iters: int = 50):
+    """BIC-selected GMM fit with the sample axis sharded over a mesh (JAX
+    ``fit_gmm_sharded``, the distributed M-step).
+
+    ``samples`` and ``mask`` hold one ``[Ne, n_local]`` tensor a shard
+    (f32 and bool, each on its shard's device). Responsibilities are
+    computed per shard; every moment sum the JAX package reduces with
+    ``psum`` (``n``, the mean and variance sums, ``n_j``, ``Σ r z``,
+    ``Σ r z²``, the log-likelihood) is each shard's partial sum, moved
+    to ``device`` (the mesh's first) and added there in shard order, and
+    the parameters every shard uses next come from that one sum. Returns
+    ``(w, mu, sd)``, each ``[Ne, max_k]`` on ``device``, in the sample
+    domain with the 1 µs std floor.
+
+    The JAX package's two deliberate departures from the single-device
+    fit stay: the means start at fixed z-space offsets (global quantiles
+    would need a distributed sort), and the standardization runs in f32
+    on the reduced moments. So this equals the JAX package's sharded fit,
+    not its batched one."""
+    device = torch.device(device)
+
+    def psum(parts):
+        out = parts[0].to(device)
+        for p in parts[1:]:
+            out = out + p.to(device)
+        return out
+
+    def on_shards(t):
+        placed = {}
+        return [placed.setdefault(x.device, t.to(x.device)) for x in samples]
+
+    ms = [m.to(x.dtype) for x, m in zip(samples, mask)]
+    ne = samples[0].shape[0]
+    dtype = samples[0].dtype
+    n = torch.clamp(psum([m.sum(dim=1) for m in ms]), min=1.0)            # [Ne]
+    mean = psum([(x * m).sum(dim=1) for x, m in zip(samples, ms)]) / n
+    mean_s = on_shards(mean)
+    ds = [(x - mu[:, None]) * m for x, mu, m in zip(samples, mean_s, ms)]
+    var0 = psum([(d * d).sum(dim=1) for d in ds]) / n
+    scale = torch.sqrt(torch.clamp(var0, min=1e-12))
+    zs = [torch.where(mk, (x - mu[:, None]) / sc[:, None], torch.zeros_like(x))
+          for x, mk, mu, sc in zip(samples, mask, mean_s, on_shards(scale))]
+
+    def log_comp(z, w, mu, var):
+        dd = z[:, :, None] - mu[:, None, :]                               # [Ne, n, k]
+        return (-0.5 * dd * dd / var[:, None, :]
+                - 0.5 * torch.log(var)[:, None, :]
+                - 0.5 * LOG_2PI
+                + torch.log(torch.clamp(w, min=1e-30))[:, None, :])
+
+    outs = []
+    for k in range(1, max_k + 1):
+        # fixed spread init in z-space (z is standardized: mean 0, var 1)
+        qs = (torch.arange(k, dtype=dtype, device=device) + 0.5) / k
+        mu = (3.0 * (qs - 0.5)).expand(ne, k).contiguous()
+        var = torch.ones(ne, k, dtype=dtype, device=device)
+        w = torch.full((ne, k), 1.0 / k, dtype=dtype, device=device)
+        for _ in range(n_iters):
+            resp = [torch.softmax(log_comp(z, ws, mus, vs), dim=2) * m[:, :, None]
+                    for z, m, ws, mus, vs in zip(zs, ms, on_shards(w), on_shards(mu),
+                                                 on_shards(var))]
+            nj = torch.clamp(psum([r.sum(dim=1) for r in resp]), min=1e-6)  # [Ne, k]
+            w = nj / n[:, None]
+            mu = psum([(r * z[:, :, None]).sum(dim=1) for r, z in zip(resp, zs)]) / nj
+            s2 = psum([(r * z[:, :, None] ** 2).sum(dim=1)
+                       for r, z in zip(resp, zs)]) / nj
+            var = torch.clamp(s2 - mu * mu, min=1e-6)
+        ll = psum([torch.where(mk, torch.logsumexp(log_comp(z, ws, mus, vs), dim=2),
+                               torch.zeros_like(z)).sum(dim=1)
+                   for z, mk, ws, mus, vs in zip(zs, mask, on_shards(w), on_shards(mu),
+                                                 on_shards(var))])
+        p = 3 * k - 1
+        bic = torch.where(n >= k, -2.0 * ll + p * torch.log(n),
+                          torch.full_like(n, math.inf))
+        pad = max_k - k
+        outs.append((bic, F.pad(w, (0, pad)), F.pad(mu, (0, pad)),
+                     F.pad(torch.sqrt(var), (0, pad), value=1.0)))
+
+    best = torch.argmin(torch.stack([o[0] for o in outs]), dim=0)          # [Ne]
+
+    def pick(i):
+        stacked = torch.stack([o[i] for o in outs])                        # [K, Ne, max_k]
+        return torch.gather(stacked, 0, best[None, :, None].expand(1, ne, max_k))[0]
+
+    w, mu_z, sd_z = pick(1), pick(2), pick(3)
+    mu_out = mean[:, None] + scale[:, None] * mu_z
+    sd_out = torch.where(w > 0, torch.clamp(scale[:, None] * sd_z, min=1.0),
+                         torch.ones_like(sd_z))
+    return w, mu_out, sd_out
 
 
 def fit_gmm_in_graph(samples: torch.Tensor, mask: torch.Tensor,

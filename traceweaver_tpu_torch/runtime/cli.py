@@ -1,6 +1,6 @@
 """The command line of the port (mirrors ``traceweaver_tpu/runtime/cli.py``,
-its batch path and its ``stream``, ``serve``, ``fleet``, ``events``,
-``query`` and ``scorecard`` subcommands).
+its batch path and its ``stream``, ``serve``, ``fleet``, ``campaign``,
+``events``, ``query`` and ``scorecard`` subcommands).
 
 The JAX CLI's 17 batch flags, so the ``exps/exp*`` argument lists run
 unchanged, plus the flags that stand for the JAX CLI's environment
@@ -8,9 +8,13 @@ knobs (the port reads none): ``--device`` (default: the card; ``cpu``
 runs slots 8-10 on the CPU), ``--precision`` (``TW_PRECISION``: ``f32``
 or ``bf16`` score blocks), ``--score_gemm`` (``TW_SCORE_GEMM``: the GEMM
 score form), ``--gt_free_dag`` (``TW_GT_FREE_DAG``),
-``--metrics_port`` (``TW_METRICS_PORT``: a ``/metrics`` exporter on
-loopback while the run lasts; 0 binds a free port) and ``--events``
-(``TW_EVENTS``: the JSONL event sink)::
+``--mesh_devices`` (``TW_MESH_DEVICES``: 0, or a power of two; the
+window batches of slots 8-10 shard over the first N cards, or over N CPU
+shards with ``--device cpu``; a bad value, or more cards than the
+machine has, exits 2 before any data loads), ``--metrics_port``
+(``TW_METRICS_PORT``: a ``/metrics`` exporter on loopback while the run
+lasts; 0 binds a free port) and ``--events`` (``TW_EVENTS``: the JSONL
+event sink)::
 
     python -m traceweaver_tpu_torch.runtime.cli \
         --absolute_path DATA/call_graph_0 --fix 5 --cache_rate 0 \
@@ -37,12 +41,16 @@ loopback while the run lasts; 0 binds a free port) and ``--events``
     python -m traceweaver_tpu_torch.runtime.cli fleet campaign --replicas 1,2 \
         --seconds 6 --state-dir campaign/ [--mode inproc] [--device cpu] \
         [--out CAMPAIGN_fleet.json]
+    python -m traceweaver_tpu_torch.runtime.cli campaign run --mini \
+        [--devices 2] [--slices 2] [--device cpu] [--out CAMPAIGN.json]
+    python -m traceweaver_tpu_torch.runtime.cli campaign compare BASE CAND
+    python -m traceweaver_tpu_torch.runtime.cli campaign report CAMPAIGN.json
     python -m traceweaver_tpu_torch.runtime.cli events run.jsonl
     python -m traceweaver_tpu_torch.runtime.cli query out/e2e_....pickle
     python -m traceweaver_tpu_torch.runtime.cli scorecard --traces 32
 
-With no card and no ``--device`` the batch run, ``stream`` and
-``serve`` exit non-zero before loading anything (and so do ``fleet``'s
+With no card and no ``--device`` the batch run, ``stream``, ``serve``
+and ``campaign run`` exit non-zero before loading anything (and so do ``fleet``'s
 replicas: ``fleet serve`` exits 1, passing ``--device`` to its replicas
 after ``--``). ``serve`` prints
 ``[serve] listening on http://HOST:PORT`` once bound (``--port 0`` binds
@@ -121,6 +129,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="device of predictors 8-10 (default: the CUDA card; "
                         "'cpu' runs their plain versions on the CPU)")
+    p.add_argument("--mesh_devices", type=int, default=0,
+                   help="shard the window batches of predictors 8-10 over a "
+                        "mesh of this many devices: 0 (one device) or a power "
+                        "of two; the first N cards, or N CPU shards with "
+                        "--device cpu (the JAX CLI's TW_MESH_DEVICES)")
     p.add_argument("--metrics_port", type=int, default=None,
                    help="serve /metrics on 127.0.0.1 at this port while the "
                         "run lasts (0: a free port; the JAX CLI's "
@@ -587,6 +600,7 @@ SUBCOMMANDS = {
     "events": ("traceweaver_tpu_torch.obs.events", "tail_main"),
     "query": ("traceweaver_tpu_torch.query.delay_culprit", "main"),
     "scorecard": ("traceweaver_tpu_torch.metrics.scorecard", "main"),
+    "campaign": ("traceweaver_tpu_torch.campaign", "main"),
 }
 
 
@@ -606,6 +620,7 @@ def main(argv=None) -> int:
 
     from traceweaver_tpu_torch.algorithms.weaver_torch import resolve_device
     from traceweaver_tpu_torch.ops.precision import validate_precision
+    from traceweaver_tpu_torch.parallel.mesh import mesh_for
     from traceweaver_tpu_torch.runtime.executor import ExecutorConfig, run_experiment
 
     try:
@@ -617,6 +632,12 @@ def main(argv=None) -> int:
         device = str(resolve_device(args.device))
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
+        return 2
+    # a bad mesh fails here, before any data loads
+    try:
+        mesh_for(args.mesh_devices, device)
+    except (ValueError, RuntimeError) as e:
+        print(f"error: --mesh_devices: {e}", file=sys.stderr)
         return 2
 
     root = get_project_root()
@@ -654,6 +675,7 @@ def main(argv=None) -> int:
         gt_free_dag=bool(args.gt_free_dag),
         precision=precision,
         score_gemm=bool(args.score_gemm),
+        mesh_devices=args.mesh_devices,
     )
     exporter, log, _ = _obs_setup(args.metrics_port, args.events)
     try:

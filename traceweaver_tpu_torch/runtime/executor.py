@@ -21,8 +21,14 @@ the store) instead of inferred from ground truth, which then only grades
 ``score_gemm`` (the JAX executor's ``TW_PRECISION`` and
 ``TW_SCORE_GEMM``) go to every ``WeaverTorch`` of the run, discovery's
 too; a run at ``bf16`` says so in its log, as the JAX executor does
-(its lines 276-284). The JAX executor's AOT warmup and mesh sharding
-are not part of the port yet.
+(its lines 276-284). ``mesh_devices`` (the JAX executor's, which its
+CLI maps from ``TW_MESH_DEVICES``) shards the window batches of slots
+8-10, the fleet route's included, over a mesh
+(:func:`~traceweaver_tpu_torch.parallel.mesh.mesh_for`: the first N
+cards, or N CPU shards when the device is the CPU), built before the
+corpus loads, so a mesh the machine
+cannot hold fails first. The JAX executor's AOT warmup has no
+counterpart (the port compiles no programs at run time).
 """
 
 from __future__ import annotations
@@ -108,6 +114,9 @@ class ExecutorConfig:
     # score-block precision ("f32" or "bf16") and the GEMM score form
     precision: str = "f32"
     score_gemm: bool = False
+    # devices of a 1-D mesh for slots 8-10 (0 = one device; else a power
+    # of two)
+    mesh_devices: int = 0
 
     def replica_count(self, process: str, store: TraceStore) -> int:
         table = self.service_to_replica
@@ -277,7 +286,7 @@ def _solve_fleet_method(cfg: ExecutorConfig, store: TraceStore, method: str,
         sinkhorn_tol=predictor.sinkhorn_tol, item_cells=cells,
         stats=fleet_stats, precision=predictor.precision,
         device=predictor.device, fused_kernel=predictor.fused_kernel,
-        score_gemm=predictor.score_gemm,
+        score_gemm=predictor.score_gemm, mesh=predictor.mesh,
     )
     elapsed = time.time() - start
     if predictor.precision != "f32":
@@ -369,9 +378,12 @@ def run_experiment(cfg: ExecutorConfig,
         WeaverTorch,
         resolve_device,
     )
+    from traceweaver_tpu_torch.parallel.mesh import mesh_for
 
-    # no card and no device: fail before the corpus loads
+    # no card and no device, or a mesh the machine cannot hold: fail
+    # before the corpus loads
     device = resolve_device(cfg.device)
+    mesh = mesh_for(cfg.mesh_devices, device)
     seconds: Dict[str, float] = {}
     random.seed(10)
     if store is None:
@@ -391,7 +403,7 @@ def run_experiment(cfg: ExecutorConfig,
 
     predictors = make_predictors(store.all_spans, store.all_processes,
                                  device=device, precision=cfg.precision,
-                                 score_gemm=cfg.score_gemm)
+                                 score_gemm=cfg.score_gemm, mesh=mesh)
     if cfg.predictor_indices:
         bad = [i for i in cfg.predictor_indices
                if not 0 <= i < len(predictors)]
