@@ -16,6 +16,12 @@ against their plain versions.
                                              # the native schemes' check
     python3 chip_smoke.py --adapt            # only the adapt phase
     python3 chip_smoke.py --mesh             # only the mesh phase
+    python3 chip_smoke.py --lint --sync-ledger --kde --fill4
+                                             # only these phases (any of
+                                             # them; the lint gate runs
+                                             # with each; --cpu-reruns
+                                             # adds kde's and fill4's CPU
+                                             # runs)
 
 Phases, each of which raises on failure (non-zero exit):
 
@@ -23,6 +29,9 @@ Phases, each of which raises on failure (non-zero exit):
    nvcc (one process per source, all at once), and beside them the C++
    Jaeger loader from ``traceweaver_tpu_torch/native/src`` with g++;
    print ptxas's register and spill report;
+1b. lint: ``python -m traceweaver_tpu_torch.analysis`` in a subprocess
+   beside the build and the slice phase: it must exit 0 (the ``lint``
+   line: files, findings, baselined and suppressed);
 2. slice: config ``synth-async-8k`` (8192 requests, three chained
    endpoints) through ``WeaverTorch.FindAssignments`` on the card, once
    with the fused kernel and once with the plain Sinkhorn kernel, each
@@ -33,6 +42,16 @@ Phases, each of which raises on failure (non-zero exit):
    on the card as on the CPU; then the fused run again with the
    assembly's plain version on the card, for its peak memory and wall
    beside the kernel's;
+2b. kde: config ``kde-async-8k``, ``synth-async-8k`` through
+   ``WeaverTorch(score_mode="kde")``, every launch counter reset just
+   before and read just after: two passes with the binned-KDE refit on
+   the host between them (no fused EM), each launching K1 and the
+   assembly kernel, no plain assembly on the card, and the accuracy
+   within half a point of the JAX package's CPU reading
+   (``KDE_JAX_ACCURACY``); where windows were ill-posed, the card's
+   assignments equal to the port's recorded CPU run's (``KDE_PORT_CPU``,
+   which reads JAX's number) by their digest; its first K1 block and two
+   sweeps' assembly calls go to the kernels phase (the ``kde`` line);
 3. fleet: on a 256-request cut of config ``synth-fleet-8svc`` (eight
    services), ``solve_fleet`` on the card must agree with
    ``solve_fleet`` on the CPU and with per-service ``FindAssignments``
@@ -73,6 +92,14 @@ Phases, each of which raises on failure (non-zero exit):
    and an event sink installed: the supervisor retries, the metrics
    registry's ledger deltas equal the stats dict and the sink holds the
    ``fault_injected`` and ladder records;
+4b. sync-ledger: ``synth-async-8k`` through ``FindAssignments``, then one
+   pipelined ``synth-fleet-8svc`` ``solve_fleet``, both under
+   ``torch.cuda.set_sync_debug_mode("warn")``: a global
+   ``warnings.showwarning`` hook (the flow workers' threads too) counts
+   every synchronising op by its innermost site in the package, and a
+   site in one of the port lint's TW003 hot modules must sit in its
+   ledgered helper (``fleet._fetch``) or carry a TW003 suppression (the
+   ``sync-ledger`` line: each site's count, function and status);
 5. executor: config ``alibaba-exp5-15000``: the port's synthesizer
    writes exp5's corpus (15 call graphs x 1000 traces, seed 10, replica
    table; it, ``alibaba-cg-8k``'s, the messy ladder's and the stream's
@@ -169,6 +196,18 @@ Phases, each of which raises on failure (non-zero exit):
    windows (under the profiler: the ``profile`` line) is resumed from its
    checkpoint in a fresh service, and its sink must equal the first
    run's byte for byte (``stream-resume``);
+5c'. fill4: config ``stream-cg-4k-fill4``, ``stream-cg-8k``'s corpus cut
+   to its first 4096 traces through the stream on the card with its
+   geometry and ``solve_min_batch=4`` (batch-fill admission, no SLO), every
+   launch counter reset just before and read just after: the run loop
+   pumps only at four sealed windows, every event is conserved, nothing
+   is dead-lettered, K1 and the assembly kernel launch, the counts equal
+   the JAX package's (``FILL4_JAX``), and the accuracy reads JAX's within
+   half a point, ill-posed windows or not: in the config's four cold
+   windows of ``MS_00002`` the card parts from the port's CPU run on about
+   a tenth of that service's pairs, as ``serve-cg-4t``'s pump of eight
+   does (ROADMAP C.2), so the C.1 rule's pairs cannot hold it (the ``fill4`` line; ``--fill4 --cpu-reruns`` adds the CPU run,
+   which must read ``FILL4_PORT_CPU``, and its pairs: ``fill4-card-vs-cpu``);
 5d. serve: config ``serve-cg-4t`` (four call graphs of seed 10 at 8192
    traces 20 ms apart, tenant ``t<i>`` posting graph ``i`` in bodies of
    256 traces in root start-time order; ``serve_bodies``) through the
@@ -341,8 +380,9 @@ Phases, each of which raises on failure (non-zero exit):
    chain group ([32, 1025, 2049]) and from the executor phase (the
    largest K1 block of the exp5 loop, of ground-truth-free discovery (a
    block of >= 256 windows, from the exp5 loop and ``alibaba-cg-8k``)
-   and of ``alibaba-cg-8k``, and the stream's, the serve run's, the
-   capture legs' and the adapt runs' largest, less their ill-posed
+   and of ``alibaba-cg-8k``, and the stream's, the fill4 run's, the serve
+   run's, the capture legs' and the adapt runs' largest, and the kde
+   run's first, less their ill-posed
    windows: windows with an
    incoming span that has no feasible child and no skip room, whose
    plans are rounding noise);
@@ -354,8 +394,8 @@ Phases, each of which raises on failure (non-zero exit):
    phase ([8, 1025, 2049] and [32, 1025, 2049]) against their plain bf16
    versions under the same rule; the assembly kernel against its plain
    version on every block of the first forward and backward sweeps of
-   the slice's and the fleet's chains, of the capture's clean leg and of
-   the adapt runs' refit, at f32 and bf16 (``score-check``
+   the slice's and the fleet's chains, of the kde run, of the capture's
+   clean leg and of the adapt runs' refit, at f32 and bf16 (``score-check``
    lines: feasible counts and argmax exactly, the entries that differ
    and their largest difference, tolerance 1e-5 relative plus 1e-4
    absolute at f32 and one bf16 ulp at bf16); then each kernel's time,
@@ -429,6 +469,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -612,6 +653,14 @@ CG8K_BF16_JAX_ACCURACY = {"MaxScoreBatchSubsetWithSkips": 94.81201171875}
 CACHE_BF16_MAX_PT = 12.0
 # synth-async-8k with TW_SCORE_GEMM=1 (the GEMM score form)
 GEMM_JAX_ACCURACY = 0.9847412109375
+# JAX package on the CPU, synth-async-8k through WeaverTPU(score_mode="kde")
+# (tests/jax_reference_synth.py --config kde-async-8k)
+KDE_JAX_ACCURACY = 0.83154296875
+# the port's CPU run of the same config (8 threads, the card's host): its
+# accuracy (JAX's) and the digest of its assignments (assignments_digest),
+# which the card's equal on every pair (chip_smoke.py --kde --cpu-reruns)
+KDE_PORT_CPU = dict(accuracy=0.83154296875,
+                    digest="4746c9864acc3f71c8e32f11c3eb4535fab9c3df")
 FLAGSHIP = "MaxScoreBatchSubsetWithSkips"
 HOST_BASELINES = ("WAP5", "FCFS", "vPath", "MaxScore")
 # ... --config alibaba-exp5-ladder and alibaba-exp5-ladder-hard (exp5's
@@ -891,6 +940,18 @@ STREAM_PORT_CPU = 96.42333984375
 # config serve-cg-4t: four call graphs of seed 10 at 8192 traces, 20 ms
 # apart, one tenant each (t0-t3), posted in root start-time order in
 # bodies of 256 traces through the serve tier with the stream's geometry
+# stream-cg-4k-fill4: stream-cg-8k's corpus cut to its first 4096 traces,
+# the stream's geometry, pumped only at four sealed windows
+FILL4_QUERY = "fix=5&max_traces=4096&ooo_ms=50&seed=1"
+FILL4_MIN_BATCH = 4
+# JAX package on the CPU (tests/jax_reference_synth.py --config
+# stream-cg-4k-fill4)
+FILL4_JAX = dict(consumed=53261, windows=8, micro_batches=2, spans_emitted=53261,
+                 late_rerouted=0, late_dropped=0, shed_spilled=0, shed_dropped_windows=0,
+                 streamed_e2e=73.3951671955089)
+# the port's CPU stream of the same config: it parts from JAX's in the
+# last bits (MS_00002), as stream-cg-8k's does (STREAM_PORT_CPU)
+FILL4_PORT_CPU = 73.59043202343179
 SERVE_CORPUS = dict(n_graphs=4, traces_per_graph=8192, seed=10, base_gap_ms=20)
 SERVE_BODY_TRACES = 256
 SERVE_TENANTS = ("t0", "t1", "t2", "t3")
@@ -1697,6 +1758,8 @@ def assembly_phases(calls_by_case, card):
     from traceweaver_tpu_torch.ops import scores as SC
 
     lib_path = os.path.join(cuda_build.BUILD_DIR, "libtw_scores_phase_clocks.so")
+    # twlint-torch: disable=TW111 — a diagnostic variant of scores.cu with
+    # phase clocks, built beside the real library and never launched by it
     subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-DTWA_PHASE_CLOCKS", "-o",
                     lib_path, os.path.join(cuda_build.CSRC_DIR, "scores.cu")], check=True)
     real_build = SC.build
@@ -3320,8 +3383,10 @@ def serve_alone(bodies, state, device, devcols=True, plan=None,
             else:
                 svc.complete_ticket(tickets.pop(ev[1]))
         if tickets or svc.total_backlog():
+            left = sorted(b.k for b in t.svc.scheduler.ready())
             raise AssertionError(f"serve replay left {len(tickets)} tickets and "
-                                 f"{svc.total_backlog()} windows")
+                                 f"{svc.total_backlog()} windows {left}; the plan "
+                                 f"submitted {sorted(k for ev in plan if ev[0] == 'submit' for k in ev[2])}")
     wall = time.perf_counter() - t0
     st = svc.stats()
     svc.drain()
@@ -5939,6 +6004,425 @@ def _mesh_worker(card, root, cpu_example):
     return mesh_phase(card, root, cpu_example)
 
 
+# ---------------------------------------------------------------------------
+# lint, sync-ledger, kde-async-8k, stream-cg-4k-fill4
+# ---------------------------------------------------------------------------
+
+_LINT_SUMMARY = re.compile(r"(\d+) finding\(s\) across (\d+) file\(s\) \((\d+) baselined, "
+                           r"(\d+) suppressed\)")
+
+
+def lint_start():
+    """``python -m traceweaver_tpu_torch.analysis`` in a subprocess, beside
+    the first card phase, and a thread that reads its output and its end;
+    :func:`lint_finish` joins them."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "traceweaver_tpu_torch.analysis"],
+                            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    done = {}
+
+    def wait():
+        done["out"] = proc.communicate()[0]
+        done["wall_s"] = time.perf_counter() - t0
+
+    reader = threading.Thread(target=wait, daemon=True)
+    reader.start()
+    return proc, reader, done
+
+
+def lint_finish(card, started):
+    """The port's lint gate must exit 0; prints its files, findings and
+    suppressions and its own wall (the ``lint`` line)."""
+    proc, reader, done = started
+    reader.join(timeout=300)
+    out = done.get("out", "")
+    m = _LINT_SUMMARY.search(out)
+    line = dict(rc=proc.returncode, wall_s=done.get("wall_s"), card=card)
+    if m:
+        line.update(findings=int(m.group(1)), files=int(m.group(2)),
+                    baselined=int(m.group(3)), suppressed=int(m.group(4)))
+    print("lint " + json.dumps(line), flush=True)
+    if proc.returncode != 0 or not m:
+        raise AssertionError(f"the port's lint gate exited {proc.returncode}:\n{out[-4000:]}")
+
+
+#: the message of a ``torch.cuda.set_sync_debug_mode("warn")`` warning
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _enclosing(tree, line):
+    """The outer function (``analysis.rules.outer_functions``) and the
+    innermost statement of ``tree`` that hold ``line``."""
+    import ast
+
+    from traceweaver_tpu_torch.analysis.rules import outer_functions
+
+    fn = next((f.name for f in outer_functions(tree)
+               if f.lineno <= line <= f.end_lineno), None)
+    stmt = None
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.stmt) and node.lineno <= line <= node.end_lineno
+                and (stmt is None or node.lineno >= stmt.lineno
+                     and node.end_lineno <= stmt.end_lineno)):
+            stmt = node
+    return fn, stmt
+
+
+def sync_site_status(path, line, cache):
+    """``ledgered`` (inside TW003's ledgered helper), ``waived`` (the
+    innermost statement at ``path:line`` carries a TW003 suppression) or
+    ``unledgered``, and the outer function's name."""
+    import ast
+
+    from traceweaver_tpu_torch.analysis import engine, rules
+
+    if path not in cache:
+        with open(os.path.join(HERE, path), encoding="utf-8") as f:
+            text = f.read()
+        known = {cls.id for cls in rules.RULE_CLASSES} | {engine.META_RULE}
+        cache[path] = (ast.parse(text), engine.parse_suppressions(text, known))
+    tree, sup = cache[path]
+    fn, stmt = _enclosing(tree, line)
+    rule = rules.HostSyncHazard
+    if fn in rule.ALLOWED_FUNCS:
+        return "ledgered", fn
+    lines = range(stmt.lineno, stmt.end_lineno + 1) if stmt is not None else [line]
+    if rule.id in sup.file_wide or any(rule.id in sup.by_line.get(ln, ()) for ln in lines):
+        return "waived", fn
+    return "unledgered", fn
+
+
+def sync_ledger_phase(card, probs):
+    """``synth-async-8k`` through ``FindAssignments``, then one pipelined
+    ``synth-fleet-8svc`` ``solve_fleet`` (``probs``), both under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every synchronising op's
+    site (the innermost frame in the package, from every thread: a global
+    ``warnings.showwarning`` hook) is counted, and one in TW003's hot
+    modules must sit in the ledgered helper or carry a TW003 suppression
+    (the ``sync-ledger`` line)."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    from traceweaver_tpu_torch.analysis import rules
+    from traceweaver_tpu_torch.metrics.synth import synth_async_8k
+
+    prob = synth_async_8k()
+    pkg = os.path.join(HERE, "traceweaver_tpu_torch") + os.sep
+    sites, lock, run_of = collections.Counter(), threading.Lock(), ["slice"]
+    real_show = warnings.showwarning
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return real_show(message, category, filename, lineno, file, line)
+        site = (os.path.relpath(filename, HERE), lineno)
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if fr.filename.startswith(pkg):
+                site = (os.path.relpath(fr.filename, HERE), fr.lineno)
+                break
+        with lock:
+            sites[(run_of[0],) + site] += 1
+
+    walls = {}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("always", message=".*" + SYNC_WARNING)
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            _, acc, _, _, _ = run_slice(prob, True)
+            walls["slice"] = time.perf_counter() - t0
+            run_of[0] = "fleet"
+            t0 = time.perf_counter()
+            _, fleet_acc, _, _, _, _ = run_fleet(probs, True)
+            walls["fleet"] = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = real_show
+    cache, rows, bad = {}, [], []
+    for (run, path, line), n in sorted(sites.items()):
+        hot = path.endswith(rules.HostSyncHazard.HOT)
+        status, fn = (sync_site_status(path, line, cache)
+                      if path.startswith("traceweaver_tpu_torch") else ("outside", None))
+        rows.append(dict(run=run, site=f"{path}:{line}", function=fn, hot=hot,
+                         status=status, syncs=n))
+        if hot and status == "unledgered":
+            bad.append(f"{path}:{line} ({fn}, {n} syncs)")
+    print("sync-ledger " + json.dumps(dict(
+        configs=["synth-async-8k", "synth-fleet-8svc"], sites=rows,
+        syncs={run: sum(r["syncs"] for r in rows if r["run"] == run) for run in walls},
+        hot_sites=sum(r["hot"] for r in rows), unledgered_hot_sites=len(bad),
+        wall_s=walls, accuracy=dict(slice=acc, fleet=fleet_acc), card=card)), flush=True)
+    if not rows:
+        raise AssertionError("sync-ledger: no synchronising op was seen")
+    if bad:
+        raise AssertionError("sync-ledger: unledgered syncs in TW003's hot modules: "
+                             + "; ".join(bad))
+
+
+def kde_phase(card):
+    """Config ``kde-async-8k``: ``synth-async-8k`` through
+    ``WeaverTorch(score_mode="kde")`` with every launch counter reset just
+    before and read just after. Each of its two passes (no fused EM: the
+    binned-KDE refit runs on the host between them) must launch K1 and the
+    assembly kernel, the assembly's plain version must not run on the card,
+    and the accuracy reads JAX's CPU reading (``KDE_JAX_ACCURACY``) within
+    half a point; where windows were ill-posed the port's recorded CPU run
+    (``KDE_PORT_CPU``: JAX's reading) holds it too, its assignments equal
+    to the card's on every pair (their digest; the CPU run takes 444 s on
+    eight threads, past the smoke's time: ``--kde`` reruns it with
+    ``--cpu-reruns``). Returns the launches, the first K1 block, two
+    sweeps' assembly calls and the card's accuracy and assignments."""
+    import torch
+
+    import traceweaver_tpu_torch.algorithms.weaver_torch as wt
+    from traceweaver_tpu_torch.metrics.synth import synth_async_8k
+    from traceweaver_tpu_torch.ops import cuda_sinkhorn as K
+    from traceweaver_tpu_torch.ops import scores as SC
+
+    prob = synth_async_8k()
+    passes, real_once = [], wt.WeaverTorch._solve_once
+
+    def counted(self, *args, **kw):
+        k1, asm = K.LAUNCHES["fused_assign"], SC.LAUNCHES["assemble_block"]
+        out = real_once(self, *args, **kw)
+        passes.append(dict(fused_assign=K.LAUNCHES["fused_assign"] - k1,
+                           assemble_block=SC.LAUNCHES["assemble_block"] - asm,
+                           fused_em=bool(kw.get("fused"))))
+        return out
+
+    captured, ill, counts, sweep = {}, {}, {}, []
+    wt.WeaverTorch._solve_once = counted
+    try:
+        with assembly_capture(sweep, 1024, 2048, 8):
+            (out, acc, wall, peak, stats), launches, other, kernel_ms = drive(
+                lambda: run_slice(prob, True, score_mode="kde"), True, captured,
+                ill=ill, counts=counts)
+    finally:
+        wt.WeaverTorch._solve_once = real_once
+    torch.cuda.synchronize()
+    digest = assignments_digest(out[0])
+    line = dict(config="kde-async-8k", score_mode="kde", accuracy=acc,
+                accuracy_jax=KDE_JAX_ACCURACY, accuracy_cpu_recorded=KDE_PORT_CPU["accuracy"],
+                assignments_digest=digest,
+                equals_recorded_cpu=digest == KDE_PORT_CPU["digest"], wall_s=wall, passes=passes,
+                fused_em_applied=stats.get("fused_em_applied", 0.0),
+                refit_s=stats.get("refit_s", 0.0), launches=launches,
+                other_kernel_launches=other, assembly_launches=counts["assemble_block"],
+                plain_assembly_on_card=counts["plain_assembly_on_card"],
+                kernel_ms=kernel_ms, ill_posed_windows=ill["ill_posed_windows"],
+                k1_windows=ill["windows"], peak_mem_bytes=peak, card=card)
+    print("kde " + json.dumps(line), flush=True)
+    check_assembly("kde-async-8k", counts)
+    if len(passes) != 2 or any(p["fused_em"] or p["fused_assign"] <= 0
+                               or p["assemble_block"] <= 0 for p in passes):
+        raise AssertionError(f"kde-async-8k: expected two unfused passes that each "
+                             f"launch K1 and the assembly kernel, got {passes}")
+    if abs(acc - KDE_JAX_ACCURACY) > 0.005:
+        raise AssertionError(f"kde-async-8k: {acc} is not within 0.5 pt of JAX "
+                             f"{KDE_JAX_ACCURACY}")
+    if ill["ill_posed_windows"] and digest != KDE_PORT_CPU["digest"]:
+        raise AssertionError(f"kde-async-8k: with {ill['ill_posed_windows']} ill-posed "
+                             f"windows the card's assignments (digest {digest}) part from "
+                             "the port's recorded CPU run's")
+    if len(sweep) != ASSEMBLY_CALLS:
+        raise AssertionError(f"kde-async-8k: kept {len(sweep)} assembly calls")
+    return (dict(fused_assign=launches, assemble_block=counts["assemble_block"]),
+            captured["block"], sweep, (acc, out[0], ill["ill_posed_windows"]))
+
+
+def assignments_digest(assignments) -> str:
+    """sha1 of ``{endpoint: {in id: out id}}`` as sorted JSON rows."""
+    import hashlib
+
+    rows = sorted([ep, list(i), list(o)] for ep, m in assignments.items()
+                  for i, o in m.items())
+    return hashlib.sha1(json.dumps(rows).encode()).hexdigest()
+
+
+def cpu_kde(threads):
+    """Worker: ``kde-async-8k`` through the port on the CPU, on
+    ``threads`` threads; returns its accuracy, assignments and wall."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from traceweaver_tpu_torch.metrics.synth import synth_async_8k
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    out, acc, *_ = run_slice(synth_async_8k(), True, device="cpu", score_mode="kde")
+    return dict(accuracy=acc, pred=out[0], wall_s=time.perf_counter() - t0)
+
+
+def kde_verdict(card, kde, cpu):
+    """The flagship rule for ``kde-async-8k`` where its card run met
+    ill-posed windows: the port's CPU run reads JAX's number (or the
+    port's recorded one, ``KDE_PORT_CPU``) exactly, and the card reads
+    JAX's within ``ILL_POSED_MAX_PT`` with >= ``ILL_POSED_MIN_PAIRS`` of
+    its pairs equal to the CPU run's. Returns what failed."""
+    card_acc, card_pred, ill_s = kde
+    pairs = agreement(card_pred, cpu["pred"])
+    print("kde-card-vs-cpu " + json.dumps(dict(
+        config="kde-async-8k", accuracy_card=card_acc, accuracy_cpu=cpu["accuracy"],
+        accuracy_jax_cpu=KDE_JAX_ACCURACY, accuracy_cpu_recorded=KDE_PORT_CPU["accuracy"],
+        cpu_digest=assignments_digest(cpu["pred"]), card_ill_posed_windows=ill_s,
+        cpu_wall_s=cpu["wall_s"], card_vs_cpu_pairs=pairs,
+        card=card)), flush=True)
+    if cpu["accuracy"] not in (KDE_JAX_ACCURACY, KDE_PORT_CPU["accuracy"]):
+        return (f"kde-async-8k: the port on the CPU reads {cpu['accuracy']}, neither "
+                f"JAX's {KDE_JAX_ACCURACY} nor its recorded {KDE_PORT_CPU['accuracy']}")
+    if abs(card_acc - KDE_JAX_ACCURACY) * 100 > ILL_POSED_MAX_PT or pairs < ILL_POSED_MIN_PAIRS:
+        return (f"kde-async-8k: card {card_acc} vs JAX {KDE_JAX_ACCURACY}, {pairs} of the "
+                f"pairs as the CPU's, with {ill_s} ill-posed windows")
+    return ""
+
+
+def fill4_source(root, corpora=None):
+    """The replay source of ``stream-cg-4k-fill4`` (its corpus from
+    ``corpora`` when given) and the seconds its load took."""
+    from traceweaver_tpu_torch.stream import parse_source_spec
+
+    (d,), _ = corpus_dirs(root, "stream", corpora)
+    t0 = time.perf_counter()
+    return parse_source_spec(f"replay:{d}?{FILL4_QUERY}"), time.perf_counter() - t0
+
+
+def _fill4_service(source, device):
+    from traceweaver_tpu_torch.stream import StreamingReconstructor
+
+    return StreamingReconstructor(
+        source, _stream_cfg(solve_min_batch=FILL4_MIN_BATCH, verbose=False), device=device)
+
+
+def fill4_phase(card, root, corpora=None):
+    """Config ``stream-cg-4k-fill4``: the first 4096 traces of
+    ``stream-cg-8k``'s corpus through the stream on the card with its
+    geometry and ``solve_min_batch=4`` (no SLO, so deterministic), every
+    launch counter reset just before and read just after. The run loop
+    must pump only at four sealed windows, conserve every event,
+    dead-letter nothing, launch K1 and the assembly kernel (no plain
+    assembly on the card) and give JAX's counts (``FILL4_JAX``); the
+    accuracy reads JAX's within half a point, ill-posed windows or not:
+    in its four cold windows of ``MS_00002`` the card parts from the
+    port's CPU run on about a tenth of that service's pairs (ROADMAP C.2),
+    so the C.1 pairs rule cannot hold it
+    (:func:`fill4_cpu_report`, ``--fill4 --cpu-reruns``, reports them).
+    Returns the launches, the largest K1 block and the card's accuracy,
+    graded predictions and ill-posed windows. (Its source loads in the
+    main line: ``load_corpus`` names Alibaba self-loops from the global
+    RNG, so no load may run beside another phase.)"""
+    import torch
+
+    t_phase = time.perf_counter()
+    src, load_s = fill4_source(root, corpora)
+    svc = _fill4_service(src, "cuda")
+    pumps, real_pump, finishing = [], svc.scheduler.pump, []
+    real_finish = svc.finish
+
+    def pump(*args, **kw):
+        pumps.append((svc.scheduler.backlog, bool(finishing)))
+        return real_pump(*args, **kw)
+
+    def finish():
+        finishing.append(True)
+        return real_finish()
+
+    svc.scheduler.pump, svc.finish = pump, finish
+    captured, ill, c = {}, {}, {}
+    t0 = time.perf_counter()
+    s, _, _, _ = drive(svc.run, True, captured, largest=True, ill=ill, counts=c)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = s["stats"]
+    card_acc, ill_s = s["accuracy"]["e2e"], ill["ill_posed_windows"]
+    line = dict(
+        config="stream-cg-4k-fill4", solve_min_batch=FILL4_MIN_BATCH,
+        consumed=s["consumed"], windows=s["emitted_windows"],
+        micro_batches=int(st.get("micro_batches", 0)),
+        pumps=[dict(backlog=b, at_finish=f) for b, f in pumps],
+        spans_emitted=int(st.get("spans_emitted", 0)),
+        late_rerouted=s["late_rerouted"], late_dropped=s["late_dropped"],
+        shed_spilled=s["shed_spilled"], shed_dropped_windows=s["shed_dropped_windows"],
+        deadletter_windows=s["deadletter_windows"], streamed_e2e=card_acc,
+        streamed_e2e_jax=FILL4_JAX["streamed_e2e"], per_service=s["accuracy"]["per_service"],
+        wall_s=wall, events_per_s=s["consumed"] / wall, solve_s=st.get("solve_s", 0.0),
+        source_load_s=load_s,
+        fused_assign_launches=c["fused_assign"], assemble_block_launches=c["assemble_block"],
+        plain_assembly_on_card=c["plain_assembly_on_card"], ill_posed_windows=ill_s,
+        k1_windows=ill["windows"], largest_block=list(captured["block"]["S"].shape),
+        card=card)
+    print("fill4 " + json.dumps(line), flush=True)
+    failed = []
+    if line["spans_emitted"] + s["late_dropped"] != s["consumed"]:
+        failed.append(f"conservation: {line['spans_emitted']} emitted + "
+                      f"{s['late_dropped']} dropped != {s['consumed']} consumed")
+    if s["deadletter_windows"]:
+        failed.append(f"{s['deadletter_windows']} dead-lettered windows")
+    early = [b for b, f in pumps if not f and b < FILL4_MIN_BATCH]
+    if early:
+        failed.append(f"the run loop pumped at backlogs {early} < {FILL4_MIN_BATCH}")
+    if c["fused_assign"] <= 0 or c["assemble_block"] <= 0 or c["plain_assembly_on_card"]:
+        failed.append(f"launches {c}")
+    for key in ("consumed", "windows", "micro_batches", "spans_emitted", "late_rerouted",
+                "late_dropped", "shed_spilled", "shed_dropped_windows"):
+        if line[key] != FILL4_JAX[key]:
+            failed.append(f"{key}: {line[key]} != JAX {FILL4_JAX[key]}")
+    if abs(card_acc - FILL4_JAX["streamed_e2e"]) > 0.5:
+        failed.append(f"streamed {card_acc} is not within 0.5 pt of JAX "
+                      f"{FILL4_JAX['streamed_e2e']}")
+    if failed:
+        raise AssertionError("stream-cg-4k-fill4: " + "; ".join(failed))
+    print(f"fill4-phase: {time.perf_counter() - t_phase:.3f} s wall", flush=True)
+    launches = dict(fused_assign=c["fused_assign"], assemble_block=c["assemble_block"])
+    return launches, captured["block"], (card_acc, _stream_pred(svc), ill_s)
+
+
+def cpu_fill4(graph_dir, threads):
+    """Worker: ``stream-cg-4k-fill4`` through the port's stream on the
+    CPU, on ``threads`` threads (``graph_dir`` None synthesizes the
+    corpus first); returns its streamed accuracy, graded predictions and
+    wall seconds."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from traceweaver_tpu_torch.alibaba.synthesize import synthesize_corpus
+    from traceweaver_tpu_torch.stream import parse_source_spec
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        if graph_dir is None:
+            (graph_dir,) = synthesize_corpus(tmp, **STREAM_CORPUS)
+        svc = _fill4_service(parse_source_spec(f"replay:{graph_dir}?{FILL4_QUERY}"), "cpu")
+        summary = svc.run()
+    return dict(accuracy=summary["accuracy"]["e2e"], pred=_stream_pred(svc),
+                wall_s=time.perf_counter() - t0)
+
+
+def fill4_cpu_report(card, fill4, cpu):
+    """The card's ``stream-cg-4k-fill4`` beside the port's CPU run of it:
+    the CPU run must read JAX's number or the port's recorded one
+    (``FILL4_PORT_CPU``: it parts from JAX's in the last bits) exactly;
+    each service's pairs equal to the CPU run's are reported (ROADMAP
+    C.2). Returns what failed."""
+    card_acc, card_pred, ill_s = fill4
+    ref = FILL4_JAX["streamed_e2e"]
+    pairs = {p: agreement(card_pred.get(p, {}), pred) for p, pred in cpu["pred"].items()}
+    low = {p: v for p, v in pairs.items() if v < ILL_POSED_MIN_PAIRS}
+    print("fill4-card-vs-cpu " + json.dumps(dict(
+        config="stream-cg-4k-fill4", streamed_card=card_acc, streamed_cpu=cpu["accuracy"],
+        streamed_jax_cpu=ref, streamed_cpu_recorded=FILL4_PORT_CPU,
+        card_ill_posed_windows=ill_s, cpu_wall_s=cpu["wall_s"], card_vs_cpu_pairs=pairs,
+        pairs_under=sorted(low), card=card)), flush=True)
+    if cpu["accuracy"] not in (ref, FILL4_PORT_CPU):
+        return (f"stream-cg-4k-fill4: the port on the CPU reads {cpu['accuracy']}, "
+                f"neither JAX's {ref} nor its recorded {FILL4_PORT_CPU}")
+    return ""
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--slice-root", help="run only the slice and fleet phases, "
@@ -5964,10 +6448,22 @@ def main() -> int:
     ap.add_argument("--mesh", action="store_true", help="run only the mesh phase "
                     "(mesh-fleet-8svc, mesh-async-8k, em-step-sharded, campaign-r100k, "
                     "multislice-2p and the --mesh_devices refusals)")
+    ap.add_argument("--lint", action="store_true", help="run only the port's lint gate")
+    ap.add_argument("--sync-ledger", action="store_true", help="run only the sync "
+                    "ledger (synth-async-8k and synth-fleet-8svc under the sync debug "
+                    "mode)")
+    ap.add_argument("--kde", action="store_true", help="run only kde-async-8k and its "
+                    "K1 block's and assembly calls' checks")
+    ap.add_argument("--fill4", action="store_true", help="run only stream-cg-4k-fill4 "
+                    "and its K1 block's check")
+    ap.add_argument("--cpu-reruns", action="store_true", help="with --kde and --fill4: "
+                    "also their configs through the port on the CPU (8 threads; about "
+                    "7.5 and 3.5 minutes) beside the card's runs")
     args = ap.parse_args()
 
     import torch
 
+    # twlint-torch: disable=TW103 — refuses to run (exit 2) with no card
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5975,6 +6471,8 @@ def main() -> int:
     from traceweaver_tpu_torch.ops import cuda_sinkhorn as K
 
     card = nvidia_smi()
+    # the port's lint gate, beside the build and the first phase
+    lint = lint_start() if not args.slice_root else None
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
     print(f"card: {card}", flush=True)
@@ -5997,6 +6495,35 @@ def main() -> int:
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("ptxas " + ln.strip(), flush=True)
 
+    if args.lint or args.sync_ledger or args.kde or args.fill4:
+        lint_finish(card, lint)
+        if args.kde:
+            _, blk, calls, state = kde_phase(card)
+            check_case("kde-block", blk, 1e-3, posed_only=True)
+            assembly_check("kde-score-build", calls)
+            if args.cpu_reruns:
+                failed = kde_verdict(card, state, cpu_kde(8))
+                if failed:
+                    raise AssertionError(failed)
+        if args.fill4:
+            with tempfile.TemporaryDirectory() as tmp:
+                _, blk, state = fill4_phase(card, tmp)
+                check_case("fill4-block", blk, 1e-3, posed_only=True)
+                if args.cpu_reruns:
+                    (d,), _ = corpus_dirs(tmp, "stream")
+                    failed = fill4_cpu_report(card, state, cpu_fill4(d, 8))
+                    if failed:
+                        raise AssertionError(failed)
+        if args.sync_ledger:
+            from traceweaver_tpu_torch.metrics.synth import synth_fleet_8svc
+
+            sync_ledger_phase(card, synth_fleet_8svc())
+        print(card, flush=True)
+        return 0
+    if lint is not None and (args.assembly or args.stream or args.serve or args.fleet
+                             or args.mesh or args.capture or args.adapt or args.ladder):
+        lint[0].kill()  # a run of one other phase alone
+        lint[1].join()
     if args.assembly:
         assembly_only(card)
         print(card, flush=True)
@@ -6079,11 +6606,14 @@ def main() -> int:
         corpora = later.enter_context(CorpusJobs(tmp))
         em_job = later.enter_context(EmCpuJob())
         launches, real_block, slice_sweep, slice_peak = slice_phase(card)
+        lint_finish(card, lint)
+        kde_launches, kde_block, kde_sweep, kde_state = kde_phase(card)
         fleet_launches, fleet_block, probs, fleet_wall, fleet_sweep, fleet_peak = \
             fleet_phase(card)
         bf16_launches, bf16_blocks = precision_phase(
             card, probs, {"synth-async-8k": slice_peak, "synth-fleet-8svc": fleet_peak})
         fleet_profile(probs, fleet_wall, card)
+        sync_ledger_phase(card, probs)
         del probs
         fault_run(tmp, card)
         print(f"phase-clock: first phases done at {time.perf_counter() - t_smoke:.1f} s",
@@ -6102,6 +6632,9 @@ def main() -> int:
         stream_launches, executor_blocks["stream-block"], stream_state = \
             stream_phase(card, tmp, corpora)
         stream_rerun = stream_rerun_any if stream_state[3] else None
+        fill4_launches, executor_blocks["fill4-block"], fill4_state = \
+            fill4_phase(card, tmp, corpora)
+        executor_blocks["kde-block"] = kde_block
         serve_launches, executor_blocks["serve-block"], serve_state, fleet_ref = \
             serve_phase(card, tmp, serve_corpus)
         serve_rerun = serve_rerun_any if serve_state[2] else None
@@ -6124,7 +6657,8 @@ def main() -> int:
         score_err = max(assembly_check("slice-score-build", slice_sweep),
                         assembly_check("fleet-score-build", fleet_sweep),
                         assembly_check("capture-score-build", capture_calls),
-                        assembly_check("adapt-refit-score-build", adapt_calls))
+                        assembly_check("adapt-refit-score-build", adapt_calls),
+                        assembly_check("kde-score-build", kde_sweep))
         checks = dict(K.LAUNCHES)
         timing = kernel_timing(real_block)
         fleet_timing = kernel_timing(fleet_block)
@@ -6132,7 +6666,7 @@ def main() -> int:
         bf16_fleet_timing = kernel_timing(bf16_blocks["fleet-block-bf16"])
         score_time = assembly_timing("slice-score-build", slice_sweep, card)
         fleet_score_time = assembly_timing("fleet-score-build", fleet_sweep, card)
-        del slice_sweep, fleet_sweep, bf16_blocks
+        del slice_sweep, fleet_sweep, bf16_blocks, kde_sweep
         print(f"phase-clock: card phases done at {time.perf_counter() - t_smoke:.1f} s",
               flush=True)
         rerun_checks(card, tmp, submitted, *rerun_state, ladder=ladder_reruns_needed,
@@ -6164,6 +6698,10 @@ def main() -> int:
         "adapt_assemble_block": adapt_launches["assemble_block"],
         "adapt_refit_fused_assign": adapt_launches["refit_fused_assign"],
         "adapt_refit_assemble_block": adapt_launches["refit_assemble_block"],
+        "kde_fused_assign": kde_launches["fused_assign"],
+        "kde_assemble_block": kde_launches["assemble_block"],
+        "fill4_fused_assign": fill4_launches["fused_assign"],
+        "fill4_assemble_block": fill4_launches["assemble_block"],
         "bf16_fused_assign": bf16_launches["fused_assign"],
         "bf16_sinkhorn": bf16_launches["sinkhorn"],
         "bf16_fleet_fused_assign": bf16_launches["fleet_fused_assign"],
@@ -6197,6 +6735,8 @@ def main() -> int:
                     capture_launches=capture_launches.get(name, 0),
                     adapt_launches=adapt_launches.get(name, 0),
                     adapt_refit_launches=adapt_launches.get(f"refit_{name}", 0),
+                    kde_launches=kde_launches.get(name, 0),
+                    fill4_launches=fill4_launches.get(name, 0),
                     mesh_launches=mesh_launches["mesh_fleet"]["cuda:0 x2"].get(name, 0),
                     mesh_async_launches=mesh_launches["mesh_async"].get(name, 0),
                     em_sharded_launches=mesh_launches["em_sharded"].get(name, 0),
@@ -6253,6 +6793,10 @@ def main() -> int:
                                     if precision == "f32" else 0),
                     adapt_refit_launches=(adapt_launches["refit_assemble_block"]
                                           if precision == "f32" else 0),
+                    kde_launches=(kde_launches["assemble_block"]
+                                  if precision == "f32" else 0),
+                    fill4_launches=(fill4_launches["assemble_block"]
+                                    if precision == "f32" else 0),
                     **{f"{run}_launches": (counts["assemble_block"] if precision == "f32"
                                            else 0)
                        for run, counts in (

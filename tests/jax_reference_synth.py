@@ -16,6 +16,8 @@ these numbers (minus one point). Run on the CPU:
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config serve-cg-4t
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config capture-8k [--traces 40]
     JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config adapt-burst-60 [--n_req 1024]
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config kde-async-8k
+    JAX_PLATFORMS=cpu python tests/jax_reference_synth.py --config stream-cg-4k-fill4
 
 ``TW_PRECISION=bf16`` and ``TW_SCORE_GEMM=1`` in the environment give the
 JAX package's bf16 and GEMM score paths on any config.
@@ -71,6 +73,13 @@ JSON line with every tenant's window, span and trace counts and the
 accuracy of its sink (``chip_smoke.serve_sink_accuracy``). ``--part
 shared``, ``alone`` or ``alone1`` runs one of them; ``TW_DEVCOLS=0`` in
 front gives the host packer's readings, which the port is held to.
+
+``kde-async-8k`` is ``synth-async-8k`` through ``WeaverTPU(score_mode=
+"kde")``: the binned-KDE score mode, two unfused passes with the host
+refit between them. ``stream-cg-4k-fill4`` replays the first 4096 traces
+of ``stream-cg-8k``'s corpus through the streaming reconstructor with
+the stream's geometry and ``solve_min_batch=4`` (batch-fill admission,
+no SLO), and prints the streamed accuracy and the micro-batch counts.
 """
 
 from __future__ import annotations
@@ -265,6 +274,43 @@ def stream_config(out_root: str, stream: bool = True) -> None:
         streamed_e2e=summary["accuracy"]["e2e"],
         per_service=summary["accuracy"]["per_service"],
         batch_e2e=batch_acc, wall_s=wall, backend=jax.default_backend())), flush=True)
+
+
+STREAM_FILL4_QUERY = "fix=5&max_traces=4096&ooo_ms=50&seed=1"
+STREAM_FILL4_MIN_BATCH = 4
+
+
+def stream_fill4_config(out_root: str) -> None:
+    """``stream-cg-4k-fill4``: ``stream-cg-8k``'s corpus cut to its first
+    4096 traces, pumped only once four windows are sealed."""
+    from traceweaver_tpu.alibaba.synthesize import synthesize_corpus
+    from traceweaver_tpu.stream import (
+        StreamConfig,
+        StreamingReconstructor,
+        parse_source_spec,
+    )
+
+    (d,) = synthesize_corpus(out_root, **STREAM_CG8K)
+    source = parse_source_spec(f"replay:{d}?{STREAM_FILL4_QUERY}")
+    svc = StreamingReconstructor(source, StreamConfig(
+        verbose=False, solve_min_batch=STREAM_FILL4_MIN_BATCH,
+        **STREAM_CG8K_WINDOWS))
+    t0 = time.perf_counter()
+    summary = svc.run()
+    wall = time.perf_counter() - t0
+    stats = summary["stats"]
+    print(json.dumps(dict(
+        config="stream-cg-4k-fill4", events=len(source),
+        consumed=summary["consumed"], windows=summary["emitted_windows"],
+        micro_batches=int(stats.get("micro_batches", 0)),
+        spans_emitted=int(stats.get("spans_emitted", 0)),
+        late_rerouted=summary["late_rerouted"],
+        late_dropped=summary["late_dropped"],
+        shed_spilled=summary["shed_spilled"],
+        shed_dropped_windows=summary["shed_dropped_windows"],
+        streamed_e2e=summary["accuracy"]["e2e"],
+        per_service=summary["accuracy"]["per_service"],
+        wall_s=wall, backend=jax.default_backend())), flush=True)
 
 
 def serve_config(out_root: str, part: str = "both") -> None:
@@ -480,7 +526,8 @@ def main() -> None:
                              "alibaba-exp5-gtfree", "alibaba-cg-8k-gtfree",
                              "alibaba-exp5-ladder", "alibaba-exp5-ladder-hard",
                              "stream-cg-8k", "stream-cg-8k-batch", "serve-cg-4t",
-                             "capture-8k", "adapt-burst-60"))
+                             "capture-8k", "adapt-burst-60", "kde-async-8k",
+                             "stream-cg-4k-fill4"))
     ap.add_argument("--part", default="both", choices=("both", "shared", "alone", "alone1"),
                     help="serve-cg-4t: the shared run, t0 alone under the pump of "
                          "eight windows or of one, or all three")
@@ -508,6 +555,8 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             if args.config == "serve-cg-4t":
                 serve_config(args.out or tmp, args.part)
+            elif args.config == "stream-cg-4k-fill4":
+                stream_fill4_config(args.out or tmp)
             elif args.config.startswith("stream-cg-8k"):
                 stream_config(args.out or tmp, stream=args.config == "stream-cg-8k")
             elif "-ladder" in args.config:
@@ -536,14 +585,15 @@ def main() -> None:
                               backend=jax.default_backend())))
         return
     prob = synth_async_service(args.traces, args.seed)
-    algo = WeaverTPU({}, {})
+    kde = args.config == "kde-async-8k"
+    algo = WeaverTPU({}, {}, score_mode="kde" if kde else "mixture")
     t0 = time.perf_counter()
     out = algo.FindAssignments(
         "MaxScoreBatchSubsetWithSkips", "svc", prob["in_parts"],
         prob["out_parts"], False, [], prob["truth"], prob["dag"])
     wall = time.perf_counter() - t0
     acc = accuracy_for_service(out[0], prob["truth"], prob["in_parts"])
-    print(json.dumps(dict(config="synth-async-8k", traces=args.traces,
+    print(json.dumps(dict(config=args.config, traces=args.traces,
                           accuracy=acc, wall_s=wall,
                           fused_em_applied=algo.stats.get("fused_em_applied", 0.0),
                           backend=jax.default_backend())))

@@ -45,6 +45,10 @@ MIRRORS = {
         "traceweaver_tpu/algorithms/packed_layout.py",
     "traceweaver_tpu_torch.obs.quality": "traceweaver_tpu/obs/quality.py",
     "traceweaver_tpu_torch.spans": "traceweaver_tpu/spans.py",
+    "traceweaver_tpu_torch.analysis": "traceweaver_tpu/analysis",
+    "traceweaver_tpu_torch.analysis.engine": "traceweaver_tpu/analysis/engine.py",
+    "traceweaver_tpu_torch.analysis.rules": "traceweaver_tpu/analysis/rules.py",
+    "traceweaver_tpu_torch.analysis.__main__": "traceweaver_tpu/analysis/__main__.py",
     "traceweaver_tpu_torch.metrics": "traceweaver_tpu/metrics",
     "traceweaver_tpu_torch.metrics.accuracy": "traceweaver_tpu/metrics/accuracy.py",
     "traceweaver_tpu_torch.synth": "traceweaver_tpu/synth",
@@ -211,6 +215,24 @@ def test_fleet_tier_imports_no_torch():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "torch" not in loaded and not [m for m in loaded if _forbidden(m)]
+
+
+def test_analysis_imports_no_torch():
+    """The port's lint package, its rules and its CLI load neither torch
+    nor numpy: the gate runs on a machine with neither."""
+    code = (
+        "import json, sys\n"
+        "import traceweaver_tpu_torch.analysis\n"
+        "import traceweaver_tpu_torch.analysis.rules\n"
+        "from traceweaver_tpu_torch.analysis.__main__ import main\n"
+        "assert main(['--list-rules']) == 0\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "torch" not in loaded and "numpy" not in loaded
+    assert not [m for m in loaded if _forbidden(m)]
 
 
 def test_weaver_torch_without_card_raises(monkeypatch):

@@ -379,16 +379,16 @@ def _plan_key(item: FleetItem) -> str:
     return item.plan_key if item.plan_key is not None else item.svc
 
 
-def _prepare(item: FleetItem, cached_dists=None):
+def _prepare(item: FleetItem, cached_dists=None, score_mode: str = "mixture"):
     """Host preamble of FindAssignments for one item (sort, topological
     order, skip budget, distributions, pass count). None when the item
-    needs the per-service path (no DAG, or a method the fleet does not
-    carry).
+    needs the per-service path (no DAG, KDE scoring, or a method the
+    fleet does not carry).
 
     ``item.warm_dists``, else ``cached_dists`` (a plan-cache hit),
     replaces the fit, which is then skipped, and the refit pass: the
     item solves single-pass on them."""
-    if item.dag is None or item.method not in (
+    if item.dag is None or score_mode != "mixture" or item.method not in (
             "MaxScoreBatchSubsetWithSkips", "MaxScoreBatchSubsetWithTrueSkips"):
         return None
     in_ep, in_spans = next(iter(item.in_span_partitions.items()))
@@ -500,6 +500,7 @@ def solve_fleet(
     devcols: bool = True,
     ring_capacity: int = _devcols.RING_CAPACITY,
     mesh: Optional[Mesh] = None,
+    score_mode: str = "mixture",
 ) -> List[Tuple]:
     """Solve every item, fusing eligible ones into one dispatch per
     shape class. Returns one FindAssignments 6-tuple per item, in input
@@ -513,7 +514,10 @@ def solve_fleet(
     rounding) on the card. ``precision`` is the score blocks' storage
     precision (``"f32"`` or ``"bf16"``, ``TW_PRECISION``) and
     ``score_gemm`` builds the scores in the GEMM form
-    (``TW_SCORE_GEMM``).
+    (``TW_SCORE_GEMM``). ``score_mode`` is the solver's
+    (:class:`WeaverTorch`): the fused dispatch carries only
+    ``"mixture"``, so under ``"kde"`` every item takes the per-service
+    path.
 
     The keyword-only knobs are the JAX package's: ``fleet_budget_elems``
     (``TW_FLEET_BUDGET``), ``merge_budget`` (``TW_FLEET_MERGE``; None
@@ -559,7 +563,8 @@ def solve_fleet(
                          n_sinkhorn=n_sinkhorn, n_sweeps=n_sweeps,
                          sinkhorn_tol=sinkhorn_tol, precision=precision,
                          fused_kernel=fused_kernel, device=dev,
-                         score_gemm=score_gemm, mesh=fallback_mesh)
+                         score_gemm=score_gemm, mesh=fallback_mesh,
+                         score_mode=score_mode)
     results: List[Optional[Tuple]] = [None] * len(items)
     st = _as_stats(stats)
 
@@ -568,7 +573,7 @@ def solve_fleet(
     for i, item in enumerate(items):
         cached = (plan_cache.lookup(_plan_key(item))
                   if plan_cache is not None and item.warm_dists is None else None)
-        prep = _prepare(item, cached_dists=cached)
+        prep = _prepare(item, cached_dists=cached, score_mode=score_mode)
         if prep is None:
             fallback_entries.append((i, item))
             if item_cells is not None:
@@ -1207,6 +1212,8 @@ def _host_rows(host: Dict[str, np.ndarray], active, pad: int, st: _Stats, dev) -
             a = np.concatenate([a, np.zeros((pad,) + a.shape[1:], dtype=a.dtype)])
         arrs[k] = a
     st.add("h2d_bytes_shipped", float(sum(a.nbytes for a in arrs.values())))
+    # twlint-torch: disable=TW003 — the batch's host-to-device copy, billed
+    # above: a copy from pageable memory waits for its stream
     return tuple(torch.as_tensor(arrs[k], device=dev) for k in _BATCH_KEYS)
 
 
@@ -1214,6 +1221,8 @@ def _place(arrs: Dict[str, np.ndarray], pidx: np.ndarray, dev, st: _Stats):
     """Fresh device copies of the window tensors and the param index,
     billed to ``h2d_bytes_shipped``."""
     st.add("h2d_bytes_shipped", float(sum(arrs[k].nbytes for k in _BATCH_KEYS)))
+    # twlint-torch: disable=TW003 — the window tensors' host-to-device copy,
+    # billed above: a copy from pageable memory waits for its stream
     return (tuple(torch.as_tensor(arrs[k], device=dev) for k in _BATCH_KEYS)
             + (torch.as_tensor(pidx, device=dev),))
 
@@ -1288,6 +1297,8 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
     if refit_sink:
         # the device already fitted the next round's plan: keep it
         t_admit = time.perf_counter()
+        # twlint-torch: disable=TW003 — the plan cache's admission: the refit
+        # tables once a group, billed to plan_fit_s
         tables9 = tuple(t.cpu().numpy() for t in refit_sink[0])
         for p, (_, item, prep, _, _) in enumerate(pg["per_item_pack"]):
             if item.warm_dists is None:
@@ -1298,6 +1309,8 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
 
 
 def _tables_on(params: Dict[str, np.ndarray], dev) -> Tuple[torch.Tensor, ...]:
+    # twlint-torch: disable=TW003 — the group's parameter tables (a few KB)
+    # to the device: a copy from pageable memory waits for its stream
     return tuple(torch.as_tensor(params[k], device=dev) for k in _TABLE_KEYS)
 
 
@@ -1419,6 +1432,8 @@ def _solve_group_passes(run_pass, batch, pidx, params, window_rows, window_valid
         return out0
 
     def on(a):
+        # twlint-torch: disable=TW003 — the refit's span columns to the
+        # device (the host packer's groups): a pageable copy waits
         return torch.as_tensor(a, device=device)
 
     if assemble is not None:

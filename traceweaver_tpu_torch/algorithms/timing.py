@@ -9,11 +9,14 @@
 - :func:`true_distributions` — the oracle fit of the true-dist ablation.
 
 Distributions are :class:`EdgeDist` Gaussian mixtures padded to
-``MAX_COMPONENTS``. The GMM fit always takes the batched device fit
+``MAX_COMPONENTS``. ``score_mode="kde"`` (the reference's KDE score
+branch) fits each edge as a binned Gaussian KDE
+(:meth:`EdgeDist.from_samples_kde`) instead of a GMM. The GMM fit always
+takes the batched device fit
 (:func:`traceweaver_tpu_torch.ops.gmm.fit_gmm_batched`, the JAX default
-``TW_JAX_GMM=1``); the JAX package's sklearn branch and its binned-KDE
-score mode (``score_mode="kde"``, which no caller selects) are not
-carried.
+``TW_JAX_GMM=1``). The JAX package's sklearn branch of
+``EdgeDist.from_samples_gmm`` (``TW_JAX_GMM=0``) is not carried: the
+card's machine has no sklearn.
 """
 
 from __future__ import annotations
@@ -52,6 +55,59 @@ class EdgeDist:
         s[0] = max(float(std), MIN_STD)
         return cls(w, m, s)
 
+    @classmethod
+    def from_samples_kde(cls, samples: Sequence[float],
+                         max_components: int = MAX_COMPONENTS) -> "EdgeDist":
+        """Gaussian-KDE density as a fixed-shape mixture.
+
+        A Gaussian KDE is an equal-weight mixture of n components at the
+        samples with the bandwidth as std, so for n <= K this is exact.
+        For n > K the samples are quantile-binned into K components with
+        moment-matched stds (sqrt(h^2 + within-bin variance)): a binned
+        KDE, fixed-shape for the device. The bandwidth is Scott's rule
+        (h = sigma * n^(-1/5)), scipy's default.
+        """
+        x = np.asarray(samples, dtype=np.float64).ravel()
+        if len(x) == 0:
+            return cls.gaussian(0.0, MIN_STD)
+        n = len(x)
+        sigma = float(np.std(x, ddof=1)) if n > 1 else 0.0
+        if sigma <= 0:
+            return cls.gaussian(float(x[0]), MIN_STD)
+        h = sigma * n ** (-1.0 / 5.0)
+        K = max_components
+        w = np.zeros(MAX_COMPONENTS)
+        m = np.zeros(MAX_COMPONENTS)
+        s = np.full(MAX_COMPONENTS, 1.0)
+        if n <= K:
+            w[:n] = 1.0 / n
+            m[:n] = x
+            s[:n] = max(h, 1.0)
+        else:
+            edges = np.quantile(x, np.linspace(0, 1, K + 1))
+            idx = np.clip(np.searchsorted(edges, x, side="right") - 1, 0, K - 1)
+            for k in range(K):
+                sel = x[idx == k]
+                if len(sel) == 0:
+                    continue
+                w[k] = len(sel) / n
+                m[k] = float(np.mean(sel))
+                s[k] = max(math.sqrt(h * h + float(np.var(sel))), 1.0)
+        return cls(w, m, s)
+
+    def logpdf(self, x: np.ndarray) -> np.ndarray:
+        """Mixture log-density on the host (the solver's is
+        ``ops/scores.py``)."""
+        x = np.asarray(x, dtype=np.float64)[..., None]
+        comp = (
+            -0.5 * ((x - self.means) / self.stds) ** 2
+            - np.log(self.stds)
+            - 0.5 * math.log(2 * math.pi)
+        )
+        w = np.where(self.weights > 0, self.weights, 0.0)
+        logw = np.where(w > 0, np.log(np.maximum(w, 1e-300)), -np.inf)
+        return np.asarray(np.logaddexp.reduce(comp + logw, axis=-1))
+
 
 def dists_from_numpy(dists: Dict) -> Dict[EdgeKey, EdgeDist]:
     """``{edge: dist}`` with numpy ``weights``/``means``/``stds`` (such as
@@ -65,10 +121,15 @@ def dists_from_numpy(dists: Dict) -> Dict[EdgeKey, EdgeDist]:
 
 
 def fit_value_dists(values_by_edge: Dict[EdgeKey, List[float]],
+                    score_mode: str = "mixture",
                     mixture_fit: str = "gaussian",
                     device="cuda") -> Dict[EdgeKey, EdgeDist]:
-    """Per-edge samples -> :class:`EdgeDist`: single Gaussians, or
+    """Per-edge samples -> :class:`EdgeDist`: binned-KDE mixtures when
+    ``score_mode == "kde"``; otherwise single Gaussians, or
     (``mixture_fit == "gmm"``) batched BIC-GMMs on ``device``."""
+    if score_mode == "kde":
+        return {k: EdgeDist.from_samples_kde(v)
+                for k, v in values_by_edge.items()}
     if mixture_fit == "gmm":
         return fit_edge_gmms(values_by_edge, device=device)
     return {
@@ -156,9 +217,12 @@ def bootstrap_distributions(
     in_span_partitions: Dict[str, List[Span]],
     out_span_partitions: Dict[str, List[Span]],
     out_eps: List[str],
+    score_mode: str = "mixture",
 ) -> Dict[EdgeKey, EdgeDist]:
     """Unsupervised bootstrap: each span is attributed to its nearest
-    plausible preceding parent in the merged time-sorted stream."""
+    plausible preceding parent in the merged time-sorted stream; each
+    edge's delays fit a Gaussian, or a binned KDE when ``score_mode ==
+    "kde"``."""
     in_ep = next(iter(in_span_partitions))
     tagged: List[Tuple[Span, str]] = []
     for span in in_span_partitions[in_ep]:
@@ -213,7 +277,7 @@ def bootstrap_distributions(
                 )
             values.setdefault((ep, ep), []).append(dur)
 
-    return fit_value_dists(values)
+    return fit_value_dists(values, score_mode)
 
 
 def refit_from_assignments(
@@ -223,9 +287,11 @@ def refit_from_assignments(
     assignments: Dict[str, Dict],
     all_spans: Dict,
     device="cuda",
+    score_mode: str = "mixture",
 ) -> Dict[EdgeKey, EdgeDist]:
     """EM refit: per-edge delay samples from a completed assignment pass,
-    fit as BIC-selected GMMs on ``device``."""
+    fit as BIC-selected GMMs on ``device``, or as binned-KDE mixtures on
+    the host when ``score_mode == "kde"``."""
     if dag is None:
         dag = DAG.from_edges(out_span_partitions.keys(), ())
     in_ep = next(iter(in_span_partitions))
@@ -272,7 +338,8 @@ def refit_from_assignments(
                     - (out.start_mus + out.duration_mus)
                 )
         samples_by_edge[(out_ep, in_ep)] = samples
-    return fit_value_dists(samples_by_edge, mixture_fit="gmm", device=device)
+    return fit_value_dists(samples_by_edge, score_mode, mixture_fit="gmm",
+                           device=device)
 
 
 def fit_edge_gmms(samples_by_edge: Dict[EdgeKey, List[float]],
@@ -314,6 +381,7 @@ def true_distributions(
     out_span_partitions: Dict[str, List[Span]],
     out_eps: List[str],
     true_assignments: Dict[str, Dict],
+    score_mode: str = "mixture",
 ) -> Dict[EdgeKey, EdgeDist]:
     """Oracle distributions from ground truth (the true-dist ablation)."""
     in_ep = next(iter(in_span_partitions))
@@ -346,4 +414,4 @@ def true_distributions(
                 (in_span.start_mus + in_span.duration_mus)
                 - (prev_span.start_mus + prev_span.duration_mus)
             )
-    return fit_value_dists(values)
+    return fit_value_dists(values, score_mode)

@@ -65,6 +65,8 @@ def annotate(name: str):
         return
     import torch
 
+    # twlint-torch: disable=TW103 — instrumentation only: an NVTX range
+    # where there is a card, nothing runs elsewhere because of it
     nvtx = torch.cuda.is_available()
     with torch.profiler.record_function(name):
         if nvtx:
@@ -86,6 +88,8 @@ def device_memory_families() -> List[Tuple[str, str, str,
         return []
     import torch
 
+    # twlint-torch: disable=TW103 — instrumentation only: no card, no
+    # device memory samples
     if not torch.cuda.is_available():
         return []
     samples: List[Tuple[Dict[str, str], float]] = []
@@ -110,6 +114,8 @@ def trace():
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
+    # twlint-torch: disable=TW103 — instrumentation only: trace the card
+    # where there is one
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)

@@ -80,6 +80,8 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "data",
     instead, in shard order and repeats allowed (``["cpu"] * 8``,
     ``["cuda:0"] * 2``); with ``n_devices`` too, the first that many."""
     if devices is None:
+        # twlint-torch: disable=TW103 — counts the cards: a mesh the
+        # machine cannot hold raises below
         count = torch.cuda.device_count() if torch.cuda.is_available() else 0
         n = count if n_devices is None else int(n_devices)
         if n < 1 or count < n:

@@ -1,6 +1,6 @@
 """The command line of the port (mirrors ``traceweaver_tpu/runtime/cli.py``,
 its batch path and its ``stream``, ``serve``, ``fleet``, ``campaign``,
-``events``, ``query`` and ``scorecard`` subcommands).
+``events``, ``query``, ``scorecard`` and ``lint`` subcommands).
 
 The JAX CLI's 17 batch flags, so the ``exps/exp*`` argument lists run
 unchanged, plus the flags that stand for the JAX CLI's environment
@@ -48,6 +48,7 @@ event sink)::
     python -m traceweaver_tpu_torch.runtime.cli events run.jsonl
     python -m traceweaver_tpu_torch.runtime.cli query out/e2e_....pickle
     python -m traceweaver_tpu_torch.runtime.cli scorecard --traces 32
+    python -m traceweaver_tpu_torch.runtime.cli lint [--list-rules]
 
 With no card and no ``--device`` the batch run, ``stream``, ``serve``
 and ``campaign run`` exit non-zero before loading anything (and so do ``fleet``'s
@@ -601,6 +602,8 @@ SUBCOMMANDS = {
     "query": ("traceweaver_tpu_torch.query.delay_culprit", "main"),
     "scorecard": ("traceweaver_tpu_torch.metrics.scorecard", "main"),
     "campaign": ("traceweaver_tpu_torch.campaign", "main"),
+    # the port's static analysis: stdlib only, it loads no torch
+    "lint": ("traceweaver_tpu_torch.analysis.__main__", "main"),
 }
 
 

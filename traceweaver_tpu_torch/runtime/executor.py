@@ -426,10 +426,12 @@ def run_experiment(cfg: ExecutorConfig,
         random.seed(10)
         services = list(store.out_spans_by_process.keys())
         t0 = time.perf_counter()
-        # --parallel scores parallel siblings in one iteration, which the
-        # fleet does not carry: such runs go service by service
+        # --parallel scores parallel siblings in one iteration, and the
+        # KDE score mode refits on the host, neither of which the fleet
+        # carries: such runs go service by service
         use_fleet = (not cfg.parallel and method == FLEET_METHOD
-                     and isinstance(predictor, WeaverTorch))
+                     and isinstance(predictor, WeaverTorch)
+                     and predictor.score_mode == "mixture")
         if use_fleet:
             fleet_stats[result_key] = {}
             results = _solve_fleet_method(cfg, store, method, predictor,

@@ -81,13 +81,18 @@ class StreamConfig:
     grace_us: float = 0.0          # allowed lateness past the watermark
     max_pending: int = 4           # in-flight sealed-window bound
     spill_max: int = 64            # spill queue bound (backpressure)
+    solve_min_batch: int = 1       # pump once this many windows are sealed
     warm_start: bool = True        # carry per-service dists between windows
     grade: bool = True             # ground-truth grading (replay only)
+    prune: bool = True             # retention-prune the live store
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 8      # emitted windows between checkpoints
     verbose: bool = True
-    # seal→emit p99 SLO (ms): each excursion above it is counted and
-    # evented (``slo_breaches``); None counts nothing
+    # seal→emit p99 SLO (ms). None is pure batch-fill pacing. When set,
+    # the run loop pumps a backlog below solve_min_batch anyway once a
+    # sealed window's age crosses half the budget (the single-tenant form
+    # of the serve tier's continuous admission), and each excursion of
+    # the p99 above it is counted and evented (``slo_breaches``)
     slo_p99_ms: Optional[float] = None
     # dead-letter sidecar for poison windows (default
     # <sink>.deadletter.jsonl when a sink is set), the micro-batch
@@ -813,6 +818,19 @@ class StreamingReconstructor:
                    + self.scheduler.shed_dropped_windows,
                    self.scheduler.backlog, rate))
 
+    def _slo_pressure(self) -> bool:
+        """Is any sealed window's age past half the seal→emit SLO budget?
+        The single-tenant admission rule: a quiet stream must not hold a
+        sealed window hostage to batch fill (inert without an SLO)."""
+        if not self.cfg.slo_p99_ms:
+            return False
+        ready = self.scheduler.ready()
+        if not ready:
+            return False
+        now = time.monotonic()
+        budget_s = self.cfg.slo_p99_ms / 2e3
+        return any(now - (b.sealed_wall or now) >= budget_s for b in ready)
+
     def _observe_slo(self) -> None:
         """One counted and evented excursion when the rolling seal→emit
         p99 crosses the SLO, re-armed when it falls back under; inert
@@ -976,11 +994,11 @@ class StreamingReconstructor:
             print("[stream] resume: checkpoint was written under "
                   "precision=%s, resuming under %s (carried state is "
                   "precision-independent)" % (ckpt_precision, svc.precision))
-        if state.pop("_recovered_from_prev", False):
-            # the primary was corrupt and the load fell back to .prev
-            state["stats"]["checkpoint_recovered"] = (
-                state["stats"].get("checkpoint_recovered", 0) + 1)
+        recovered = state.pop("_recovered_from_prev", False)
         svc.apply_state(state)
+        if recovered:
+            # the primary was corrupt and the load fell back to .prev
+            svc._bump("checkpoint_recovered")
         return svc
 
     def apply_state(self, state: Dict) -> None:
@@ -1052,14 +1070,16 @@ class StreamingReconstructor:
             self._trace_seal(sealed)
             for buf in sealed:
                 self.scheduler.offer(buf)
-            if self.scheduler.backlog:
+            if self.scheduler.backlog >= c.solve_min_batch \
+                    or self._slo_pressure():
                 self.emit_batch(list(self.scheduler.pump()))
                 # the refits run between pumps, never inside one
                 self.maybe_adapt()
-            if sealed:
+            if sealed and c.prune:
                 # retention horizon: two windows behind the watermark, and
                 # never past a window behind the oldest window still
-                # waiting, whose spans' parent/child context it needs
+                # waiting (pending or spilled), whose spans' parent/child
+                # context it needs
                 oldest = min((b.start_us for b in self.scheduler.ready()),
                              default=self.watermark.value)
                 horizon = min(self.watermark.value - 2 * c.window_us,

@@ -136,6 +136,8 @@ class CarriedState:
     def update(self, service: str, dists) -> None:
         if dists:
             self.dists[service] = dists
+        # twlint-torch: disable=TW007 — carried state, not telemetry: the
+        # checkpoint keeps it with the distributions it counts
         self.windows_seen[service] = self.windows_seen.get(service, 0) + 1
 
 
