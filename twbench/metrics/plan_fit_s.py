@@ -1,0 +1,7 @@
+"""plan_fit_s: seconds a round of ``solve_fleet``'s own ``stats["plan_fit_s"]``, the
+mean over the window's rounds."""
+
+
+def read(reading):
+    rounds = reading["rounds"]
+    return sum(r["stats"].get("plan_fit_s", 0.0) for r in rounds) / len(rounds)
