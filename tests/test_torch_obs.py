@@ -5,9 +5,9 @@
 - ``EventLog`` records equal JAX's apart from the timestamp, and
   ``tail_main`` (the ``cli events`` subcommand) prints the same lines;
 - a CPU ``solve_fleet`` with profiling enabled yields a
-  ``torch.profiler`` trace holding the ``tw:fleet:*`` ranges (from the
-  flow workers' threads) and a per-service solve the
-  ``tw:solve:dispatch`` range; with profiling off there are none;
+  ``torch.profiler`` trace holding a ``tw:fleet:*`` range on every host
+  stage (the pack thread's and the flow workers' too) and a per-service
+  solve the ``tw:solve:dispatch`` range; with profiling off there are none;
 - the registry's ledger deltas equal the fleet's stats dict with the
   pipelined flow, and the fault ladder's counter and event records
   follow an injected dispatch fault;
@@ -241,13 +241,24 @@ def test_profiler_trace_holds_fleet_and_solve_ranges():
     assert not t_profile.enabled()
     device, ranges = t_profile.trace_intervals(on)
     assert {"tw:fleet:dispatch", "tw:fleet:warm-dispatch", "tw:fleet:flag-fetch",
+            "tw:fleet:plan", "tw:fleet:window-plan", "tw:fleet:group",
+            "tw:fleet:pack", "tw:fleet:fetch", "tw:fleet:decode",
             "tw:solve:dispatch"} <= {r[0] for r in ranges}
     assert not device and all(lo <= hi for _, lo, hi in ranges)
-    # the nested ranges sit inside their group's dispatch range
+    # the nested ranges sit inside their group's dispatch range, the flag
+    # fetch's fetch inside the flag fetch
     outer = [r for r in ranges if r[0] == "tw:fleet:dispatch"]
+    flag = [r for r in ranges if r[0] == "tw:fleet:flag-fetch"]
     for name, lo, hi in ranges:
-        if name == "tw:fleet:warm-dispatch":
+        if name in ("tw:fleet:warm-dispatch", "tw:fleet:flag-fetch"):
             assert any(o[1] <= lo and hi <= o[2] for o in outer)
+    assert all(any(r[0] == "tw:fleet:fetch" and f[1] <= r[1] and r[2] <= f[2]
+                   for r in ranges) for f in flag)
+    # the host stages before the first dispatch follow one another
+    first = {name: min(r[1] for r in ranges if r[0] == name)
+             for name in ("tw:fleet:plan", "tw:fleet:window-plan", "tw:fleet:group",
+                          "tw:fleet:dispatch")}
+    assert sorted(first, key=first.get) == list(first)
 
 
 def test_device_timeline():

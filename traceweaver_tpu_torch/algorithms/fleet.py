@@ -98,18 +98,27 @@ never reaches the device; it fills the per-tenant buckets
 ``tenant_windows_decoded`` of the stats (packed equals decoded), which
 untagged callers never see.
 
-Each item may carry a self-trace window key (``FleetItem.trace_key``,
-:mod:`traceweaver_tpu_torch.obs.selftrace`): with a tracer installed,
-the pack thread, the flow workers and the supervisor's rungs stamp
-their stages (pack, dispatch, compact-fetch, redispatch, decode, retry,
-bisect, host-fallback, quarantine) on the windows of the group they
-work on.
+Every host stage of a round runs in one stage scope (``_Stats.stage``,
+:func:`traceweaver_tpu_torch.obs.profile.annotate`): one ``perf_counter``
+pair bills its stats key and stamps the round; with profiling on it is
+the range ``tw:fleet:<stage>`` carrying the group's index in the round;
+with a self-tracer installed it is stamped on the group's window keys
+(``FleetItem.trace_key``). ``plan`` and ``plan-admit`` bill
+``plan_fit_s``; ``window-plan`` and ``pack`` ``pack_s``; ``group``
+(classes, merge, budget) nothing; ``dispatch`` ``dispatch_s``, with
+``warm-dispatch``, ``flag-fetch`` (self-trace ``compact-fetch``) and
+``redispatch`` inside; ``fetch`` ``wait_s``; ``decode`` ``decode_s``;
+the rungs ``retry`` (its backoff), ``bisect``, ``host-fallback`` and
+``quarantine`` nothing. ``wait_s`` and ``decode_s`` sum over the flow
+workers. A round that launched a group also records ``fleet_lead_s``
+(entry to the first dispatch), ``fleet_tail_s`` (the last fetch's end
+to the return) and ``decode_wall_s`` (the decodes' union). The main
+thread's waits on the pack futures and the budget gate open no range.
 
 Every ``_Stats`` update also lands in the metrics registry
 (:mod:`traceweaver_tpu_torch.obs.registry`: ``tw_fleet_ledger_total``,
-``tw_fleet_gauge``, ``tw_fault_ladder_events_total``), each ladder rung
-in the installed event sink, and the dispatch stages run inside
-``tw:fleet:*`` profiler ranges (:mod:`traceweaver_tpu_torch.obs.profile`).
+``tw_fleet_gauge``, ``tw_fault_ladder_events_total``) and each ladder
+rung in the installed event sink.
 """
 
 from __future__ import annotations
@@ -149,7 +158,6 @@ from traceweaver_tpu_torch.algorithms.weaver_torch import (
 from traceweaver_tpu_torch.obs import events as _events
 from traceweaver_tpu_torch.obs import profile as _profile
 from traceweaver_tpu_torch.obs import quality as _quality
-from traceweaver_tpu_torch.obs import selftrace as _selftrace
 from traceweaver_tpu_torch.obs.registry import get_registry as _get_registry
 from traceweaver_tpu_torch.obs.registry import serve_families as _serve_families
 from traceweaver_tpu_torch.parallel.mesh import (
@@ -231,11 +239,21 @@ class _Stats:
     """Lock-guarded accumulator over the caller's stats dict (the
     per-service fallback pool and the solve thread update it together);
     ``d is None`` makes every dict update a no-op. The registry mirror
-    and the event sink see every update either way."""
+    and the event sink see every update either way. ``stamps`` collects
+    every stage scope's ``(range name, t0, t1)``."""
 
     def __init__(self, d: Optional[Dict[str, float]]):
         self.d = d
         self._lock = threading.Lock()
+        self.stamps: List[Tuple[str, float, float]] = []
+
+    def stage(self, name: str, key: Optional[str] = None, *, group: Optional[int] = None,
+              trace_keys=(), trace_stage: Optional[str] = None):
+        """:func:`~traceweaver_tpu_torch.obs.profile.annotate` of the stage
+        ``tw:fleet:<name>`` (self-trace stage ``trace_stage``, else ``name``)."""
+        return _profile.annotate("tw:fleet:" + name, self.add, key, group=group,
+                                 trace_keys=trace_keys, trace_stage=trace_stage or name,
+                                 stamps=self.stamps)
 
     def add(self, key: str, val: float = 1.0) -> None:
         _OBS_LEDGER.inc(val, key=key)
@@ -288,19 +306,25 @@ def _as_stats(stats) -> _Stats:
     return stats if isinstance(stats, _Stats) else _Stats(stats)
 
 
-def _trace_stage(keys, stage: str, w0_us: float,
-                 w1_us: Optional[float] = None) -> None:
-    """Record one pipeline stage on every window trace in ``keys`` (a
-    group's trace keys); one global read and out without a tracer."""
-    tr = _selftrace.active()
-    if tr is None or not keys:
+def _round_structure(st: _Stats, t_entry: float) -> None:
+    """The round's ``fleet_lead_s``, ``fleet_tail_s`` and
+    ``decode_wall_s`` from its stage stamps; none without a dispatch."""
+    t_exit = time.perf_counter()
+    by: Dict[str, List[Tuple[float, float]]] = {}
+    for name, t0, t1 in st.stamps:
+        by.setdefault(name, []).append((t0, t1))
+    if "tw:fleet:dispatch" not in by:
         return
-    for key in keys:
-        tr.stage(key, stage, w0_us, w1_us)
+    st.add("fleet_lead_s", min(by["tw:fleet:dispatch"])[0] - t_entry)
+    if "tw:fleet:fetch" in by:
+        st.add("fleet_tail_s", t_exit - max(t1 for _, t1 in by["tw:fleet:fetch"]))
+    decode = _profile.union(by.get("tw:fleet:decode", []))
+    st.add("decode_wall_s", sum(hi - lo for lo, hi in decode))
 
 
 def _group_keys(group) -> List[str]:
-    """The sorted self-trace keys of a group's items."""
+    """The sorted self-trace keys of a group's items (its plans or its
+    packed items, the item second in each)."""
     return sorted({p[1].trace_key for p in group if p[1].trace_key is not None})
 
 
@@ -317,21 +341,21 @@ def _fault_check(site: str, st: _Stats, plan) -> None:
 
 
 def _fetch(t, st: _Stats, plan, flag_fetch: bool = False,
-           flow_wait: Optional[List[float]] = None) -> np.ndarray:
+           flow_wait: Optional[List[float]] = None,
+           group: Optional[int] = None) -> np.ndarray:
     """Blocking device-to-host fetch (it waits for the current stream
-    only), billed to ``wait_s`` and the D2H byte ledger (flag fetches
+    only), the stage ``fetch`` of group ``group`` (None: the enclosing
+    stage's), billed to ``wait_s`` and the D2H byte ledger (flag fetches
     also to ``d2h_bytes_flags``). ``flow_wait`` (a list) collects this
     flow's own blocking times, so the flow's ``dispatch_s`` can leave
     them out while other flows bill ``wait_s`` at the same time."""
     _fault_check("fetch", st, plan)
-    t0 = time.perf_counter()
-    # a mesh solve's block comes back as one tensor a shard, in shard order
-    out = (np.concatenate([x.cpu().numpy() for x in t]) if isinstance(t, list)
-           else t.cpu().numpy())
-    dt = time.perf_counter() - t0
-    st.add("wait_s", dt)
+    with st.stage("fetch", "wait_s", group=group) as sp:
+        # a mesh solve's block comes back as one tensor a shard, in shard order
+        out = (np.concatenate([x.cpu().numpy() for x in t]) if isinstance(t, list)
+               else t.cpu().numpy())
     if flow_wait is not None:
-        flow_wait.append(dt)
+        flow_wait.append(sp.seconds)
     st.add("d2h_bytes_fetched", float(out.nbytes))
     if flag_fetch:
         st.add("d2h_bytes_flags", float(out.nbytes))
@@ -550,6 +574,7 @@ def solve_fleet(
     ``pipeline_groups``, ``pipeline_depth``, ``fault_*`` and the ordered
     ``fault_ladder`` list, stage seconds, byte counts).
     """
+    t_entry = time.perf_counter()
     dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     precision = validate_precision(precision)
     if merge_budget is None:
@@ -569,23 +594,22 @@ def solve_fleet(
     st = _as_stats(stats)
 
     prepared, fallback_entries = [], []
-    t_plan = time.perf_counter()
-    for i, item in enumerate(items):
-        cached = (plan_cache.lookup(_plan_key(item))
-                  if plan_cache is not None and item.warm_dists is None else None)
-        prep = _prepare(item, cached_dists=cached, score_mode=score_mode)
-        if prep is None:
-            fallback_entries.append((i, item))
-            if item_cells is not None:
-                item_cells[i] = _raw_cells(item, max_window)
-        else:
-            if (plan_cache is not None and cached is None
-                    and item.warm_dists is None and prep["n_passes"] == 1):
-                # a single-pass miss has no refit to admit later: the
-                # fit that just ran is the plan
-                plan_cache.admit(_plan_key(item), prep["dists"])
-            prepared.append((i, item, prep))
-    st.add("plan_fit_s", time.perf_counter() - t_plan)
+    with st.stage("plan", "plan_fit_s"):
+        for i, item in enumerate(items):
+            cached = (plan_cache.lookup(_plan_key(item))
+                      if plan_cache is not None and item.warm_dists is None else None)
+            prep = _prepare(item, cached_dists=cached, score_mode=score_mode)
+            if prep is None:
+                fallback_entries.append((i, item))
+                if item_cells is not None:
+                    item_cells[i] = _raw_cells(item, max_window)
+            else:
+                if (plan_cache is not None and cached is None
+                        and item.warm_dists is None and prep["n_passes"] == 1):
+                    # a single-pass miss has no refit to admit later: the
+                    # fit that just ran is the plan
+                    plan_cache.admit(_plan_key(item), prep["dists"])
+                prepared.append((i, item, prep))
     if fallback_entries:
         _run_fallback(fallback_entries, results, all_spans, all_processes,
                       solver_kwargs, st, confidences=confidences)
@@ -593,23 +617,22 @@ def solve_fleet(
         return results  # type: ignore[return-value]
 
     # --- per-item window plan and shape class ------------------------------
-    t0 = time.perf_counter()
     plans = []
-    for i, item, prep in prepared:
-        in_cols, out_cols, out_eps = prep["in_cols"], prep["out_cols"], prep["out_eps"]
-        windows = perfect_cut_windows_cols(in_cols, max_window)
-        ranges = candidate_ranges(in_cols, windows, out_eps,
-                                  {ep: out_cols[ep].start for ep in out_eps})
-        skip_caps = water_fill_skip_caps(
-            windows, ranges, len(prep["in_spans"]),
-            [len(item.out_span_partitions[ep]) for ep in out_eps])
-        w_b = _bucket(max(hi - lo for lo, hi in windows))
-        m_b = _bucket(int((ranges[:, :, 1] - ranges[:, :, 0]).max(initial=1)))
-        if item_cells is not None:
-            item_cells[i] = (len(windows) * w_b * m_b * max(1, len(out_eps))
-                             * prep["n_passes"])
-        plans.append((i, item, prep, windows, ranges, skip_caps, w_b, m_b))
-    st.add("pack_s", time.perf_counter() - t0)
+    with st.stage("window-plan", "pack_s"):
+        for i, item, prep in prepared:
+            in_cols, out_cols, out_eps = prep["in_cols"], prep["out_cols"], prep["out_eps"]
+            windows = perfect_cut_windows_cols(in_cols, max_window)
+            ranges = candidate_ranges(in_cols, windows, out_eps,
+                                      {ep: out_cols[ep].start for ep in out_eps})
+            skip_caps = water_fill_skip_caps(
+                windows, ranges, len(prep["in_spans"]),
+                [len(item.out_span_partitions[ep]) for ep in out_eps])
+            w_b = _bucket(max(hi - lo for lo, hi in windows))
+            m_b = _bucket(int((ranges[:, :, 1] - ranges[:, :, 0]).max(initial=1)))
+            if item_cells is not None:
+                item_cells[i] = (len(windows) * w_b * m_b * max(1, len(out_eps))
+                                 * prep["n_passes"])
+            plans.append((i, item, prep, windows, ranges, skip_caps, w_b, m_b))
 
     # --- group services into dispatch shape classes -------------------------
     # The class key holds the pass count (single- and two-pass services
@@ -622,57 +645,59 @@ def solve_fleet(
         e = max(len(p[2]["out_eps"]) for p in group)
         return sum(len(p[3]) for p in group) * w * m * e
 
-    classes: Dict[Tuple[int, int, int, int], List] = {}
-    for plan in plans:
-        e_b = _bucket(len(plan[2]["out_eps"]), minimum=1)
-        classes.setdefault((plan[2]["n_passes"], plan[6], plan[7], e_b), []).append(plan)
-    ordered = sorted(classes, key=lambda k: (k[0], k[1] * k[2] * k[3]))
-    groups: List[List] = []
-    carry: List = []
-    for idx, key in enumerate(ordered):
-        wins = carry + classes[key]
-        if idx + 1 < len(ordered) and ordered[idx + 1][0] == key[0]:
-            nxt = wins + classes[ordered[idx + 1]]
-            extra = (shape_cost(nxt) - shape_cost(wins)
-                     - shape_cost(classes[ordered[idx + 1]]))
-            if extra <= merge_budget:
-                carry = wins
-                continue
-        groups.append(wins)
-        carry = []
-    if carry:
-        groups.append(carry)
+    with st.stage("group"):
+        classes: Dict[Tuple[int, int, int, int], List] = {}
+        for plan in plans:
+            e_b = _bucket(len(plan[2]["out_eps"]), minimum=1)
+            classes.setdefault((plan[2]["n_passes"], plan[6], plan[7], e_b), []).append(plan)
+        ordered = sorted(classes, key=lambda k: (k[0], k[1] * k[2] * k[3]))
+        groups: List[List] = []
+        carry: List = []
+        for idx, key in enumerate(ordered):
+            wins = carry + classes[key]
+            if idx + 1 < len(ordered) and ordered[idx + 1][0] == key[0]:
+                nxt = wins + classes[ordered[idx + 1]]
+                extra = (shape_cost(nxt) - shape_cost(wins)
+                         - shape_cost(classes[ordered[idx + 1]]))
+                if extra <= merge_budget:
+                    carry = wins
+                    continue
+            groups.append(wins)
+            carry = []
+        if carry:
+            groups.append(carry)
 
-    # --- budget, then dispatch per group -------------------------------------
-    run = _Run(hypers=dict(epsilon=epsilon, n_sinkhorn=n_sinkhorn,
-                           sinkhorn_tol=sinkhorn_tol, precision=precision,
-                           topk=DEFAULT_TOPK, fused=fused_kernel,
-                           confidence=conf_device, score_gemm=score_gemm),
-               n_sweeps=n_sweeps, device=dev, compaction=compaction,
-               sweep_warm=sweep_warm, retry_max=retry_max,
-               retry_backoff_s=retry_backoff_s,
-               budget_bytes=fleet_budget_elems * 4, faults=faults,
-               plan_cache=plan_cache,
-               # the mesh places host tensors per shard
-               devcols=bool(devcols) and mesh is None,
-               ring_capacity=int(ring_capacity), mesh=mesh)
-    ctx = dict(all_spans=all_spans, all_processes=all_processes,
-               solver_kwargs=solver_kwargs,
-               quarantined=quarantined if quarantined is not None else [],
-               confidences=confidences)
-    specs: List[_GroupSpec] = []
-    itemsize = score_itemsize(precision)
-    for group in groups:
-        spec = _make_spec(group, itemsize)
-        if spec.cost > run.budget_bytes:
-            # the padded group would stress device memory: per service
-            _run_fallback([(p[0], p[1]) for p in group], results, all_spans,
-                          all_processes, solver_kwargs, st, confidences=confidences)
-            st.add("fleet_fallback_budget", 1.0)
-            continue
-        st.record_max("fleet_group_cost_max", float(spec.cost))
-        st.add("fleet_group_cost_total", float(spec.cost))
-        specs.append(spec)
+        # --- budget, then dispatch per group ---------------------------------
+        run = _Run(hypers=dict(epsilon=epsilon, n_sinkhorn=n_sinkhorn,
+                               sinkhorn_tol=sinkhorn_tol, precision=precision,
+                               topk=DEFAULT_TOPK, fused=fused_kernel,
+                               confidence=conf_device, score_gemm=score_gemm),
+                   n_sweeps=n_sweeps, device=dev, compaction=compaction,
+                   sweep_warm=sweep_warm, retry_max=retry_max,
+                   retry_backoff_s=retry_backoff_s,
+                   budget_bytes=fleet_budget_elems * 4, faults=faults,
+                   plan_cache=plan_cache,
+                   # the mesh places host tensors per shard
+                   devcols=bool(devcols) and mesh is None,
+                   ring_capacity=int(ring_capacity), mesh=mesh)
+        ctx = dict(all_spans=all_spans, all_processes=all_processes,
+                   solver_kwargs=solver_kwargs,
+                   quarantined=quarantined if quarantined is not None else [],
+                   confidences=confidences)
+        specs: List[_GroupSpec] = []
+        itemsize = score_itemsize(precision)
+        for index, group in enumerate(groups):
+            spec = _make_spec(group, itemsize)
+            spec.index = index
+            if spec.cost > run.budget_bytes:
+                # the padded group would stress device memory: per service
+                _run_fallback([(p[0], p[1]) for p in group], results, all_spans,
+                              all_processes, solver_kwargs, st, confidences=confidences)
+                st.add("fleet_fallback_budget", 1.0)
+                continue
+            st.record_max("fleet_group_cost_max", float(spec.cost))
+            st.add("fleet_group_cost_total", float(spec.cost))
+            specs.append(spec)
     if pipeline and specs and mesh is None:
         _solve_groups_pipelined(specs, results, st, run, ctx, decode_workers)
     else:
@@ -683,15 +708,17 @@ def solve_fleet(
         if mesh is not None and pipeline and len(specs) > 1:
             st.add("mesh_serialized_groups", float(len(specs)))
         _solve_groups_serial(specs, results, st, run, ctx)
+    _round_structure(st, t_entry)
     return results  # type: ignore[return-value]
 
 
 class _GroupSpec:
-    """One shape-class dispatch group, its padded geometry and its cost
-    in live bytes."""
+    """One shape-class dispatch group, its padded geometry, its cost in
+    live bytes and its index in the round (a bisected half keeps its
+    group's)."""
 
     __slots__ = ("group", "W_pad", "M_pad", "E_pad", "bmax", "n_passes",
-                 "cost")
+                 "cost", "index")
 
     def __init__(self, group, W_pad, M_pad, E_pad, bmax, n_passes, cost):
         self.group = group
@@ -701,6 +728,7 @@ class _GroupSpec:
         self.bmax = bmax
         self.n_passes = n_passes
         self.cost = cost
+        self.index = 0
 
 
 def _make_spec(group: List, itemsize: int) -> _GroupSpec:
@@ -729,7 +757,7 @@ def _attempt_group(pg, spec, results, st, run, ctx):
     so every attempt places fresh device copies)."""
     _fault_check("dispatch", st, run.faults)
     pend = _dispatch_packed(pg, spec, st, run)
-    _decode_group(pend, results, st, run, ctx)
+    _decode_group(pend, results, st, run, ctx, spec.index)
 
 
 def _enter_ladder(err, pg, spec, results, st, run, ctx):
@@ -757,8 +785,9 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
     4. **quarantine**: its slot gets an all-NA result and its index lands
        in ``ctx["quarantined"]``.
 
-    Every rung is counted, appended to ``fault_ladder`` and stamped on
-    the group's window self-traces."""
+    Every rung is counted, appended to ``fault_ladder`` and runs as a
+    stage (the retry's is its backoff), stamped on the group's window
+    self-traces."""
     rung_keys = _group_keys(spec.group)
 
     def maybe_rebuild(e: BaseException) -> None:
@@ -768,11 +797,11 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
 
     maybe_rebuild(err)
     for attempt in range(run.retry_max):
-        if run.retry_backoff_s > 0:
-            time.sleep(run.retry_backoff_s * (2 ** attempt))
         st.add("fault_retries")
         st.note("fault_ladder", "retry")
-        _trace_stage(rung_keys, "retry", _selftrace.now_us())
+        with st.stage("retry", group=spec.index, trace_keys=rung_keys):
+            if run.retry_backoff_s > 0:
+                time.sleep(run.retry_backoff_s * (2 ** attempt))
         try:
             _attempt_group(pg, spec, results, st, run, ctx)
             st.add("fault_recovered_retry")
@@ -786,10 +815,12 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
     if len(spec.group) > 1:
         st.add("fault_bisections")
         st.note("fault_ladder", "bisect")
-        _trace_stage(rung_keys, "bisect", _selftrace.now_us())
-        mid = len(spec.group) // 2
-        for half in (spec.group[:mid], spec.group[mid:]):
-            half_spec = _make_spec(half, score_itemsize(run.hypers["precision"]))
+        with st.stage("bisect", group=spec.index, trace_keys=rung_keys):
+            mid = len(spec.group) // 2
+            halves = [_make_spec(half, score_itemsize(run.hypers["precision"]))
+                      for half in (spec.group[:mid], spec.group[mid:])]
+        for half_spec in halves:
+            half_spec.index = spec.index
             half_pg = _pack_group(half_spec, st, run)
             try:
                 _attempt_group(half_pg, half_spec, results, st, run, ctx)
@@ -800,12 +831,12 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
     plan = spec.group[0]
     st.add("fault_host_fallbacks")
     st.note("fault_ladder", "host")
-    _trace_stage(rung_keys, "host-fallback", _selftrace.now_us())
     try:
-        _fault_check("host", st, run.faults)
-        _run_fallback([(plan[0], plan[1])], results, ctx["all_spans"],
-                      ctx["all_processes"], ctx["solver_kwargs"], st,
-                      confidences=ctx["confidences"])
+        with st.stage("host-fallback", group=spec.index, trace_keys=rung_keys):
+            _fault_check("host", st, run.faults)
+            _run_fallback([(plan[0], plan[1])], results, ctx["all_spans"],
+                          ctx["all_processes"], ctx["solver_kwargs"], st,
+                          confidences=ctx["confidences"])
         if results[plan[0]] is not None:
             return
     except Exception as e:  # noqa: BLE001
@@ -814,12 +845,12 @@ def _degrade_group(err, pg, spec, results, st, run, ctx):
 
     st.add("fault_quarantined")
     st.note("fault_ladder", "quarantine")
-    _trace_stage(rung_keys, "quarantine", _selftrace.now_us())
-    results[plan[0]] = _quarantine_result(plan)
-    if ctx["confidences"] is not None:
-        # an all-NA result has zero confidence, so queries can leave it out
-        ctx["confidences"][plan[0]] = {s.GetId(): _quality.zero_confidence()
-                                       for s in plan[2]["in_spans"]}
+    with st.stage("quarantine", group=spec.index, trace_keys=rung_keys):
+        results[plan[0]] = _quarantine_result(plan)
+        if ctx["confidences"] is not None:
+            # an all-NA result has zero confidence, so queries can leave it out
+            ctx["confidences"][plan[0]] = {s.GetId(): _quality.zero_confidence()
+                                           for s in plan[2]["in_spans"]}
     ctx["quarantined"].append(plan[0])
 
 
@@ -845,7 +876,7 @@ def _solve_groups_serial(specs, results, st, run, ctx):
     def finish(entry):
         spec, pg, pend = entry
         try:
-            _decode_group(pend, results, st, run, ctx)
+            _decode_group(pend, results, st, run, ctx, spec.index)
         except Exception as e:  # noqa: BLE001
             _enter_ladder(e, pg, spec, results, st, run, ctx)
 
@@ -1033,70 +1064,68 @@ def _pack_group(spec: _GroupSpec, st: _Stats, run: _Run):
     concatenate on the host, and the dispatch gathers the window
     tensors. A group the rings cannot hold packs on the host
     (``devcols_fallbacks``)."""
-    t0 = time.perf_counter()
-    w0 = _selftrace.now_us()
-    table_rows: Dict[str, List[np.ndarray]] = {k: [] for k in _TABLE_KEYS}
-    per_item_pack = []
-    param_idx: List[int] = []
-    # per-window tenant indices into a group-local table (never shipped)
-    tenant_table = sorted({item.tenant for _, item, *_ in spec.group
-                           if item.tenant is not None})
-    tenant_of = {t: ti for ti, t in enumerate(tenant_table)}
-    tenant_idx: List[int] = []
-    dc_resolved = None
-    if run.devcols:
-        dc_resolved = _resolve_group_devcols(spec.group, st, run)
-        if dc_resolved is None:
-            st.add("devcols_fallbacks")
-    batch_keys = _DEVCOLS_BATCH_KEYS if dc_resolved is not None else _BATCH_KEYS
-    batch_parts: Dict[str, List[np.ndarray]] = {k: [] for k in batch_keys}
-    devcols_items: List[Dict] = []
-    for p, plan in enumerate(spec.group):
-        i, item, prep, windows = plan[:4]
-        if dc_resolved is not None:
-            in_slots, out_slots, ring_in, ring_out, live = dc_resolved[p]
-            packed = _pack_problem_devcols(
-                prep["in_spans"], item.out_span_partitions, prep["out_eps"],
-                prep["dists"], prep["in_ep"], item.dag, in_slots, out_slots,
-                ring_in, ring_out, **_pack_kw(plan, spec))
-        else:
-            packed = _host_pack(plan, spec)
-        n_w = len(windows)
-        for key in batch_keys:
-            batch_parts[key].append(packed.arrays[key][:n_w])
-        if dc_resolved is not None:
-            dc = packed.devcols
-            devcols_items.append(dict(
-                n_w=n_w, ring_in=dc["ring_in"], ring_out=dc["ring_out"], live=live,
-                in_idx=dc["in_idx"][:n_w], out_idx=dc["out_idx"][:n_w],
-                origin_in=dc["origin_in"][:n_w], origin_out=dc["origin_out"][:n_w]))
-        packed.truncate_rows(n_w)
-        for key in _TABLE_KEYS:
-            table_rows[key].append(packed.arrays[key])
-        param_idx.extend([p] * n_w)
-        tenant_idx.extend([tenant_of.get(item.tenant, -1)] * n_w)
-        if item.tenant is not None:
-            st.bucket("tenant_windows_packed", item.tenant, float(n_w))
-        per_item_pack.append((i, item, prep, packed, n_w))
-
-    batch = {k: np.concatenate(v, axis=0) for k, v in batch_parts.items()}
-    params = {k: np.stack(v, axis=0) for k, v in table_rows.items()}
-    # neighbour bounds over the whole group (power-of-two bucketed): the
-    # score build gathers only real DAG edges
-    pm_all = params["pred_mask"]
-    max_preds = _bucket(max(1, int(pm_all.sum(axis=2).max(initial=0))), minimum=1)
-    max_succs = _bucket(max(1, int(pm_all.sum(axis=1).max(initial=0))), minimum=1)
-    # each service's contiguous window-row block, for the gathered refit
-    window_rows = np.zeros((len(per_item_pack), spec.bmax), dtype=np.int32)
-    window_valid = np.zeros((len(per_item_pack), spec.bmax), dtype=bool)
-    row0 = 0
-    for p, (*_, n_w) in enumerate(per_item_pack):
-        window_rows[p, :n_w] = np.arange(row0, row0 + n_w, dtype=np.int32)
-        window_valid[p, :n_w] = True
-        row0 += n_w
-    st.add("pack_s", time.perf_counter() - t0)
     trace_keys = _group_keys(spec.group)
-    _trace_stage(trace_keys, "pack", w0)
+    with st.stage("pack", "pack_s", group=spec.index, trace_keys=trace_keys):
+        table_rows: Dict[str, List[np.ndarray]] = {k: [] for k in _TABLE_KEYS}
+        per_item_pack = []
+        param_idx: List[int] = []
+        # per-window tenant indices into a group-local table (never shipped)
+        tenant_table = sorted({item.tenant for _, item, *_ in spec.group
+                               if item.tenant is not None})
+        tenant_of = {t: ti for ti, t in enumerate(tenant_table)}
+        tenant_idx: List[int] = []
+        dc_resolved = None
+        if run.devcols:
+            dc_resolved = _resolve_group_devcols(spec.group, st, run)
+            if dc_resolved is None:
+                st.add("devcols_fallbacks")
+        batch_keys = _DEVCOLS_BATCH_KEYS if dc_resolved is not None else _BATCH_KEYS
+        batch_parts: Dict[str, List[np.ndarray]] = {k: [] for k in batch_keys}
+        devcols_items: List[Dict] = []
+        for p, plan in enumerate(spec.group):
+            i, item, prep, windows = plan[:4]
+            if dc_resolved is not None:
+                in_slots, out_slots, ring_in, ring_out, live = dc_resolved[p]
+                packed = _pack_problem_devcols(
+                    prep["in_spans"], item.out_span_partitions, prep["out_eps"],
+                    prep["dists"], prep["in_ep"], item.dag, in_slots, out_slots,
+                    ring_in, ring_out, **_pack_kw(plan, spec))
+            else:
+                packed = _host_pack(plan, spec)
+            n_w = len(windows)
+            for key in batch_keys:
+                batch_parts[key].append(packed.arrays[key][:n_w])
+            if dc_resolved is not None:
+                dc = packed.devcols
+                devcols_items.append(dict(
+                    n_w=n_w, ring_in=dc["ring_in"], ring_out=dc["ring_out"], live=live,
+                    in_idx=dc["in_idx"][:n_w], out_idx=dc["out_idx"][:n_w],
+                    origin_in=dc["origin_in"][:n_w], origin_out=dc["origin_out"][:n_w]))
+            packed.truncate_rows(n_w)
+            for key in _TABLE_KEYS:
+                table_rows[key].append(packed.arrays[key])
+            param_idx.extend([p] * n_w)
+            tenant_idx.extend([tenant_of.get(item.tenant, -1)] * n_w)
+            if item.tenant is not None:
+                st.bucket("tenant_windows_packed", item.tenant, float(n_w))
+            per_item_pack.append((i, item, prep, packed, n_w))
+
+        batch = {k: np.concatenate(v, axis=0) for k, v in batch_parts.items()}
+        params = {k: np.stack(v, axis=0) for k, v in table_rows.items()}
+        # neighbour bounds over the whole group (power-of-two bucketed): the
+        # score build gathers only real DAG edges
+        pm_all = params["pred_mask"]
+        max_preds = _bucket(max(1, int(pm_all.sum(axis=2).max(initial=0))), minimum=1)
+        max_succs = _bucket(max(1, int(pm_all.sum(axis=1).max(initial=0))), minimum=1)
+        # each service's contiguous window-row block, for the gathered refit
+        window_rows = np.zeros((len(per_item_pack), spec.bmax), dtype=np.int32)
+        window_valid = np.zeros((len(per_item_pack), spec.bmax), dtype=bool)
+        row0 = 0
+        for p, (*_, n_w) in enumerate(per_item_pack):
+            window_rows[p, :n_w] = np.arange(row0, row0 + n_w, dtype=np.int32)
+            window_valid[p, :n_w] = True
+            row0 += n_w
+
     st.add("fleet_dispatches", 1.0)
     st.add("fleet_services", float(len(per_item_pack)))
     st.add("fused_em_applied" if spec.n_passes == 2 else "fleet_dynamism_dispatches",
@@ -1259,12 +1288,10 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
     flow_wait: List[float] = []
     refit_sink = [] if (run.plan_cache is not None and spec.n_passes == 2) else None
     trace_keys = pg.get("trace_keys") or ()
-    t0 = time.perf_counter()
-    w0 = _selftrace.now_us()
     # the JAX package opens this range on the uncompacted branch only;
     # here it spans the group's whole device solve, so the default
     # (compacted) flow shows it too, its stages nested inside
-    with _profile.annotate("tw:fleet:dispatch"):
+    with st.stage("dispatch", group=spec.index, trace_keys=trace_keys) as sp:
         if use_compact:
             out = _solve_group_compacted(
                 batch, pidx, pg["params"], pg["window_rows"],
@@ -1290,21 +1317,19 @@ def _dispatch_packed(pg, spec: _GroupSpec, st: _Stats, run: _Run):
             else:
                 out, _ = solve_windows_fleet(*common, *tables,
                                              n_sweeps=run.n_sweeps, **hypers)
-    dispatch_s = time.perf_counter() - t0 - sum(flow_wait)
+    dispatch_s = sp.seconds - sum(flow_wait)
     st.add("dispatch_s", dispatch_s)
     _OBS_DISPATCH_S.observe(dispatch_s)
-    _trace_stage(trace_keys, "dispatch", w0)
     if refit_sink:
         # the device already fitted the next round's plan: keep it
-        t_admit = time.perf_counter()
-        # twlint-torch: disable=TW003 — the plan cache's admission: the refit
-        # tables once a group, billed to plan_fit_s
-        tables9 = tuple(t.cpu().numpy() for t in refit_sink[0])
-        for p, (_, item, prep, _, _) in enumerate(pg["per_item_pack"]):
-            if item.warm_dists is None:
-                run.plan_cache.admit(_plan_key(item), dists_from_tables(
-                    prep["out_eps"], prep["in_ep"], *(t[p] for t in tables9)))
-        st.add("plan_fit_s", time.perf_counter() - t_admit)
+        with st.stage("plan-admit", "plan_fit_s", group=spec.index):
+            # twlint-torch: disable=TW003 — the plan cache's admission: the
+            # refit tables once a group, billed to plan_fit_s
+            tables9 = tuple(t.cpu().numpy() for t in refit_sink[0])
+            for p, (_, item, prep, _, _) in enumerate(pg["per_item_pack"]):
+                if item.warm_dists is None:
+                    run.plan_cache.admit(_plan_key(item), dists_from_tables(
+                        prep["out_eps"], prep["in_ep"], *(t[p] for t in tables9)))
     return pg["per_item_pack"], out, hypers["confidence"]
 
 
@@ -1387,14 +1412,12 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
                             device, st)
         return solve_windows_fleet(*common, *tables, n_sweeps=sweeps, **hypers)
 
-    with _profile.annotate("tw:fleet:warm-dispatch"):
+    with st.stage("warm-dispatch"):
         out_warm, flags = solve(None, 0, warm, plan_rows)
     st.add("d2h_flag_fetches", 1.0)
-    w0 = _selftrace.now_us()
-    with _profile.annotate("tw:fleet:flag-fetch"):
+    with st.stage("flag-fetch", trace_keys=trace_keys, trace_stage="compact-fetch"):
         converged = _fetch(flags, st, faults, flag_fetch=True,
                            flow_wait=flow_wait).astype(bool)
-    _trace_stage(trace_keys, "compact-fetch", w0)
     active = np.flatnonzero(~converged)
     st.add("compact_windows_total", float(converged.shape[0]))
     st.add("compact_windows_redispatched", float(active.size))
@@ -1408,10 +1431,8 @@ def _compacted_pass(batch, pidx, tables, n_sweeps, warm, hypers, stats, device,
     # stragglers rerun from sweep 0, padded with all-invalid rows to a
     # power of two (a shard)
     pad = bucket_rows_per_shard(int(active.size), n_shards) - int(active.size)
-    w0 = _selftrace.now_us()
-    with _profile.annotate("tw:fleet:redispatch"):
+    with st.stage("redispatch", trace_keys=trace_keys):
         out_full, _ = solve(active, pad, n_sweeps, _bucket(int(active.size), minimum=1))
-    _trace_stage(trace_keys, "redispatch", w0)
     out = _fetch(out_warm, st, faults, flow_wait=flow_wait).copy()
     out[active] = _fetch(out_full, st, faults, flow_wait=flow_wait)[:active.size]
     return out
@@ -1491,46 +1512,44 @@ def _solve_group_mesh(batch, pidx, params, window_rows, window_valid, n_passes,
                                n_passes, mesh.devices[0], refit_sink)
 
 
-def _decode_group(pend, results, st: _Stats, run: _Run, ctx) -> None:
-    """Fetch one group's packed output (unless the compacted flow already
-    did) and decode it per service into its input-order slot, with the
-    item's confidence records when the caller asked for them."""
+def _decode_group(pend, results, st: _Stats, run: _Run, ctx,
+                  group: Optional[int] = None) -> None:
+    """Fetch group ``group``'s packed output (unless the compacted flow
+    already did) and decode it per service into its input-order slot,
+    with the item's confidence records when the caller asked for them."""
     per_item_pack, out, conf_device = pend
     confidences = ctx["confidences"]
-    o = out if isinstance(out, np.ndarray) else _fetch(out, st, run.faults)
-    t0 = time.perf_counter()
-    w0 = _selftrace.now_us()
-    row = 0
-    for i, item, prep, packed, n_w in per_item_pack:
-        rows = o[row:row + n_w]
-        ch = _layout.split_packed(rows, confidence=conf_device)
-        row += n_w
-        if item.tenant is not None:
-            # the tenancy column's decode end: packed equals decoded
-            st.bucket("tenant_windows_decoded", item.tenant, float(n_w))
-        out_eps = prep["out_eps"]
-        in_ids = prep["in_cols"].ids.tolist()
-        n_in = prep["n_in"]
-        all_assignments = {ep: {} for ep in out_eps}
-        all_topk = {ep: {} for ep in out_eps}
-        WeaverTorch._decode(packed, ch["assign"], ch["topk_cols"],
-                            all_assignments, all_topk)
-        span_not_best = np.zeros(n_in, dtype=bool)
-        span_cands = np.ones(n_in, dtype=np.int64)
-        scatter_window_span_stats(packed.windows, ch["not_best"], ch["feas"],
-                                  span_not_best, span_cands)
-        if confidences is not None:
-            arrs = _quality.span_confidence_arrays(packed.windows, rows, n_in,
-                                                   device=conf_device)
-            confidences[i] = _quality.confidence_records(in_ids, arrs)
-        WeaverTorch._resolve_cross_window_duplicates(
-            all_assignments, all_topk, in_ids, prep["skip_budget"])
-        cnt_unassigned = sum(
-            1 for in_id in in_ids
-            if any(all_assignments[ep][in_id] == NA for ep in out_eps))
-        results[i] = (all_assignments, all_topk, int(span_not_best.sum()), n_in,
-                      {in_ids[j]: int(span_cands[j]) for j in range(n_in)},
-                      cnt_unassigned)
-    st.add("decode_s", time.perf_counter() - t0)
-    _trace_stage(sorted({item.trace_key for _, item, *_ in per_item_pack
-                         if item.trace_key is not None}), "decode", w0)
+    o = out if isinstance(out, np.ndarray) else _fetch(out, st, run.faults, group=group)
+    with st.stage("decode", "decode_s", group=group,
+                  trace_keys=_group_keys(per_item_pack)):
+        row = 0
+        for i, item, prep, packed, n_w in per_item_pack:
+            rows = o[row:row + n_w]
+            ch = _layout.split_packed(rows, confidence=conf_device)
+            row += n_w
+            if item.tenant is not None:
+                # the tenancy column's decode end: packed equals decoded
+                st.bucket("tenant_windows_decoded", item.tenant, float(n_w))
+            out_eps = prep["out_eps"]
+            in_ids = prep["in_cols"].ids.tolist()
+            n_in = prep["n_in"]
+            all_assignments = {ep: {} for ep in out_eps}
+            all_topk = {ep: {} for ep in out_eps}
+            WeaverTorch._decode(packed, ch["assign"], ch["topk_cols"],
+                                all_assignments, all_topk)
+            span_not_best = np.zeros(n_in, dtype=bool)
+            span_cands = np.ones(n_in, dtype=np.int64)
+            scatter_window_span_stats(packed.windows, ch["not_best"], ch["feas"],
+                                      span_not_best, span_cands)
+            if confidences is not None:
+                arrs = _quality.span_confidence_arrays(packed.windows, rows, n_in,
+                                                       device=conf_device)
+                confidences[i] = _quality.confidence_records(in_ids, arrs)
+            WeaverTorch._resolve_cross_window_duplicates(
+                all_assignments, all_topk, in_ids, prep["skip_budget"])
+            cnt_unassigned = sum(
+                1 for in_id in in_ids
+                if any(all_assignments[ep][in_id] == NA for ep in out_eps))
+            results[i] = (all_assignments, all_topk, int(span_not_best.sum()), n_in,
+                          {in_ids[j]: int(span_cands[j]) for j in range(n_in)},
+                          cnt_unassigned)

@@ -1,14 +1,31 @@
 """Profiler hooks (mirrors ``traceweaver_tpu/obs/profile.py:30-96``).
 
-- :func:`annotate`: a named range around a host stage. With profiling
-  enabled it is ``torch.profiler.record_function(name)`` (and, on a CUDA
-  build, an NVTX range of the same name), so the fleet's and the
-  solver's stages (``tw:fleet:dispatch``, ``tw:solve:dispatch``, ...)
-  show up in a ``torch.profiler`` trace. Disabled (the default) it is a
-  null context: ``record_function`` costs host time on every call even
-  with no profiler attached.
+- :func:`annotate`: the one stage scope. Each use takes one
+  ``perf_counter`` pair and does three things with it: bills the seconds
+  through ``bill(key, seconds)`` (the fleet passes its stats ledger's
+  ``add``, so ``obs/`` imports no caller) and appends ``(name, t0, t1)``
+  to ``stamps`` when given; with profiling enabled opens a
+  ``torch.profiler`` range of the name (and, on a CUDA build, an NVTX
+  range of the same name), so the fleet's and the solver's stages
+  (``tw:fleet:plan``, ``tw:fleet:pack``, ``tw:fleet:dispatch``,
+  ``tw:fleet:decode``, ``tw:solve:dispatch``, ...) show up in a
+  ``torch.profiler`` trace; and with a self-tracer installed stamps the
+  stage on the window keys it is given (:mod:`.selftrace`). A range
+  carries its group's index in the round as its one argument, inherited
+  by the scopes nested in it on its thread, so one group's pack,
+  dispatch, fetch and decode link across threads (a trace recorded with
+  ``record_shapes=True`` shows it as the range's concrete input). The
+  wall stamp is taken only with a tracer installed. Disabled (the
+  default) the scope opens no range: ``record_function`` costs host time
+  on every call even with no profiler attached.
 - :func:`enable` / :func:`disable` / :func:`profiling`: the switch, an
-  explicit call in place of the JAX package's ``TW_PROFILE``.
+  explicit call in place of the JAX package's ``TW_PROFILE``. While it is
+  on, a ``gc.callbacks`` hook opens a ``tw:gc:<generation>`` range over
+  every collection of generation 1 or 2, so a gap of the card that a
+  collection holds is named by it. Generation 0 gets none: a collection
+  of it takes tens of microseconds, hundreds of them run a fleet round,
+  no long gap comes from one, and a range on each would only slow the
+  traced window.
 - :func:`device_memory_families`: scrape-time gauge families of each
   card's allocated, peak and total bytes (``torch.cuda.memory_stats``,
   ``mem_get_info``); empty when profiling is off or there is no card.
@@ -21,22 +38,39 @@
 
 from __future__ import annotations
 
+import gc
 import threading
+import time
 from contextlib import contextmanager
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from traceweaver_tpu_torch.obs import selftrace as _selftrace
 
 _state = {"enabled": False}
 _lock = threading.Lock()
+# per thread: the group index the open scopes carry, and the open
+# garbage-collection range
+_local = threading.local()
+
+
+def _switch(on: bool) -> None:
+    """Set the switch, and the gc hook with it (under ``_lock``)."""
+    _state["enabled"] = on
+    hooked = _gc_range in gc.callbacks
+    if on and not hooked:
+        gc.callbacks.append(_gc_range)
+    elif not on and hooked:
+        gc.callbacks.remove(_gc_range)
 
 
 def enable() -> None:
     with _lock:
-        _state["enabled"] = True
+        _switch(True)
 
 
 def disable() -> None:
     with _lock:
-        _state["enabled"] = False
+        _switch(False)
 
 
 def enabled() -> bool:
@@ -48,34 +82,114 @@ def profiling():
     """Profiling enabled for the duration of the context."""
     with _lock:
         prev = _state["enabled"]
-        _state["enabled"] = True
+        _switch(True)
     try:
         yield
     finally:
         with _lock:
-            _state["enabled"] = prev
+            _switch(prev)
 
 
-@contextmanager
-def annotate(name: str):
-    """Named profiler range around a host stage when profiling is
-    enabled; a null context otherwise."""
-    if not _state["enabled"]:
-        yield
-        return
+def _range_open(name: str, group: Optional[int]):
+    """Open the profiler range ``name`` (the group index, when there is
+    one, as its argument; ``record_function`` would drop a string one)
+    and, on a CUDA build, the NVTX range of the same name."""
     import torch
 
+    handle = torch._C._autograd._record_function_with_args_enter(
+        name, *(() if group is None else (group,)))
     # twlint-torch: disable=TW103 — instrumentation only: an NVTX range
     # where there is a card, nothing runs elsewhere because of it
     nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    return handle, nvtx
+
+
+def _range_close(rng) -> None:
+    import torch
+
+    handle, nvtx = rng
+    if nvtx:
+        torch.cuda.nvtx.range_pop()
+    torch._C._autograd._record_function_with_args_exit(handle)
+
+
+def _gc_range(phase: str, info: Dict) -> None:
+    """The ``gc.callbacks`` hook while profiling is on: a
+    ``tw:gc:<generation>`` range over each collection of generation 1 or
+    2 (a collection starts and stops on one thread)."""
+    if phase == "start":
+        if info["generation"] >= 1:
+            _local.gc = _range_open(f"tw:gc:{info['generation']}", None)
+        return
+    rng = getattr(_local, "gc", None)
+    if rng is not None:
+        _local.gc = None
+        _range_close(rng)
+
+
+class Stamp:
+    """The ``perf_counter`` stamps of one stage scope, ``t1`` set as it
+    closes."""
+
+    __slots__ = ("t0", "t1")
+
+    def __init__(self) -> None:
+        self.t0 = self.t1 = 0.0
+
+    @property
+    def seconds(self) -> float:
+        return self.t1 - self.t0
+
+
+@contextmanager
+def annotate(name: str, bill: Optional[Callable[[str, float], None]] = None,
+             key: Optional[str] = None, *, group: Optional[int] = None,
+             trace_keys: Sequence[str] = (), trace_stage: Optional[str] = None,
+             stamps: Optional[List[Tuple[str, float, float]]] = None):
+    """The stage scope ``name``; yields its :class:`Stamp`. At its close
+    it calls ``bill(key, seconds)`` (both given) and appends ``(name, t0,
+    t1)`` to ``stamps`` (given). With profiling enabled it runs inside
+    the profiler range ``name`` carrying ``group`` (None: the group of
+    the scope it is nested in on this thread, if any). With a self-tracer
+    installed it records the stage ``trace_stage`` (None: ``name``) on
+    every window key in ``trace_keys``."""
+    tracer = _selftrace.active() if trace_keys else None
+    w0 = _selftrace.now_us() if tracer is not None else 0.0
+    rng = outer = None
+    if _state["enabled"]:
+        outer = getattr(_local, "group", None)
+        _local.group = outer if group is None else group
+        rng = _range_open(name, _local.group)
+    stamp = Stamp()
+    stamp.t0 = time.perf_counter()
+    try:
+        yield stamp
+    finally:
+        stamp.t1 = time.perf_counter()
+        if rng is not None:
+            _range_close(rng)
+            _local.group = outer
+        if bill is not None and key is not None:
+            bill(key, stamp.t1 - stamp.t0)
+        if stamps is not None:
+            stamps.append((name, stamp.t0, stamp.t1))
+        if tracer is not None:
+            w1 = _selftrace.now_us()
+            for k in trace_keys:
+                tracer.stage(k, trace_stage or name, w0, w1)
+
+
+def union(intervals: Sequence[Tuple[float, float]]) -> List[Tuple[float, float]]:
+    """The union of ``(lo, hi)`` intervals as disjoint sorted intervals."""
+    merged: List[List[float]] = []
+    for lo, hi in sorted(intervals):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return [(lo, hi) for lo, hi in merged]
 
 
 def device_memory_families() -> List[Tuple[str, str, str,
@@ -146,16 +260,6 @@ def trace_intervals(prof) -> Tuple[List[Tuple[str, float, float]],
     return device, ranges
 
 
-def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
-    merged: List[List[float]] = []
-    for lo, hi in sorted(intervals):
-        if merged and lo <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], hi)
-        else:
-            merged.append([lo, hi])
-    return [(lo, hi) for lo, hi in merged]
-
-
 def _host_range_at(t: float, ranges) -> str:
     """The innermost ``tw:*`` range (shortest) open at time ``t``."""
     inside = [(hi - lo, name) for name, lo, hi in ranges if lo <= t <= hi]
@@ -177,7 +281,7 @@ def device_timeline(kernels: List[Tuple[str, float, float]],
         raise ValueError(f"empty window [{t0}, {t1}]")
     clipped = [(max(lo, t0), min(hi, t1)) for _, lo, hi in kernels
                if hi > t0 and lo < t1]
-    busy = _union(clipped)
+    busy = union(clipped)
     busy_time = sum(hi - lo for lo, hi in busy)
     gaps, cursor = [], t0
     for lo, hi in busy + [(t1, t1)]:
