@@ -143,6 +143,7 @@ from traceweaver_tpu_torch.algorithms.weaver_torch import (
     _bucket,
     _pack_problem_devcols,
     candidate_ranges,
+    decode_service,
     dists_from_tables,
     in_columns,
     out_columns,
@@ -151,7 +152,6 @@ from traceweaver_tpu_torch.algorithms.weaver_torch import (
     plan_find_assignments,
     refit_fleet_params,
     resolve_device,
-    scatter_window_span_stats,
     solve_em_fleet,
     solve_windows_fleet,
 )
@@ -1515,8 +1515,10 @@ def _solve_group_mesh(batch, pidx, params, window_rows, window_valid, n_passes,
 def _decode_group(pend, results, st: _Stats, run: _Run, ctx,
                   group: Optional[int] = None) -> None:
     """Fetch group ``group``'s packed output (unless the compacted flow
-    already did) and decode it per service into its input-order slot,
-    with the item's confidence records when the caller asked for them."""
+    already did) and decode it per service (:func:`decode_service`, which
+    counts ``decode_answers`` and ``decode_contested``) into its
+    input-order slot, with the item's confidence records when the caller
+    asked for them."""
     per_item_pack, out, conf_device = pend
     confidences = ctx["confidences"]
     o = out if isinstance(out, np.ndarray) else _fetch(out, st, run.faults, group=group)
@@ -1530,26 +1532,12 @@ def _decode_group(pend, results, st: _Stats, run: _Run, ctx,
             if item.tenant is not None:
                 # the tenancy column's decode end: packed equals decoded
                 st.bucket("tenant_windows_decoded", item.tenant, float(n_w))
-            out_eps = prep["out_eps"]
             in_ids = prep["in_cols"].ids.tolist()
-            n_in = prep["n_in"]
-            all_assignments = {ep: {} for ep in out_eps}
-            all_topk = {ep: {} for ep in out_eps}
-            WeaverTorch._decode(packed, ch["assign"], ch["topk_cols"],
-                                all_assignments, all_topk)
-            span_not_best = np.zeros(n_in, dtype=bool)
-            span_cands = np.ones(n_in, dtype=np.int64)
-            scatter_window_span_stats(packed.windows, ch["not_best"], ch["feas"],
-                                      span_not_best, span_cands)
             if confidences is not None:
-                arrs = _quality.span_confidence_arrays(packed.windows, rows, n_in,
+                arrs = _quality.span_confidence_arrays(packed.windows, rows, prep["n_in"],
                                                        device=conf_device)
                 confidences[i] = _quality.confidence_records(in_ids, arrs)
-            WeaverTorch._resolve_cross_window_duplicates(
-                all_assignments, all_topk, in_ids, prep["skip_budget"])
-            cnt_unassigned = sum(
-                1 for in_id in in_ids
-                if any(all_assignments[ep][in_id] == NA for ep in out_eps))
-            results[i] = (all_assignments, all_topk, int(span_not_best.sum()), n_in,
-                          {in_ids[j]: int(span_cands[j]) for j in range(n_in)},
-                          cnt_unassigned)
+            results[i], counts = decode_service(
+                [(packed, ch["assign"], ch["topk_cols"], ch["not_best"], ch["feas"])],
+                prep["out_eps"], in_ids, prep["skip_budget"])
+            st.merge(counts)

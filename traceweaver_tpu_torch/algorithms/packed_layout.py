@@ -20,7 +20,9 @@ option; the base layout above is unchanged)::
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
 
 CH_ASSIGN = 0
 CH_NOT_BEST = 1
@@ -69,3 +71,15 @@ def split_packed(block, confidence: bool = False,
         out["margin_q"] = block[..., ch_margin(topk)]
         out["entropy_q"] = block[..., ch_entropy(topk)]
     return out
+
+
+def answer_rows(windows: Sequence[Tuple[int, int]]
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Where each answer of a window tiling sits: ``(w_of, i_of, pos)``,
+    its window row, its row in the window and its span's position in the
+    sorted incoming spans, in window order."""
+    n_w = np.fromiter((hi - lo for lo, hi in windows), np.int64, len(windows))
+    los = np.fromiter((lo for lo, _ in windows), np.int64, len(windows))
+    w_of = np.repeat(np.arange(len(windows)), n_w)
+    i_of = np.arange(int(n_w.sum())) - np.repeat(np.cumsum(n_w) - n_w, n_w)
+    return w_of, i_of, i_of + np.repeat(los, n_w)

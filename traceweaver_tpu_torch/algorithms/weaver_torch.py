@@ -28,7 +28,7 @@ endpoints is a Python loop.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -521,17 +521,13 @@ def perfect_cut_windows_cols(cols: SpanArray,
     return windows
 
 
-def scatter_window_span_stats(windows, not_best, feas,
+def scatter_window_span_stats(rows, not_best, feas,
                               span_not_best, span_cands) -> None:
-    """Per-span reductions over a packed window batch, in place: "not
+    """Per-span reductions over a packed window batch whose answers sit
+    at ``rows`` (:meth:`PackedProblem.answer_rows`), in place: "not
     best" if any endpoint's OT choice overrode the row argmax; candidate
     count = product of per-endpoint feasible counts."""
-    if not windows:
-        return
-    w_of = np.concatenate(
-        [np.full(hi - lo, b) for b, (lo, hi) in enumerate(windows)])
-    i_of = np.concatenate([np.arange(hi - lo) for lo, hi in windows])
-    pos = np.concatenate([np.arange(lo, hi) for lo, hi in windows])
+    w_of, i_of, pos = rows
     span_not_best[pos] = not_best[w_of, :, i_of].any(axis=1)
     span_cands[pos] = np.maximum(
         feas[w_of, :, i_of], 1).astype(np.int64).prod(axis=1)
@@ -621,12 +617,21 @@ class PackedProblem:
     out_ids: List[EndpointIds]
     n_in: int
     devcols: Optional[Dict] = None
+    _rows: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def M(self) -> int:
         if self.devcols is not None:
             return int(self.devcols["out_idx"].shape[2])
         return int(self.arrays["out_start"].shape[2])
+
+    def answer_rows(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``(w_of, i_of, pos)`` of every answer of the batch
+        (:func:`packed_layout.answer_rows` of its windows), built once."""
+        if self._rows is None:
+            self._rows = _layout.answer_rows(self.windows)
+        return self._rows
 
     def out_id_array(self, e: int) -> np.ndarray:
         return self.out_ids[e].gather()
@@ -1215,85 +1220,29 @@ class WeaverTorch:
 
     @staticmethod
     def _decode(packed: PackedProblem, assign: np.ndarray,
-                topk_cols: np.ndarray, all_assignments, all_topk):
-        """Device column indices -> span-id assignment dicts (in place)."""
-        B, E, W = assign.shape
+                topk_cols: np.ndarray, codes, topk_codes) -> None:
+        """One packed batch's device columns -> integer codes into each
+        endpoint's id table, appended in place to ``codes[e]`` (``[n]``)
+        and ``topk_codes[e]`` (``[n, K]``) in :meth:`PackedProblem.
+        answer_rows` order (:func:`decode_service` turns them into span
+        ids). Column ``c`` of window row ``w`` is ``r0[w] + c`` while
+        ``c < count[w]``; column ``M`` is ``SKIP_CODE``; an empty slot, a
+        negative column or a top-K column past ``M`` is ``NA_CODE``; an
+        answer column past ``M`` reads as column ``M - 1``. A top-K row
+        is the chosen code, then the row's codes, in order, with the
+        first occurrence of the chosen one dropped, cut to ``K``."""
         M = packed.M
-        K = topk_cols.shape[3]
-        skip_v = np.empty((), dtype=object)
-        skip_v[()] = SKIP
-        na_v = np.empty((), dtype=object)
-        na_v[()] = NA
-
-        w_of = np.concatenate(
-            [np.full(hi - lo, b) for b, (lo, hi) in enumerate(packed.windows)])
-        i_of = np.concatenate([np.arange(hi - lo) for lo, hi in packed.windows])
-        pos = np.concatenate([np.arange(lo, hi) for lo, hi in packed.windows])
-        span_ids = packed.in_ids[pos].tolist()
-
-        for e, ep in enumerate(packed.out_eps):
-            ids = packed.out_id_array(e)
-            cols = assign[w_of, e, i_of]
-            chosen = ids[w_of * M + np.clip(cols, 0, M - 1)]
-            chosen[chosen == None] = na_v  # noqa: E711 — elementwise None test
-            chosen[cols < 0] = na_v
-            chosen[cols == M] = skip_v
-
-            tk = topk_cols[w_of, e, i_of, :]
-            tk_ids = ids[w_of[:, None] * M + np.clip(tk, 0, M - 1)]
-            tk_ids[tk_ids == None] = na_v  # noqa: E711
-            tk_ids[(tk < 0) | (tk > M)] = na_v
-            tk_ids[tk == M] = skip_v
-
-            amap = all_assignments[ep]
-            tmap = all_topk[ep]
-            chosen_l = chosen.tolist()
-            tk_l = tk_ids.tolist()
-            for j, in_id in enumerate(span_ids):
-                out_id = chosen_l[j]
-                tks = tk_l[j]
-                if out_id in tks:
-                    tks.remove(out_id)
-                amap[in_id] = out_id
-                tmap[in_id] = [out_id] + tks[: K - 1]
-
-    @staticmethod
-    def _resolve_cross_window_duplicates(all_assignments, all_topk, in_ids,
-                                         skip_budget):
-        """Restore one-to-one-ness across capped sub-windows: per
-        contested out-span the earliest incoming span keeps it; the
-        others take their best free top-K alternative, SKIP while the
-        endpoint's global budget has room, else NA."""
-        for ep, assign_map in all_assignments.items():
-            claims: Dict = {}
-            skips_used = 0
-            for in_id in in_ids:
-                out_id = assign_map.get(in_id)
-                if out_id == SKIP:
-                    skips_used += 1
-                elif out_id is not None and out_id != NA:
-                    claims.setdefault(out_id, []).append(in_id)
-            used = set(claims)
-            for out_id, claimants in claims.items():
-                for in_id in claimants[1:]:
-                    replacement = NA
-                    for cand in all_topk.get(ep, {}).get(in_id, []):
-                        if cand == SKIP:
-                            if skips_used < skip_budget.get(ep, 0):
-                                replacement = SKIP
-                                skips_used += 1
-                                break
-                            continue
-                        if cand != NA and cand not in used:
-                            replacement = cand
-                            break
-                    assign_map[in_id] = replacement
-                    if replacement not in (NA, SKIP):
-                        used.add(replacement)
-                    tk = all_topk.get(ep, {}).get(in_id)
-                    if tk and replacement in tk:
-                        tk.remove(replacement)
-                        tk.insert(0, replacement)
+        w_of, i_of, _ = packed.answer_rows()
+        for e in range(len(packed.out_eps)):
+            col_ids = packed.out_ids[e]
+            r0 = col_ids.r0[w_of]
+            n_cols = np.minimum(col_ids.count, M)[w_of]
+            a = assign[w_of, e, i_of]
+            chosen = _column_codes(np.where(a > M, M - 1, a), r0, n_cols, M)
+            tk = _column_codes(topk_cols[w_of, e, i_of, :], r0[:, None],
+                               n_cols[:, None], M)
+            codes[e].append(chosen)
+            topk_codes[e].append(_chosen_first(chosen, tk))
 
     def FindAssignments(self, method, process, in_span_partitions,
                         out_span_partitions, parallel, instrumented_hops,
@@ -1322,7 +1271,7 @@ class WeaverTorch:
         stats: Dict[str, float] = {}
         per_span_confidence: Dict = {}
         all_assignments = all_topk = None
-        not_best_count = 0
+        not_best_count = cnt_unassigned = 0
         per_span_candidates: Dict = {}
         in_ids = [s.GetId() for s in in_spans]
         it = 0
@@ -1337,25 +1286,20 @@ class WeaverTorch:
             if stats.get("fused_em_applied"):
                 iterations = 1  # the fused dispatch already ran both passes
             t0 = time.perf_counter()
-            all_assignments = {ep: {} for ep in out_eps}
-            all_topk = {ep: {} for ep in out_eps}
-            span_not_best = np.zeros(n_in, dtype=bool)
-            span_cands = np.ones(n_in, dtype=np.int64)
-            conf_arrs = _quality.new_span_arrays(n_in) if self.confidence else None
-            for packed, (assign, topk_cols, not_best, feas) in batches:
-                self._decode(packed, assign, topk_cols, all_assignments, all_topk)
-                scatter_window_span_stats(packed.windows, not_best, feas,
-                                          span_not_best, span_cands)
-                if self.confidence:
+            if self.confidence:
+                conf_arrs = _quality.new_span_arrays(n_in)
+                for packed, (_, topk_cols, not_best, feas) in batches:
                     _quality.scatter_confidence(packed.windows, not_best, feas,
                                                 topk_cols, conf_arrs)
-            not_best_count = int(span_not_best.sum())
-            per_span_candidates = {in_ids[i]: int(span_cands[i]) for i in range(n_in)}
-            per_span_confidence = (_quality.confidence_records(
-                in_ids, _quality.finish_confidence(conf_arrs))
-                if self.confidence else {})
-            self._resolve_cross_window_duplicates(
-                all_assignments, all_topk, in_ids, skip_budget)
+                per_span_confidence = _quality.confidence_records(
+                    in_ids, _quality.finish_confidence(conf_arrs))
+            decoded, counts = decode_service(
+                [(packed, *outs) for packed, outs in batches], out_eps, in_ids,
+                skip_budget)
+            all_assignments, all_topk, not_best_count = decoded[:3]
+            per_span_candidates, cnt_unassigned = decoded[4:]
+            for key, val in counts.items():
+                _stat_add(stats, key, val)
             _stat_add(stats, "decode_s", time.perf_counter() - t0)
             if it + 1 < iterations:
                 t0 = time.perf_counter()
@@ -1366,10 +1310,161 @@ class WeaverTorch:
                 _stat_add(stats, "refit_s", time.perf_counter() - t0)
             it += 1
 
-        cnt_unassigned = sum(
-            1 for in_id in in_ids
-            if any(all_assignments[ep][in_id] == NA for ep in out_eps))
         self.stats = stats
         self.per_span_confidence = per_span_confidence
         return (all_assignments, all_topk, not_best_count, n_in,
                 per_span_candidates, cnt_unassigned)
+
+
+#: codes of the two answers that are not a span: indices -2 and -1 of an
+#: endpoint's id table extended with ``(SKIP, NA)``
+SKIP_CODE, NA_CODE = -2, -1
+
+
+def _column_codes(cols: np.ndarray, r0: np.ndarray, n_cols: np.ndarray,
+                  M: int) -> np.ndarray:
+    """Codes of candidate columns: ``r0 + c`` for ``0 <= c < n_cols``,
+    ``SKIP_CODE`` for ``c == M``, else ``NA_CODE``."""
+    code = np.where((cols >= 0) & (cols < n_cols), r0 + cols, NA_CODE)
+    code[cols == M] = SKIP_CODE
+    return code
+
+
+def _chosen_first(chosen: np.ndarray, tk: np.ndarray) -> np.ndarray:
+    """``[n, K]`` rows, in ``tk``'s place: ``chosen``, then ``tk``'s row
+    with the first occurrence of ``chosen`` dropped, cut to ``K``. A row
+    that already starts with ``chosen`` stays as it is."""
+    moved = np.flatnonzero(tk[:, 0] != chosen)
+    if len(moved):
+        t, c = tk[moved], chosen[moved]
+        hit = t == c[:, None]
+        first = np.where(hit.any(axis=1), hit.argmax(axis=1), t.shape[1])
+        j = np.arange(t.shape[1] - 1)[None, :]
+        t[:, 1:] = np.take_along_axis(t, j + (j >= first[:, None]), axis=1)
+        t[:, 0] = c
+        tk[moved] = t
+    return tk
+
+
+def _resolve_codes(code: np.ndarray, top: np.ndarray, rank: np.ndarray,
+                   n_table: int, skip_budget: int) -> int:
+    """Restore one-to-one-ness across capped sub-windows on one
+    endpoint's codes, in place: per contested out-span the claimant of
+    least ``rank`` (its span's position in the service's sorted incoming
+    spans) keeps it; each other claimant, out-spans in first-claim order
+    and claimants in rank order, takes its best top-K alternative that
+    no answer holds, SKIP while the endpoint's budget has room, else NA,
+    and that replacement moves to the front of its top-K row. Returns
+    how many claimants took that walk."""
+    real = np.flatnonzero(code >= 0)
+    if not len(real) or np.bincount(code[real], minlength=n_table).max() < 2:
+        return 0
+    by_claim = real[np.lexsort((rank[real], code[real]))]
+    claimed = code[by_claim]
+    later = np.empty(len(claimed), dtype=bool)
+    later[:1] = False
+    np.equal(claimed[1:], claimed[:-1], out=later[1:])
+    losers = np.flatnonzero(later)
+    group = np.cumsum(~later) - 1
+    first_rank = rank[by_claim[~later]]
+    losers = by_claim[losers[np.argsort(first_rank[group[losers]], kind="stable")]]
+    used = np.zeros(n_table, dtype=bool)
+    used[claimed] = True
+    skips = int(np.count_nonzero(code == SKIP_CODE))
+    for j in losers.tolist():
+        row = top[j].tolist()
+        repl = NA_CODE
+        for cand in row:
+            if cand == SKIP_CODE:
+                if skips < skip_budget:
+                    repl = SKIP_CODE
+                    skips += 1
+                    break
+                continue
+            if cand != NA_CODE and not used[cand]:
+                repl = cand
+                break
+        code[j] = repl
+        if repl >= 0:
+            used[repl] = True
+        if repl in row:
+            row.remove(repl)
+            top[j] = [repl] + row
+    return len(losers)
+
+
+def _joined_table(tables: List[np.ndarray], codes: List[np.ndarray],
+                  topk_codes: List[np.ndarray]) -> np.ndarray:
+    """One endpoint's id table for batches that do not all share one:
+    each span once, and every batch's codes (in place) moved into it."""
+    if all(t is tables[0] for t in tables):
+        return tables[0]
+    index: Dict = {}
+    for t in tables:
+        for sid in t.tolist():
+            index.setdefault(sid, len(index))
+    for t, c, k in zip(tables, codes, topk_codes):
+        into = np.fromiter((index[sid] for sid in t.tolist()), np.int64, len(t))
+        for part in (c, k):
+            part[part >= 0] = into[part[part >= 0]]
+    joined = np.empty(len(index), dtype=object)
+    for sid, i in index.items():
+        joined[i] = sid
+    return joined
+
+
+def decode_service(chunks, out_eps: List[str], in_ids: List,
+                   skip_budget: Dict[str, int]) -> Tuple[Tuple, Dict[str, float]]:
+    """One service's FindAssignments 6-tuple from the device answers of
+    its packed batches, ``[(packed, assign, topk_cols, not_best, feas)]``
+    (the fleet's one batch an item, or ``FindAssignments``' size-class
+    chunks in dispatch order); ``in_ids`` are the service's sorted
+    incoming span ids. Each endpoint's answers are integer codes
+    (:meth:`WeaverTorch._decode`) resolved across windows
+    (:func:`_resolve_codes`) before one table gather makes the span ids.
+    Also returns the counts ``decode_answers`` (answers decoded) and
+    ``decode_contested`` (those that took the contested walk).
+
+    Codes equal exactly when span ids do: an endpoint's table is the
+    :class:`SpanArray` of its out-span partition, each span once."""
+    n_in = len(in_ids)
+    span_not_best = np.zeros(n_in, dtype=bool)
+    span_cands = np.ones(n_in, dtype=np.int64)
+    codes: List[List[np.ndarray]] = [[] for _ in out_eps]
+    topk_codes: List[List[np.ndarray]] = [[] for _ in out_eps]
+    decoded: List[PackedProblem] = []
+    for packed, assign, topk_cols, not_best, feas in chunks:
+        WeaverTorch._decode(packed, assign, topk_cols, codes, topk_codes)
+        scatter_window_span_stats(packed.answer_rows(), not_best, feas,
+                                  span_not_best, span_cands)
+        decoded.append(packed)
+    rank = np.concatenate([np.zeros(0, dtype=np.int64)]
+                          + [packed.answer_rows()[2] for packed in decoded])
+    # the answers' span ids: ``in_ids`` itself where they come in its order
+    keys = (in_ids if np.array_equal(rank, np.arange(n_in)) else
+            [k for packed in decoded for k in packed.in_ids[packed.answer_rows()[2]].tolist()])
+    unassigned = np.zeros(n_in, dtype=bool)
+    all_assignments: Dict = {}
+    all_topk: Dict = {}
+    n_contested = 0
+    for e, ep in enumerate(out_eps):
+        if not decoded:
+            all_assignments[ep], all_topk[ep] = {}, {}
+            continue
+        table = _joined_table([packed.out_ids[e].table for packed in decoded],
+                              codes[e], topk_codes[e])
+        code = np.concatenate(codes[e])
+        top = np.concatenate(topk_codes[e])
+        n_contested += _resolve_codes(code, top, rank, len(table),
+                                      skip_budget.get(ep, 0))
+        unassigned[rank[code == NA_CODE]] = True
+        ids = np.empty(len(table) + 2, dtype=object)
+        ids[:-2] = table
+        ids[-2], ids[-1] = SKIP, NA
+        all_assignments[ep] = dict(zip(keys, ids[code].tolist()))
+        all_topk[ep] = dict(zip(keys, ids[top].tolist()))
+    decoded = (all_assignments, all_topk, int(span_not_best.sum()), n_in,
+               dict(zip(in_ids, span_cands.tolist())),
+               int(np.count_nonzero(unassigned)))
+    return decoded, {"decode_answers": float(len(rank) * len(out_eps)),
+                     "decode_contested": float(n_contested)}

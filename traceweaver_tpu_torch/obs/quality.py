@@ -70,14 +70,6 @@ _OBS_DRIFT_MATURE = _OBS.gauge(
     "0 while the PSI comes from a thin window", labels=("key",))
 
 
-def _window_maps(windows: Sequence[Tuple[int, int]]):
-    w_of = np.concatenate(
-        [np.full(hi - lo, b) for b, (lo, hi) in enumerate(windows)])
-    i_of = np.concatenate([np.arange(hi - lo) for lo, hi in windows])
-    pos = np.concatenate([np.arange(lo, hi) for lo, hi in windows])
-    return w_of, i_of, pos
-
-
 def new_span_arrays(n_in: int, device: bool = False) -> Dict[str, np.ndarray]:
     """Per-span arrays that :func:`scatter_confidence` fills batch by
     batch before :func:`finish_confidence`."""
@@ -102,7 +94,7 @@ def scatter_confidence(windows: Sequence[Tuple[int, int]],
     product, support = max, margin = min, entropy = max."""
     if not windows:
         return
-    w_of, i_of, pos = _window_maps(windows)
+    w_of, i_of, pos = _layout.answer_rows(windows)
     arrs["not_best"][pos] = not_best[w_of, :, i_of].any(axis=1)
     arrs["cands"][pos] = np.maximum(
         feas[w_of, :, i_of], 1).astype(np.int64).prod(axis=1)
