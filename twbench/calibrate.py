@@ -49,7 +49,7 @@ def main(argv=None) -> int:
         print(s, file=sys.stderr, flush=True)
 
     for seed in (int(s) for s in args.seeds.split(",")):
-        dep = harness.build_deployment(cell, seed, log)
+        dep = harness.build_deployment(cell, seed, torch.device("cuda"), log)
         for mode in modes:
             t0 = time.perf_counter()
             plant = (faults.planted(mode) if mode in faults.FAULTS

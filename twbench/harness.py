@@ -5,10 +5,14 @@ window produced.
 The entry the window drives is
 ``traceweaver_tpu_torch.algorithms.fleet.solve_fleet`` over every solvable
 service of the corpus, with one plan cache, one round in flight (a closed
-loop). Set-up builds the corpus with :mod:`twbench.generator`, ingests it
-with the program's ``load_corpus`` (fix=5), builds each service's problem
-as ``campaign/corpus.py build_rung`` does, applies exp5's load transform
-with the benchmark's copy, and runs warm-up rounds: a cold round, which
+loop). Set-up writes the corpus with the configuration's corpus step
+(``twbench/corpora/<corpus>.py``), ingests it with the program's
+``load_corpus`` (the configuration's ``fix``), builds each service's
+problem as ``campaign/corpus.py build_rung`` does and its invocation DAG
+with the configuration's DAG step (``twbench/dags/<dag>.py``; what each
+step takes, and which configuration keys are read where, is in
+:mod:`twbench.spec`), applies exp5's load transform with the benchmark's
+copy, and runs warm-up rounds: a cold round, which
 fits every service and fills the plan cache, then warm rounds until one
 builds no kernel. Set-up ends with a full garbage collection and
 ``gc.freeze()``: what set-up built (the corpus, the problems, the plan
@@ -88,13 +92,13 @@ class Deployment:
         self.traces = traces
 
 
-def build_deployment(cell: Cell, seed: int, log: Callable[[str], None]) -> Deployment:
+def build_deployment(cell: Cell, seed: int, device, log: Callable[[str], None]) -> Deployment:
+    """The corpus of ``cell`` from ``seed``: written by the configuration's
+    corpus step, ingested, each service's problem with the DAG that the
+    configuration's DAG step gives (on ``device``), under exp5's load
+    transform, with its grading truth."""
     from traceweaver_tpu_torch.algorithms.fleet import FleetItem
-    from traceweaver_tpu_torch.ingest import (
-        build_service_problem,
-        infer_invocation_dag,
-        load_corpus,
-    )
+    from traceweaver_tpu_torch.ingest import build_service_problem, load_corpus
     from traceweaver_tpu_torch.metrics import get_ground_truth
 
     cfg, traffic = cell.config, cell.traffic
@@ -102,10 +106,7 @@ def build_deployment(cell: Cell, seed: int, log: Callable[[str], None]) -> Deplo
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="twbench-corpus-")
     try:
-        dirs = generator.synthesize(root, counts, seed,
-                                    corpus_seed=int(cfg["corpus_seed"]),
-                                    base_gap_ms=int(cfg["base_gap_ms"]),
-                                    n_services=int(cfg["n_services"]))
+        dirs = cell.corpus(root, counts, seed, cfg)
         t1 = time.perf_counter()
         # the loader names self-call services from the global generator
         random.seed(seed)
@@ -124,8 +125,7 @@ def build_deployment(cell: Cell, seed: int, log: Callable[[str], None]) -> Deplo
             if prob.skipped:
                 continue
             true0 = get_ground_truth(prob.in_span_partitions, prob.out_span_partitions)
-            dag = infer_invocation_dag(prob.in_span_partitions, prob.out_span_partitions,
-                                       true0, store)
+            dag = cell.dag(prob, store, true0, device, cfg)
             factor = generator.load_factor(svc, float(cfg["compress"]), replicas,
                                            store.service_loop_map)
             in_parts, out_parts = generator.compress_problem(
@@ -209,7 +209,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     dev = torch.device(device)
     kw = dict(cell.config.get("solve", {}))
     kw.update(solve_kw or {})
-    dep = build_deployment(cell, seed, log) if dep is None else dep
+    dep = build_deployment(cell, seed, dev, log) if dep is None else dep
     t_built = time.perf_counter()
 
     # --- warm-up: the cold round fills the plan cache ----------------------

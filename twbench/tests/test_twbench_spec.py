@@ -4,11 +4,11 @@ and a metric added by new files alone."""
 import json
 import os
 import re
-import shutil
 
 import pytest
 
 from twbench import spec
+from twbench.tests.conftest import copy_checkout
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -73,23 +73,30 @@ def test_every_cell_loads():
         cell = spec.load_cell(w["name"])
         assert cell.config["name"] == w["config"]
         assert cell.traffic["graphs"] == cell.config["n_graphs"]
+        assert cell.corpus is not None and cell.dag is not None
         lim = spec.limits(cell.config)
         assert "at_least" in lim["accuracy_pct"] and "limit" in lim["decode_diff"]
 
 
 def test_new_cell_traffic_and_metric_by_new_files(tmp_path):
-    """A copy of the benchmark gains a configuration, a traffic mix, a cell
-    and a per-layer metric by new files and new entries alone."""
+    """A copy of the benchmark gains a configuration with its own corpus
+    and DAG steps, a traffic mix, a cell and a per-layer metric by new
+    files and new entries alone."""
     root = tmp_path / "checkout"
-    shutil.copytree(spec.HERE, root / "twbench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    b = _bench()
+    b = copy_checkout(root)
     cfg = json.loads((root / "twbench/configs/alibaba-exp5.json").read_text())
-    cfg.update(name="alibaba-exp5-x", n_graphs=3)
+    cfg.update(name="alibaba-exp5-x", n_graphs=3, corpus="clean_x", dag="flat_x",
+               corpus_x=1)
+    del cfg["base_gap_ms"]  # read by exp5's corpus step alone
     (root / "twbench/configs/alibaba-exp5-x.json").write_text(json.dumps(cfg))
+    (root / "twbench/corpora/clean_x.py").write_text(
+        "KEYS = ('corpus_x',)\n\n\ndef write(root, counts, seed, config):\n"
+        "    return []\n")
+    (root / "twbench/dags/flat_x.py").write_text(
+        "def infer(problem, store, truth, device, config):\n    return None\n")
     (root / "twbench/traffic/tiny-3x10.json").write_text(json.dumps(
         dict(name="tiny-3x10", graphs=3, distribution="uniform",
-             total_traces=30)))
+             total_traces=30, loop="closed", rounds_in_flight=1)))
     (root / "twbench/metrics/rounds_run.py").write_text(
         "def read(reading):\n    return float(len(reading['rounds']))\n")
     b["configs"].append(dict(name="alibaba-exp5-x", source="x", file=
@@ -102,6 +109,8 @@ def test_new_cell_traffic_and_metric_by_new_files(tmp_path):
     (root / "BENCHMARK.json").write_text(json.dumps(b))
     cell = spec.load_cell("tiny", root=str(root))
     assert cell.config["n_graphs"] == 3 and cell.traffic["total_traces"] == 30
+    assert cell.corpus.__code__.co_filename == str(root / "twbench/corpora/clean_x.py")
+    assert cell.dag.__code__.co_filename == str(root / "twbench/dags/flat_x.py")
     assert "rounds_run" in [m["name"] for m in cell.per_layer]
     assert spec.reader("rounds_run", root=str(root))({"rounds": [1, 2]}) == 2.0
     assert spec.limits(cell.config, root=str(root)) == spec.limits(
